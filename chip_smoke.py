@@ -2,15 +2,19 @@
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one CUDA
 card: build the hand-written kernels, hold each against its plain PyTorch
 version, check the GPU engine against the port's own CPU engine, then
-drive the engine's main path (``SearchEngine.query_batch`` with the numpy
-fit, survivor-sparse scoring and device ranking) at full size.
+drive the engine's paths at full size: the main path
+(``SearchEngine.query_batch`` with the numpy fit, survivor-sparse scoring
+and device ranking), the dtree/rforest full scan and the knn search
+(``SearchEngine.query``), and the use_fused=False host oracle
+(``query_batch`` through ``query_index``).
 
     python3 chip_smoke.py
 
 Phases print one JSON line each. The line before the last two is
-``{"kernels": [...]}`` (per kernel: launches on the main path, exactness,
+``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
 kernel / plain times by CUDA events, device-only times by torch.profiler,
-bound time); then the card's name and power limit as
+bound time, the library call's time where one exists); then the card's
+name and power limit as
 nvidia-smi reports them; the last line is the ``{"ok": true, ...}``
 record. Any failure raises and exits nonzero. Without CUDA, or without
 the rest of the repository beside it, it exits nonzero and prints no
@@ -44,7 +48,11 @@ MID_N = 65_536
 N_CLUSTERS = 1024
 TIME_ITERS = 30
 LIBRARY_NOTE = ("no single PyTorch call computes an interval-overlap or "
-                "half-open box-membership count; library_ms is null")
+                "half-open box-membership count, so library_ms is null for "
+                "zone_prune, box_scan_seg and box_scan; for l2dist it is "
+                "torch.cdist(x, q), which returns the root of the same "
+                "function")
+PLAIN_ITERS = 5          # the plain full scans take ~0.1 s a call
 
 
 def emit(obj) -> None:
@@ -110,6 +118,23 @@ def same_results(a, b, batched: bool = True) -> None:
                                      f"{ra.stats[k]} != {rb.stats[k]}")
 
 
+def same_all(a, b) -> None:
+    """ids, scores and every stat but the wall-clock ones bitwise equal
+    (the scan, knn and use_fused=False paths)."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        for r in (ra, rb):
+            if isinstance(r, Exception):
+                raise r
+        if not (ra.model == rb.model and np.array_equal(ra.ids, rb.ids)
+                and np.array_equal(ra.scores, rb.scores)):
+            raise AssertionError(f"{ra.model} {i}: ids/scores differ")
+        sa = {k: v for k, v in ra.stats.items() if not k.endswith("_s")}
+        sb = {k: v for k, v in rb.stats.items() if not k.endswith("_s")}
+        if sa != sb:
+            raise AssertionError(f"{ra.model} {i}: stats differ: {sa} != "
+                                 f"{sb}")
+
+
 def time_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
     """Median device time of one call, by CUDA events around each call."""
     import torch
@@ -126,10 +151,15 @@ def time_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
-    """Device-only time of one call: the summed self time of the device
-    events torch.profiler records over ``iters`` calls, over ``iters``.
-    Unlike ``time_ms`` it leaves out the host's launch path."""
+def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3):
+    """(ms, source): the device-only time of one call, the summed self
+    time of the device events torch.profiler records over ``iters`` calls,
+    over ``iters`` (source "profiler"). Unlike ``time_ms`` it leaves out
+    the host's launch path. The profiler has been seen on the H100 to stop
+    recording device events after some twenty profiling contexts in one
+    process; when it records none, the time is taken by CUDA events
+    around ``iters`` back-to-back calls instead (source "events_loop"),
+    which hides the launch path only where a call outlasts it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -143,9 +173,16 @@ def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
         torch.cuda.synchronize()
     us = sum(_self_device_us(e) for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us * 1e-3 / iters
+    if us > 0:
+        return us * 1e-3 / iters, "profiler"
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, "events_loop"
 
 
 def _self_device_us(e) -> float:
@@ -155,7 +192,8 @@ def _self_device_us(e) -> float:
 
 def compare(kernel_fn, plain_fn, name: str) -> dict:
     """Run a kernel and its plain version on the same inputs; exact
-    equality is required (the outputs are bool or int32)."""
+    equality is required (bool and int32 outputs, and l2dist's f32, which
+    both versions sum in the same order with the same roundings)."""
     import torch
     got = kernel_fn()
     want = plain_fn()
@@ -181,6 +219,38 @@ def box_scan_bound(rows: int, c_rows: int, nb: int, d: int, nq: int):
     byts = rows * d * 4 + c_rows * nq * 4 + nb * d * 8 + nb * nq * 4
     ops = rows * nb * d * 2
     return _bound(byts, ops)
+
+
+def scan_bound(n: int, d: int, nb: int, compares: int):
+    """box_scan: x read once, boxes read once, counts written once;
+    ``compares`` as this run's data needs them."""
+    return _bound(n * d * 4 + nb * d * 8 + n * 4, compares)
+
+
+def scan_compares(x, lo, hi) -> tuple:
+    """(compares the data needs, the most it could need) for box_scan:
+    per (row, box), two per dim up to and including the first failing
+    dim in ascending order (all D when the row is inside), against
+    N * B * D * 2. Counted on the card in row chunks."""
+    import torch
+    n, d = x.shape
+    nb = lo.shape[0]
+    step = max(1, (1 << 26) // max(nb * d, 1))
+    need = 0
+    for r0 in range(0, n, step):
+        xc = x[r0:r0 + step, None, :]
+        fail = ~((xc > lo[None]) & (xc <= hi[None]))         # [c, B, D]
+        first = torch.where(fail.any(-1), fail.to(torch.int8).argmax(-1),
+                            torch.full_like(fail[..., 0], d - 1,
+                                            dtype=torch.int64))
+        need += int((first + 1).sum()) * 2
+    return need, n * nb * d * 2
+
+
+def l2dist_bound(n: int, d: int, nq: int):
+    """l2dist: x and q read once, [N, Q] written once; 3 f32 ops (sub,
+    mul, add) per (row, query, dim), none an FMA."""
+    return _bound(n * d * 4 + nq * d * 4 + n * nq * 4, n * nq * d * 3)
 
 
 def _bound(byts: int, ops: int):
@@ -231,14 +301,87 @@ def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int) -> dict:
     for name, (kern, plain) in fns.items():
         res[name]["ms"] = time_ms(kern)
         res[name]["plain_ms"] = time_ms(plain)
-        res[name]["device_ms"] = device_ms(kern)
-        res[name]["plain_device_ms"] = device_ms(plain)
+        res[name]["device_ms"], res[name]["device_ms_by"] = device_ms(kern)
+        (res[name]["plain_device_ms"],
+         res[name]["plain_device_ms_by"]) = device_ms(plain)
     bz = zone_prune_bound(nz, nb, d)
     bb = box_scan_bound(min(nh, capacity) * block, capacity * block, nb, d,
                         nq)
     res["zone_prune"]["bound_ms"], res["zone_prune"]["bound_by"] = bz
     res["box_scan_seg"]["bound_ms"], res["box_scan_seg"]["bound_by"] = bb
     return res
+
+
+def measure_one(name: str, kern, plain, bound, library=None,
+                plain_iters: int = TIME_ITERS,
+                plain_device: bool = True) -> dict:
+    """Exactness against the plain version, then event / device times of
+    the kernel, the plain version (device time only with
+    ``plain_device``) and the library call."""
+    res = compare(kern, plain, name)
+    res["ms"] = time_ms(kern)
+    res["device_ms"], res["device_ms_by"] = device_ms(kern)
+    res["plain_ms"] = time_ms(plain, iters=plain_iters, warmup=1)
+    res["plain_device_ms"] = res["plain_device_ms_by"] = None
+    if plain_device:
+        res["plain_device_ms"], res["plain_device_ms_by"] = device_ms(
+            plain, iters=plain_iters, warmup=1)
+    res["library_ms"] = time_ms(library) if library is not None else None
+    res["bound_ms"], res["bound_by"] = bound
+    return res
+
+
+def measure_scan(x, lo, hi, plain_device: bool = True) -> dict:
+    """box_scan on (x, lo, hi) against box_scan_ref."""
+    from repro_torch.kernels import box_scan, ref
+    need, upper = scan_compares(x, lo, hi)
+    n, d = x.shape
+    nb = lo.shape[0]
+    res = measure_one("box_scan", lambda: box_scan.box_scan(x, lo, hi),
+                      lambda: ref.box_scan_ref(x, lo, hi),
+                      scan_bound(n, d, nb, need), plain_iters=PLAIN_ITERS,
+                      plain_device=plain_device)
+    res["bound_ms_upper"], res["bound_by_upper"] = scan_bound(n, d, nb, upper)
+    res["compares_needed"], res["compares_upper"] = need, upper
+    res["shape"] = {"n": n, "d": d, "boxes": nb}
+    return res
+
+
+def measure_l2dist(x, q, plain_device: bool = True) -> dict:
+    """l2dist on (x, q) against l2dist_ref; torch.cdist as the library."""
+    import torch
+    from repro_torch.kernels import l2dist, ref
+    n, d = x.shape
+    res = measure_one("l2dist", lambda: l2dist.l2dist(x, q),
+                      lambda: ref.l2dist_ref(x, q),
+                      l2dist_bound(n, d, q.shape[0]),
+                      library=lambda: torch.cdist(x, q),
+                      plain_device=plain_device)
+    res["shape"] = {"n": n, "d": d, "queries": q.shape[0]}
+    return res
+
+
+def synthetic_scan(n: int, d: int, nb: int, seed: int, device):
+    """Rows ~ N(0, 1) made on the card, with a NaN, a -inf and a +inf row;
+    boxes around random rows. Full width (D = 384): 12 constrained dims a
+    box, the rest (-inf, +inf) as a tree leaf leaves them. Narrow (d' = 6):
+    every dim constrained, the last 4 boxes (+inf, -inf) padding."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, d, device=device, generator=g)
+    x[1, d - 1], x[2, 0], x[3, 0] = float("nan"), -float("inf"), float("inf")
+    rows = torch.randint(0, n, (nb,), device=device, generator=g)
+    c = x[rows]
+    w_lo = torch.rand(nb, d, device=device, generator=g) * 1.8 + 0.2
+    w_hi = torch.rand(nb, d, device=device, generator=g) * 1.8 + 0.2
+    lo, hi = c - w_lo, c + w_hi
+    if d > 8:
+        keep = torch.rand(nb, d, device=device, generator=g).argsort(1) < 12
+        lo = torch.where(keep, lo, -float("inf"))
+        hi = torch.where(keep, hi, float("inf"))
+    else:
+        lo[-4:], hi[-4:] = float("inf"), -float("inf")
+    return x, lo.contiguous(), hi.contiguous()
 
 
 def synthetic_probe(nb: int, capacity: int, seed: int, device):
@@ -269,10 +412,26 @@ def synthetic_probe(nb: int, capacity: int, seed: int, device):
 
 
 def phase_kernels(device) -> None:
+    import torch
     out = [measure_kernels(*synthetic_probe(nb, cap, seed, device))
            for nb, cap, seed in ((64, 64, 1), (512, 256, 2))]
-    emit({"phase": "kernels_synthetic", "library_ms": None,
-          "library_note": LIBRARY_NOTE, "runs": out})
+    # plain device times only at the main path's inputs: each profiler
+    # profiling context counts against the twenty or so that record
+    # device events
+    scans = [measure_scan(*synthetic_scan(n, d, nb, seed, device),
+                          plain_device=False)
+             for n, d, nb, seed in ((FULL_N, FULL_D, 16, 3),
+                                    (FULL_N, FULL_D, 64, 4),
+                                    (256 * 1024, 6, 64, 5))]
+    dists = []
+    for n, d, nq, seed in ((FULL_N, 6, 15, 6), (MID_N, FULL_D, 8, 7)):
+        g = torch.Generator(device=device).manual_seed(seed)
+        dists.append(measure_l2dist(
+            torch.randn(n, d, device=device, generator=g),
+            torch.randn(nq, d, device=device, generator=g),
+            plain_device=False))
+    emit({"phase": "kernels_synthetic", "library_note": LIBRARY_NOTE,
+          "runs": out, "box_scan": scans, "l2dist": dists})
 
 
 def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
@@ -291,8 +450,39 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
             same_results([eg.query(r["pos_ids"], r["neg_ids"], **kw)],
                          [ec.query(r["pos_ids"], r["neg_ids"], **kw)],
                          batched=False)
+    # the last pair's state: the scan and knn models, and use_fused=False
+    # engines carrying it over
+    n_found = {}
+    for model in ("dtree", "rforest", "knn"):
+        for r in reqs[:2]:
+            for mr in (100, None):
+                kw = dict(model=model, max_results=mr, max_depth=12,
+                          n_models=25, k_neighbors=1000)
+                a = eg.query(r["pos_ids"], r["neg_ids"], **kw)
+                same_all([a], [ec.query(r["pos_ids"], r["neg_ids"], **kw)])
+                n_found[model] = a.n_found
+    ug, uc = (host_oracle_engine(e, e.device) for e in (eg, ec))
+    for mr in (100, None):
+        rq = [{**r, "max_results": mr} for r in reqs]
+        same_all(ug.query_batch(rq), uc.query_batch(rq))
     emit({"phase": "gpu_vs_cpu", "rows": n, "dims": d, "requests": 8,
+          "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
+          "use_fused_false": True, "n_found_scan_knn": n_found,
           "bitwise_equal": True, "seconds": time.perf_counter() - t0})
+
+
+INDEX_FIELDS = ("dims", "perm", "rows", "zlo", "zhi", "block", "n_rows",
+                "subset_id")
+
+
+def host_oracle_engine(eng, device):
+    """A use_fused=False engine over ``eng``'s host state (from_arrays:
+    no second index build)."""
+    from repro_torch.core import SearchEngine
+    return SearchEngine.from_arrays(
+        eng.x, eng.subsets,
+        [{f: getattr(ix, f) for f in INDEX_FIELDS} for ix in eng.indexes],
+        eng.frange, device=device, use_fused=False)
 
 
 def profile_batch(eng, reqs) -> dict:
@@ -352,13 +542,13 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
     eng.query_batch(reqs)                     # warm: mirrors, hints
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zone_prune.launches = box_scan.launches = 0
+    zone_prune.launches = box_scan.seg_launches = 0
     t0 = time.perf_counter()
     outs = eng.query_batch(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"zone_prune": zone_prune.launches,
-                "box_scan_seg": box_scan.launches}
+                "box_scan_seg": box_scan.seg_launches}
     peak = torch.cuda.max_memory_allocated()
     for o in outs:
         if isinstance(o, Exception):
@@ -417,7 +607,102 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
     big = max(inputs, key=lambda t: t[1].shape[0])
     ix, lo, hi, oh, cap = big
     rows3, zlo, zhi = ix.device_arrays()
-    return launches, (rows3, zlo, zhi, lo, hi, oh, cap)
+    return launches, (rows3, zlo, zhi, lo, hi, oh, cap), (eng, reqs, full)
+
+
+def phase_full_scan_knn(eng, reqs, full, k: int = 100):
+    """The scan and knn paths, and the use_fused=False host oracle, on
+    the full-size engine of phase_full (no second index build). Returns
+    the launch counts of each path and the main-path inputs of box_scan
+    and l2dist."""
+    import torch
+    from repro_torch.core.boxes import boxes_contain
+    from repro_torch.core.convert import index_from_arrays
+    from repro_torch.core.knn import knn_subset, knn_vote
+    from repro_torch.core.trees import fit_random_forest
+    from repro_torch.kernels import box_scan, l2dist, zone_prune
+    pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
+    kw = dict(max_results=k, max_depth=12, n_models=25, k_neighbors=1000)
+    models = ("dtree", "rforest", "knn")
+    for m in models:                          # warm: the feature copy
+        eng.query(pos, neg, model=m, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    box_scan.scan_launches = l2dist.launches = 0
+    res, walls = {}, {}
+    for m in models:
+        t0 = time.perf_counter()
+        res[m] = eng.query(pos, neg, model=m, **kw)
+        torch.cuda.synchronize()
+        walls[m] = time.perf_counter() - t0
+    launches = {"box_scan": box_scan.scan_launches,
+                "l2dist": l2dist.launches}
+    peak = torch.cuda.max_memory_allocated()
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a scan/knn kernel never launched: {launches}")
+    # right by the repo's own means: the scan scores are the host
+    # oracle's box counts; knn equals the same search on the CPU
+    forest = fit_random_forest(
+        np.concatenate([eng.x[pos], eng.x[neg]]),
+        np.concatenate([np.ones(len(pos)), np.zeros(len(neg))]),
+        n_trees=25, max_depth=12, seed=0)
+    lo_rf, hi_rf = forest.boxes()
+    r = res["rforest"]
+    if r.n_found == 0 or not np.array_equal(
+            r.scores, boxes_contain(eng.x[r.ids], lo_rf, hi_rf)):
+        raise AssertionError("rforest scores != host box counts")
+    if res["dtree"].n_found == 0 or res["dtree"].stats["n_boxes"] <= 0:
+        raise AssertionError("dtree found nothing")
+    ix0 = eng.indexes[0]
+    cpu0 = index_from_arrays(**{f: getattr(ix0, f) for f in INDEX_FIELDS},
+                             device="cpu")
+    ids_k, _ = knn_subset(cpu0, eng.x[pos], k=1000)
+    want = eng._rank(knn_vote(ids_k, eng.n), pos, neg, False)
+    if not (np.array_equal(res["knn"].ids, want[0][:k])
+            and np.array_equal(res["knn"].scores, want[1][:k])):
+        raise AssertionError("knn on the card != knn on the CPU")
+    # use_fused=False: the 8 main-path requests, host-ranked
+    uf = host_oracle_engine(eng, eng.device)
+    rq = [{**q, "max_results": None} for q in reqs]
+    uf.query_batch(rq)                        # warm: index mirrors
+    torch.cuda.synchronize()
+    box_scan.scan_launches = zone_prune.launches = 0
+    t0 = time.perf_counter()
+    outs = uf.query_batch(rq)
+    torch.cuda.synchronize()
+    uf_wall = time.perf_counter() - t0
+    uf_launches = {"box_scan": box_scan.scan_launches,
+                   "zone_prune": zone_prune.launches}
+    if min(uf_launches.values()) <= 0:
+        raise AssertionError(f"host oracle kernels never launched: "
+                             f"{uf_launches}")
+    for i, (a, b) in enumerate(zip(outs, full)):
+        if isinstance(a, Exception):
+            raise a
+        if not (np.array_equal(a.ids, b.ids)
+                and np.array_equal(a.scores, b.scores)):
+            raise AssertionError(f"request {i}: use_fused=False != fused")
+    emit({"phase": "full_size_scan_knn", "rows": eng.n, "dims": eng.d,
+          "per_query_wall_s": walls,
+          "fit_s": {m: res[m].train_time_s for m in models},
+          "query_s": {m: res[m].query_time_s for m in models},
+          "n_boxes": {m: res[m].stats.get("n_boxes") for m in models},
+          "n_found": {m: res[m].n_found for m in models},
+          "launches": launches, "max_memory_allocated": peak,
+          "feature_mirror_bytes": eng.feature_mirror_bytes(),
+          "host_oracle": {"batch": len(rq), "query_batch_wall_s": uf_wall,
+                          "per_query_wall_s": uf_wall / len(rq),
+                          "launches": uf_launches,
+                          "blocks_touched": [o.stats["blocks_touched"]
+                                             for o in outs],
+                          "ids_equal_fused": True}})
+    rows3, _, _ = ix0.device_arrays()
+    q0 = torch.from_numpy(np.ascontiguousarray(
+        eng.x[pos][:, ix0.dims])).to(eng.device)
+    scan_in = (eng._device_features(), *(torch.from_numpy(a).to(eng.device)
+                                         for a in (lo_rf, hi_rf)))
+    knn_in = (rows3.reshape(-1, rows3.shape[-1])[:ix0.n_rows], q0)
+    return {**launches, "host_oracle": uf_launches}, scan_in, knn_in
 
 
 KERNELS = {
@@ -425,6 +710,10 @@ KERNELS = {
                    "src/repro/kernels/zone_prune.py:33"),
     "box_scan_seg": ("src/repro_torch/kernels/csrc/box_scan_seg.cu",
                      "src/repro/kernels/box_scan.py:74"),
+    "box_scan": ("src/repro_torch/kernels/csrc/box_scan.cu",
+                 "src/repro/kernels/box_scan.py:35"),
+    "l2dist": ("src/repro_torch/kernels/csrc/l2dist.cu",
+               "src/repro/kernels/l2dist.py:30"),
 }
 
 
@@ -448,20 +737,37 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_kernels(dev)
     phase_gpu_vs_cpu(dev)
-    launches, probe = phase_full(dev)
+    launches, probe, ctx = phase_full(dev)
+    scan_launches, scan_in, knn_in = phase_full_scan_knn(*ctx)
     res = measure_kernels(*probe)
+    res["box_scan"] = measure_scan(*scan_in)
+    res["l2dist"] = measure_l2dist(*knn_in)
     emit({"phase": "kernels_main_path", "card": card, "runs": [res]})
+    # each kernel's launches on its own path: the fused batch of 8 for
+    # zone_prune / box_scan_seg, the dtree + rforest + knn query set for
+    # box_scan / l2dist (and the use_fused=False batch of 8 beside them)
+    launches = {**launches, "box_scan": scan_launches["box_scan"],
+                "l2dist": scan_launches["l2dist"]}
+    by_path = {"zone_prune": {"fused_batch": launches["zone_prune"],
+                              "host_oracle_batch":
+                                  scan_launches["host_oracle"]["zone_prune"]},
+               "box_scan": {"scan_knn_set": scan_launches["box_scan"],
+                            "host_oracle_batch":
+                                scan_launches["host_oracle"]["box_scan"]}}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         r = res[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_by_path": by_path.get(name),
                      "max_abs_err": r["max_abs_err"], "exact": r["exact"],
                      "ms": r["ms"], "kernel_ms": r["ms"],
                      "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
+                     "device_ms_by": r["device_ms_by"],
                      "plain_device_ms": r["plain_device_ms"],
+                     "plain_device_ms_by": r["plain_device_ms_by"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": None, "shape": r["shape"]})
+                     "library_ms": r.get("library_ms"), "shape": r["shape"]})
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,15 @@
 """The RapidEarth search engine on PyTorch — the static single-device
-survivor-sparse path of ``repro.core.engine``.
+paths of ``repro.core.engine`` for all five models.
 
   offline:  features [N, D]  ->  K feature subsets  ->  K zone-map indexes
   online :  (pos ids, neg ids, model)  ->  fit classifier (numpy)  ->
             boxes  ->  one fused probe per subset on the device  ->
             survivor tiles  ->  ranked object ids + query statistics
+
+The dtree/rforest models scan the whole feature matrix with their
+full-width boxes (box_scan), the knn model ranks the rows of subset 0
+(l2dist + top-k), and ``use_fused=False`` answers dbranch/dbens through
+the host ``query_index`` oracle; all three rank on the host.
 
 Per round every pending subset's probe (zone prune -> bounded block
 gather -> segmented box scan -> tile labelling) is queued on the device,
@@ -27,15 +32,18 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import knn as knn_mod
 from repro_torch.core.boxes import BoxSet, concat_box_arrays
 from repro_torch.core.capacity import HintTable
 from repro_torch.core.capacity import hybrid_bucket as _cap_hybrid
 from repro_torch.core.capacity import pow2ceil as _cap_pow2ceil
 from repro_torch.core.dbranch import fit_dbens, fit_dbranch_best_subset
 from repro_torch.core.errors import check_deadline
-from repro_torch.core.index import (ZoneMapIndex, build_index, fused_stats,
-                                    pad_boxes, sparse_probe)
+from repro_torch.core.index import (ZoneMapIndex, build_index, full_scan,
+                                    fused_stats, pad_boxes, query_index,
+                                    sparse_probe, to_device_f32)
 from repro_torch.core.subsets import make_subsets
+from repro_torch.core.trees import fit_decision_tree, fit_random_forest
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
@@ -109,10 +117,15 @@ class SearchEngine:
     in the reference); the batched device fit is ROADMAP A5.
 
     Options (``_configure``): ``device``, ``capacity_frac`` (cold-start
-    gather capacity as a fraction of the blocks), ``max_results``, and the
-    reference's ``use_jax_fit``, ``use_fused``, ``score_mode``, ``mirror``,
-    ``n_shards``, ``live``, ``data_dir`` and ``faults``, which take only
-    the values of the static sparse path.
+    gather capacity as a fraction of the blocks), ``max_results``,
+    ``use_fused`` (False: the host ``query_index`` oracle for
+    dbranch/dbens), and the reference's ``use_jax_fit``, ``score_mode``,
+    ``mirror``, ``n_shards``, ``live``, ``data_dir`` and ``faults``, which
+    take only the values of the static sparse path.
+
+    The scan models read the whole [N, D] feature matrix. The reference
+    uploads it on every scan; this engine keeps one device copy,
+    uploaded at the first scan query (``feature_mirror_bytes``).
     """
 
     def __init__(self, features: np.ndarray, *, n_subsets: int = 32,
@@ -158,15 +171,15 @@ class SearchEngine:
         if live or data_dir is not None:
             raise _unported("live=True / data_dir (live, durable catalogs)",
                             "A7/A8")
-        if not use_fused:
-            raise _unported("use_fused=False (the host query_index oracle)",
-                            "A6")
         if faults is not None:
             raise _unported("faults (fault-injection seams)", "A9")
         self.x = np.ascontiguousarray(np.asarray(features, np.float32))
         self.n, self.d = self.x.shape
         self.capacity_frac = capacity_frac
         self.max_results = max_results
+        self.use_fused = bool(use_fused)
+        # the scan models' device copy of x, uploaded at first use
+        self._x_dev: Optional[torch.Tensor] = None
         # survivor counts observed by the probes, keyed by (generation,
         # subset, box-count bucket); sizes the next like-shaped gather
         self._cap_hints = HintTable()
@@ -203,6 +216,22 @@ class SearchEngine:
         burning another round of device time."""
         check_deadline(deadline_s, "device query round")
 
+    @staticmethod
+    def _index_nbytes(ix) -> int:
+        return int(ix.rows.nbytes)
+
+    def _device_features(self) -> torch.Tensor:
+        """The [N, D] features on the engine's device, uploaded ONCE (a
+        view of the host array on the CPU)."""
+        if self._x_dev is None:
+            self._x_dev = torch.from_numpy(self.x).to(self.device)
+        return self._x_dev
+
+    def feature_mirror_bytes(self) -> int:
+        """Bytes of the scan models' device feature copy (0 until the
+        first scan query uploads it)."""
+        return 0 if self._x_dev is None else int(self._x_dev.nbytes)
+
     def index_stats(self) -> Dict:
         st = {
             "rows": self.n,
@@ -229,6 +258,7 @@ class SearchEngine:
         neg_ids: Sequence[int],
         model: str = "dbranch",
         *,
+        k_neighbors: int = 1000,
         max_depth: int = 12,
         n_models: int = 25,
         seed: int = 0,
@@ -244,8 +274,6 @@ class SearchEngine:
         deadline, checked before the fit and between device rounds."""
         if model not in MODELS:
             raise ValueError(f"unknown model {model!r}; choose from {MODELS}")
-        if model not in ("dbranch", "dbens"):
-            raise _unported(f"the {model} model", "A6")
         check_deadline(deadline_s, "fit")
         mr = self.max_results if max_results is _UNSET else max_results
         view = self._view()
@@ -254,18 +282,48 @@ class SearchEngine:
         xp, xn = view.x[pos_ids], view.x[neg_ids]
 
         t0 = time.perf_counter()
-        boxes = self._fit_boxes(model, xp, xn, max_depth=max_depth,
-                                n_models=n_models, seed=seed,
-                                frange=view.frange)
+        if model in ("dbranch", "dbens"):
+            boxes = self._fit_boxes(model, xp, xn, max_depth=max_depth,
+                                    n_models=n_models, seed=seed,
+                                    frange=view.frange)
+        elif model in ("dtree", "rforest"):
+            xtr = np.concatenate([xp, xn])
+            ytr = np.concatenate([np.ones(len(xp)), np.zeros(len(xn))])
+            if model == "dtree":
+                tree = fit_decision_tree(xtr, ytr, max_depth=max_depth)
+                lo, hi = tree.lo, tree.hi
+            else:
+                lo, hi = fit_random_forest(xtr, ytr, n_trees=n_models,
+                                           max_depth=max_depth,
+                                           seed=seed).boxes()
         t_fit = time.perf_counter() - t0
 
         t0 = time.perf_counter()
         check_deadline(deadline_s, "inference")
-        ids, scores, stats = self._run_index_path(
-            boxes, pos_ids, neg_ids, include_training, mr, view,
-            deadline_s=deadline_s)
-        stats["path"] = "index"
-        stats["fit_path"] = "numpy"
+        if model in ("dbranch", "dbens"):
+            ids, scores, stats = self._run_index_path(
+                boxes, pos_ids, neg_ids, include_training, mr, view,
+                deadline_s=deadline_s)
+            stats["path"] = "index"
+            stats["fit_path"] = "numpy"
+        elif model == "knn":
+            k = min(k_neighbors, view.n)
+            ids_k, _ = knn_mod.knn_subset(view.indexes[0], xp, k=k)
+            counts = knn_mod.knn_vote(ids_k, view.n)
+            stats = {"path": "index",
+                     "bytes_touched": self._index_nbytes(view.indexes[0])}
+            t_fit = 0.0
+            ids, scores = self._rank(counts, pos_ids, neg_ids,
+                                     include_training)
+        else:
+            if len(lo) == 0:
+                counts = np.zeros(view.n, np.int32)
+            else:
+                counts = full_scan(self._device_features(), lo, hi)
+            stats = {"path": "scan", "bytes_touched": int(view.x.nbytes),
+                     "n_boxes": int(len(lo))}
+            ids, scores = self._rank(counts, pos_ids, neg_ids,
+                                     include_training)
         if mr is not None:      # device-ranked results are already <= mr
             ids, scores = ids[:mr], scores[:mr]
         t_query = time.perf_counter() - t0
@@ -330,7 +388,9 @@ class SearchEngine:
     @staticmethod
     def _accumulate_agg(agg: Dict, st: Dict, n_boxes: int) -> None:
         agg["blocks_touched"] += st["blocks_touched"]
-        agg["blocks_gathered"] += st["blocks_gathered"]
+        # host path has no bounded gather: it reads exactly the survivors
+        agg["blocks_gathered"] += st.get("blocks_gathered",
+                                         st["blocks_touched"])
         agg["blocks_total"] += st["blocks_total"]
         agg["bytes_touched"] += st["bytes_touched"]
         agg["n_boxes"] += n_boxes
@@ -366,10 +426,7 @@ class SearchEngine:
         return jobs, (int(totals.max()) if jobs else 0)
 
     def _upload(self, a) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device, torch.float32).contiguous()
-        return torch.from_numpy(
-            np.ascontiguousarray(a, np.float32)).to(self.device)
+        return to_device_f32(a, self.device)
 
     def _probe_inputs(self, merged: BoxSet, owner: np.ndarray, nq: int):
         """Padded boxes and the [B, Q] f32 ownership one-hot, on the
@@ -494,11 +551,35 @@ class SearchEngine:
         np.add.at(out, keys[m], vals[m])
         return out
 
+    def _index_inference(self, boxsets: List[BoxSet], view: _EngineView):
+        """Host/oracle range-query path (use_fused=False): per-subset
+        query_index, the boxes of one subset merged into one call. Kept
+        as the correctness oracle for the device-resident path."""
+        counts = np.zeros(view.n, np.int64)
+        agg = self._new_agg()
+        by_subset: Dict[int, List[BoxSet]] = {}
+        for bs in boxsets:
+            by_subset.setdefault(bs.subset_id, []).append(bs)
+        for sid, group in by_subset.items():
+            merged = group[0]
+            for g in group[1:]:
+                merged = merged.concatenate(g)
+            c, st = query_index(view.indexes[sid], merged)
+            counts += c
+            self._accumulate_agg(agg, st, merged.n_boxes)
+        return counts, self._finalize_agg(agg, view)
+
     def _run_index_path(self, boxsets, pos_ids, neg_ids,
                         include_training: bool, mr: Optional[int],
                         view: _EngineView, deadline_s=None):
-        """Single-query device scoring; with ``mr`` set, ranking on the
-        device too."""
+        """Single-query index inference + ranking: the fused engine scores
+        on the device and, with ``mr`` set, ranks there too; the
+        use_fused=False engine runs the host oracle."""
+        if not self.use_fused:
+            counts, stats = self._index_inference(boxsets, view)
+            ids, scores = self._rank(counts, pos_ids, neg_ids,
+                                     include_training)
+            return ids, scores, stats    # query() applies the mr cut
         jobs, bound = self._make_jobs([(bs, 0) for bs in boxsets], 1)
         scores_dev, stats = self._device_scores(jobs, 1, view,
                                                 deadline_s=deadline_s)
@@ -572,7 +653,8 @@ class SearchEngine:
         one by one (numpy), their boxes flattened with a per-box owner id
         and grouped per subset; the ownership one-hot de-muxes counts per
         query on the device. When every request sets ``max_results`` the
-        ranking runs on the device too. Other models go through query().
+        ranking runs on the device too. Other models, and every request
+        of a use_fused=False engine, go through query() one by one.
 
         Returns a list aligned with ``requests``: QueryResult on success,
         the raised Exception on per-request failure. Batch-wide stats are
@@ -586,7 +668,7 @@ class SearchEngine:
                 if model not in MODELS:
                     raise ValueError(
                         f"unknown model {model!r}; choose from {MODELS}")
-                if model not in ("dbranch", "dbens"):
+                if model not in ("dbranch", "dbens") or not self.use_fused:
                     kw = {k: v for k, v in req.items()
                           if k not in ("pos_ids", "neg_ids", "model")}
                     results[i] = self.query(req["pos_ids"], req["neg_ids"],

@@ -6,7 +6,10 @@ block keeps per-dim [min, max] *zone maps*. A range query runs two dense
 stages, both CUDA kernels on the card:
 
   prune : zone_prune(zones, boxes) -> surviving-block mask   (tiny)
-  refine: box_scan_seg(rows of surviving blocks, boxes) -> counts
+  refine: box_scan_seg / box_scan(rows of surviving blocks, boxes) -> counts
+
+``sparse_probe`` is the fused device path; ``query_index`` the host
+oracle (use_fused=False), and ``full_scan`` the scan of the tree models.
 
 The build is the reference's numpy code, so ``perm``, ``rows``, ``zlo``
 and ``zhi`` are byte-equal to it; the device mirrors are torch tensors
@@ -20,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.boxes import concat_box_arrays
+from repro_torch.core.boxes import BoxSet, concat_box_arrays
 from repro_torch.core.capacity import quantum_bucket
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -144,6 +147,62 @@ def build_index(x: np.ndarray, dims: np.ndarray, block: int = 1024,
     zhi = np.where(real, blocks, -np.inf).max(1)
     return ZoneMapIndex(np.asarray(dims), perm, rows, zlo, zhi, block, n,
                         subset_id, device=device)
+
+
+def to_device_f32(a, device: torch.device) -> torch.Tensor:
+    """A contiguous f32 tensor of ``a`` (numpy array or tensor) on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, torch.float32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+
+
+def query_index(index: ZoneMapIndex, boxes: BoxSet) -> Tuple[np.ndarray,
+                                                              dict]:
+    """The host range-query oracle. Returns (counts [n_rows] int32 in
+    ORIGINAL row order, stats).
+
+    The [NB, B] zone_prune mask is brought to the host (a sync by
+    design: this is the oracle), the hit blocks are gathered from the
+    resident rows3 mirror, box_scan runs over them on the device, and
+    the counts are scattered back on the host exactly as the reference
+    does. stats reports blocks_touched / rows_touched / bytes_touched —
+    the quantities the paper's speedup comes from."""
+    assert np.array_equal(index.dims, boxes.dims), "box subset != index subset"
+    rows3, zlo, zhi = index.device_arrays()
+    blo = to_device_f32(boxes.lo, index.device)
+    bhi = to_device_f32(boxes.hi, index.device)
+    mask = kops.zone_prune(zlo, zhi, blo, bhi).cpu().numpy()      # [NB, B]
+    hit_ids = np.nonzero(mask.any(1))[0]
+    n_hit = len(hit_ids)
+    counts = np.zeros((index.n_blocks, index.block), np.int32)
+    if n_hit:
+        sel = torch.from_numpy(hit_ids).to(index.device)
+        rows = rows3.index_select(0, sel).reshape(-1, rows3.shape[-1])
+        c = kops.box_scan(rows, blo, bhi).cpu().numpy()
+        counts[hit_ids] = c.reshape(n_hit, index.block)
+    counts = counts.reshape(-1)
+    # back to original order
+    out = np.zeros(index.n_rows, np.int32)
+    valid = index.perm >= 0
+    out[index.perm[valid]] = counts[valid]
+    stats = {
+        "blocks_touched": int(n_hit),
+        "blocks_total": index.n_blocks,
+        "rows_touched": int(n_hit * index.block),
+        "bytes_touched": int(n_hit * index.block * index.rows.shape[1] * 4),
+        "bytes_total": int(index.rows.nbytes),
+        "prune_fraction": 1.0 - n_hit / max(index.n_blocks, 1),
+    }
+    return out, stats
+
+
+def full_scan(x: torch.Tensor, lo, hi) -> np.ndarray:
+    """Scan over the FULL feature matrix (what DT/RF must do): x is the
+    [N, D] features as a tensor on the device the scan runs on; lo/hi
+    [B, D] full-width boxes. Returns [N] int32 counts on the host."""
+    return kops.box_scan(x, to_device_f32(lo, x.device),
+                         to_device_f32(hi, x.device)).cpu().numpy()
 
 
 # ----------------------------------------------------------------------

@@ -1,16 +1,19 @@
-"""box_scan_seg — the segmented refine stage as a CUDA kernel
-(csrc/box_scan_seg.cu).
+"""The box scans as CUDA kernels: ``box_scan`` (csrc/box_scan.cu) and
+the segmented refine stage ``box_scan_seg`` (csrc/box_scan_seg.cu).
 
-Counterpart of the ``box_scan_seg`` half of ``repro.kernels.box_scan``.
-The kernel reads the surviving blocks rows3[cand] in place and zeroes the
+Counterparts of ``repro.kernels.box_scan``. ``box_scan`` counts, per
+row, the boxes that contain it (the full scan of the dtree/rforest models
+and the refine stage of the host ``query_index`` oracle). The segmented
+kernel reads the surviving blocks rows3[cand] in place and zeroes the
 slots >= n_hit (``box_scan_seg_gather``, what ``ops.fused_query`` runs);
 ``box_scan_seg`` scans given rows x [N, D] (the Pallas kernel's
 contract) as the one-block case rows3 = x[None], cand = [0], n_hit = 1.
-Both take CUDA tensors only; the CPU dispatch to the plain versions lives
+All take CUDA tensors only; the CPU dispatch to the plain versions lives
 in ``kernels/ops.py``.
 
-``launches`` counts kernel launches (both entry points launch in
-``box_scan_seg_gather``).
+``scan_launches`` counts launches of the box_scan kernel and
+``seg_launches`` those of box_scan_seg (both of its entry points launch
+in ``box_scan_seg_gather``).
 """
 from __future__ import annotations
 
@@ -18,23 +21,52 @@ import torch
 
 from repro_torch.kernels.build import launch_fn
 
-launches = 0
+scan_launches = 0
+seg_launches = 0
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape, device,
+           kernel: str = "box_scan_seg") -> None:
     if t.device.type != "cuda":
-        raise ValueError(f"box_scan_seg: {name} must be a CUDA tensor, "
+        raise ValueError(f"{kernel}: {name} must be a CUDA tensor, "
                          f"got device {t.device}")
     if t.device != device:
-        raise ValueError("box_scan_seg: all inputs must be on one device")
+        raise ValueError(f"{kernel}: all inputs must be on one device")
     if t.dtype != dtype:
-        raise TypeError(f"box_scan_seg: {name} must be {dtype}, "
-                        f"got {t.dtype}")
+        raise TypeError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"box_scan_seg: {name} has shape "
+        raise ValueError(f"{kernel}: {name} has shape "
                          f"{tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"box_scan_seg: {name} must be contiguous")
+        raise ValueError(f"{kernel}: {name} must be contiguous")
+
+
+def box_scan(x: torch.Tensor, lo: torch.Tensor,
+             hi: torch.Tensor) -> torch.Tensor:
+    """x: [N, D] f32; lo/hi: [B, D] f32 -> [N] int32 box-membership
+    counts (CUDA). Ragged N and any D are taken as they are; B = 0
+    returns zeros without a launch."""
+    global scan_launches
+    if x.dim() != 2 or lo.dim() != 2:
+        raise ValueError("box_scan: x must be [N, D] and boxes [B, D]")
+    n, d = x.shape
+    nb = lo.shape[0]
+    dev = x.device
+    _check("x", x, torch.float32, (n, d), dev, "box_scan")
+    _check("lo", lo, torch.float32, (nb, d), dev, "box_scan")
+    _check("hi", hi, torch.float32, (nb, d), dev, "box_scan")
+    if nb == 0 or n == 0:
+        return torch.zeros(n, dtype=torch.int32, device=dev)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = launch_fn("box_scan")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(x.data_ptr(), lo.data_ptr(), hi.data_ptr(), n, d, nb,
+                 out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"box_scan kernel launch failed: CUDA error {err}")
+    scan_launches += 1
+    return out
 
 
 def box_scan_seg(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -62,7 +94,7 @@ def box_scan_seg_gather(rows3: torch.Tensor, cand: torch.Tensor,
     dev = rows3.device
     _check("rows3", rows3, torch.float32, rows3.shape, dev)
     _check("cand", cand, torch.int32, cand.shape, dev)
-    global launches
+    global seg_launches
     if lo.dim() != 2 or onehot.dim() != 2:
         raise ValueError("box_scan_seg: boxes must be [B, D] and onehot "
                          "[B, Q]")
@@ -88,5 +120,5 @@ def box_scan_seg_gather(rows3: torch.Tensor, cand: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"box_scan_seg kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    seg_launches += 1
     return out

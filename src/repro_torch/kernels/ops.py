@@ -1,11 +1,12 @@
 """Device ops of the engine's main path — counterpart of the main-path
 part of ``repro.kernels.ops``.
 
-Dispatch follows the tensors: on CUDA tensors the two kernel stages launch
+Dispatch follows the tensors: on CUDA tensors the kernel stages launch
 the hand-written CUDA kernels (``kernels/zone_prune.py``,
-``kernels/box_scan.py``) or raise; only tensors on the CPU take the plain
-PyTorch versions in ``kernels/ref.py``. No TPU padding: the CUDA kernels
-take d' = 6 and ragged N as they are.
+``kernels/box_scan.py``, ``kernels/l2dist.py``) or raise; only tensors on
+the CPU take the plain PyTorch versions in ``kernels/ref.py``. No TPU
+padding to 128 lanes or 1024-row tiles: the CUDA kernels take ragged N
+and D as they are.
 
 Nothing here synchronises with the host. ``jnp.nonzero(size=capacity,
 fill_value=0)`` becomes a prefix-sum compaction (``_compact``), and the
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import box_scan as _box_scan
+from repro_torch.kernels import l2dist as _l2dist
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import zone_prune as _zone_prune
 
@@ -41,6 +43,39 @@ def zone_hits(zlo, zhi, blo, bhi) -> torch.Tensor:
     if _on_cpu(zlo):
         return kref.zone_hits_ref(zlo, zhi, blo, bhi)
     return _zone_prune.zone_hits(zlo, zhi, blo, bhi)
+
+
+def box_scan(x, lo, hi) -> torch.Tensor:
+    """Membership counts [N] int32 for rows x against boxes (lo, hi]."""
+    if _on_cpu(x):
+        return kref.box_scan_ref(x, lo, hi)
+    return _box_scan.box_scan(x, lo, hi)
+
+
+def l2dist(x, q) -> torch.Tensor:
+    """Squared L2 distance matrix [N, Q] f32."""
+    if _on_cpu(x):
+        return kref.l2dist_ref(x, q)
+    return _l2dist.l2dist(x, q)
+
+
+def knn_topk(x, q, k: int):
+    """(distances [Q, k] f32, indices [Q, k] int32): the k nearest rows of
+    x per query, in the order ``lax.top_k(-d.T, k)`` gives — distance
+    ascending, the lower row position first on ties. One int64 key per
+    (query, row), (f32 bits of the distance) << 32 | position, makes every
+    key distinct, so the selection needs no tie rule of its own. The
+    distances are sums of squares (never below +0), where the f32 bits
+    order as the values do; the sign bit is cleared so that a NaN
+    distance sorts after every number."""
+    d = l2dist(x, q)                                         # [N, Q]
+    n = d.shape[0]
+    bits = d.T.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    pos = torch.arange(n, dtype=torch.int64, device=d.device)
+    top, _ = torch.topk((bits << 32) | pos[None], int(k), dim=1,
+                        largest=False, sorted=True)
+    dist = (top >> 32).to(torch.int32).view(torch.float32)
+    return dist, (top & 0xFFFFFFFF).to(torch.int32)
 
 
 def box_scan_seg(x, lo, hi, onehot) -> torch.Tensor:

@@ -4,7 +4,8 @@ Counterparts of ``repro.kernels.ref`` (the same comparisons, the same f32
 0/1 matmul), plus the two entry points the CUDA kernels add: the per-zone
 hit vector and the in-place gathered box scan. The kernel wrappers use
 these for tensors on the CPU, and the chip checks hold every kernel
-against them on the card.
+against them on the card, so ``box_scan_ref`` and ``l2dist_ref`` run at
+full size there without materialising an [N, B, D] or [N, Q, D] tensor.
 """
 from __future__ import annotations
 
@@ -21,6 +22,29 @@ def zone_prune_ref(zlo: torch.Tensor, zhi: torch.Tensor, blo: torch.Tensor,
 def zone_hits_ref(zlo, zhi, blo, bhi) -> torch.Tensor:
     """[NZ] bool: does zone z overlap any box."""
     return zone_prune_ref(zlo, zhi, blo, bhi).any(1)
+
+
+# elements of one [rows, B, D] comparison chunk in box_scan_ref: three
+# bool intermediates of this size stay near 200 MB
+_SCAN_CHUNK_ELEMS = 1 << 26
+
+
+def box_scan_ref(x: torch.Tensor, lo: torch.Tensor,
+                 hi: torch.Tensor) -> torch.Tensor:
+    """x: [N, D]; lo/hi: [B, D] -> [N] int32 membership counts.
+    Half-open boxes: inside iff lo < x <= hi on every dim. Rows go in
+    chunks that cap the [rows, B, D] intermediate."""
+    n, d = x.shape
+    nb = lo.shape[0]
+    out = torch.zeros(n, dtype=torch.int32, device=x.device)
+    if nb == 0 or n == 0:
+        return out
+    step = max(1, _SCAN_CHUNK_ELEMS // max(nb * d, 1))
+    for r0 in range(0, n, step):
+        xc = x[r0:r0 + step, None, :]
+        inside = (xc > lo[None]) & (xc <= hi[None])
+        out[r0:r0 + step] = inside.all(-1).sum(-1, dtype=torch.int32)
+    return out
 
 
 def box_scan_seg_ref(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
@@ -43,3 +67,19 @@ def box_scan_seg_gather_ref(rows3: torch.Tensor, cand: torch.Tensor,
     counts = box_scan_seg_ref(x, lo, hi, onehot).reshape(c, block, -1)
     valid = torch.arange(c, device=cand.device) < n_hit
     return (counts * valid[:, None, None]).reshape(c * block, -1)
+
+
+def l2dist_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """[N, D] x [Q, D] -> [N, Q] f32 squared L2 distances, summed over
+    the dims in ascending order: ``t = x_j - q_j; acc = acc + t * t``
+    from acc = 0. Every step is a separate, correctly rounded f32 op, so
+    the CUDA kernel (which spells the same steps with round-to-nearest
+    intrinsics) equals this bitwise."""
+    x = x.to(torch.float32)
+    q = q.to(torch.float32)
+    acc = torch.zeros((x.shape[0], q.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for j in range(x.shape[1]):
+        t = x[:, j, None] - q[None, :, j]
+        acc = acc + t * t
+    return acc

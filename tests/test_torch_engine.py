@@ -1,10 +1,19 @@
 """The port's SearchEngine against the reference's, end to end on the CPU.
 
-Both engines run the static single-device survivor-sparse configuration
-with the numpy trainers (``use_jax_fit=False``) on the same seeded data
-and labels. Ranked ids and scores must be bitwise equal, and so must the
-integer stats that pin the device path's contracts: one stat sync per
-round, overflow retries, gather pricing, host bytes and tile memory.
+Both engines run the static single-device configuration with the numpy
+trainers (``use_jax_fit=False``) on the same seeded data and labels. For
+dbranch/dbens on the survivor-sparse path, ranked ids and scores must be
+bitwise equal, and so must the integer stats that pin the device path's
+contracts: one stat sync per round, overflow retries, gather pricing,
+host bytes and tile memory. For the scan models (dtree, rforest), the
+knn model and the use_fused=False host oracle, the whole result is
+bitwise equal, stats included.
+
+knn on float data: the reference sums squared differences with
+``jnp.sum`` and the port in ascending dim order, so distances may differ
+in the last bit; a vote count moves only if that swaps a row across the
+k-th neighbour. At these seeds none does and the results are equal; on
+integer-valued features the arithmetic is exact and so must they be.
 """
 import os
 import subprocess
@@ -61,6 +70,26 @@ def _same(a, b, batched=False):
 def _engines(x, **kw):
     opts = {**KW, **kw}
     return JaxEngine(x, **opts), SearchEngine(x, device="cpu", **opts)
+
+
+def _same_all(a, b):
+    """Model, ids, scores (dtypes too) and the whole stats dict equal."""
+    if isinstance(b, Exception):
+        assert type(a) is type(b), (a, b)
+        return
+    assert a.model == b.model
+    assert a.ids.dtype == b.ids.dtype and a.scores.dtype == b.scores.dtype
+    np.testing.assert_array_equal(a.ids, b.ids)
+    np.testing.assert_array_equal(a.scores, b.scores)
+    assert a.stats == b.stats
+
+
+@pytest.fixture(scope="module")
+def int_catalog(catalog):
+    """The catalog's features on a grid of quarters: squared distances
+    are exact in f32, with many exact ties."""
+    x, y = catalog
+    return np.round(np.asarray(x, np.float32) * 4).astype(np.float32) / 4, y
 
 
 @pytest.mark.parametrize("model", ["dbranch", "dbens"])
@@ -139,6 +168,28 @@ def test_from_arrays_engine_matches():
           je.refine(res, pos[6:], neg[10:], pos[:6], neg[:10]))
 
 
+def test_from_arrays_host_oracle_engine_matches():
+    """A use_fused=False engine assembled from the reference's state
+    answers all five models as the reference's use_fused=False engine
+    and as the port's own."""
+    x, y = _clustered(n=2000, seed=9)
+    je, te = _engines(x, use_fused=False)
+    fields = ("dims", "perm", "rows", "zlo", "zhi", "block", "n_rows",
+              "subset_id")
+    fe = SearchEngine.from_arrays(
+        je.x, je.subsets,
+        [{f: getattr(ix, f) for f in fields} for ix in je.indexes],
+        je.frange, device="cpu", use_fused=False)
+    assert not fe.use_fused
+    pos = np.nonzero(y == 1)[0][:10]
+    neg = np.nonzero(y == 0)[0][:30]
+    for model in ("dbranch", "dbens", "dtree", "rforest", "knn"):
+        kw = dict(model=model, max_results=15, n_models=5)
+        want = je.query(pos, neg, **kw)
+        _same_all(fe.query(pos, neg, **kw), want)
+        _same_all(te.query(pos, neg, **kw), want)
+
+
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, numpy as np\n"
@@ -148,6 +199,8 @@ def test_port_imports_neither_jax_nor_repro():
         "e = SearchEngine(x, n_subsets=4, block=64, device='cpu')\n"
         "r = e.query(range(8), range(100, 130), max_results=5)\n"
         "assert r.n_found > 0\n"
+        "for m in ('dtree', 'knn'):\n"
+        "    assert e.query(range(8), range(100, 130), model=m).n_found\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -174,7 +227,7 @@ def test_no_silent_cpu_fallback():
     ({"use_jax_fit": True}, "A5"), ({"score_mode": "dense"}, "A3/A4"),
     ({"mirror": "quantized"}, "A10"), ({"n_shards": 2}, "A11"),
     ({"live": True}, "A7/A8"), ({"data_dir": "somewhere"}, "A7/A8"),
-    ({"use_fused": False}, "A6"), ({"faults": object()}, "A9")])
+    ({"faults": object()}, "A9")])
 def test_unported_options_raise(opt, item):
     x, _ = _clustered(n=300)
     with pytest.raises(NotImplementedError, match=item):
@@ -182,11 +235,116 @@ def test_unported_options_raise(opt, item):
 
 
 @pytest.mark.parametrize("model", ["dtree", "rforest", "knn"])
-def test_unported_models_raise(model):
-    x, y = _clustered(n=600)
-    te = SearchEngine(x, n_subsets=2, block=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        te.query(range(5), range(100, 120), model=model)
-    out = te.query_batch([{"pos_ids": range(5), "neg_ids": range(100, 120),
-                           "model": model}])
-    assert isinstance(out[0], NotImplementedError)
+def test_scan_and_knn_models_match_reference(data, model):
+    """query() of the full-scan models and of knn: ids, scores and stats
+    (path, bytes_touched, n_boxes) bitwise, with and without max_results
+    and training rows."""
+    x, _, pos, neg = data
+    je, te = _engines(x)
+    for mr in (None, 10):
+        for inc in (False, True):
+            kw = dict(model=model, max_results=mr, include_training=inc,
+                      n_models=6, k_neighbors=300)
+            got = te.query(pos, neg, **kw)
+            _same_all(got, je.query(pos, neg, **kw))
+            assert got.n_found > 0
+    assert te.feature_mirror_bytes() == (0 if model == "knn" else x.nbytes)
+
+
+@pytest.mark.parametrize("k_neighbors", [1000, 40])
+def test_knn_exact_on_integer_catalog(int_catalog, k_neighbors):
+    x, y = int_catalog
+    rng = np.random.default_rng(3)
+    pos = rng.choice(np.nonzero(y == 1)[0], 12, replace=False)
+    neg = rng.choice(np.nonzero(y != 1)[0], 40, replace=False)
+    je, te = _engines(x)
+    for mr in (None, 25):
+        kw = dict(model="knn", max_results=mr, k_neighbors=k_neighbors)
+        got = te.query(pos, neg, **kw)
+        _same_all(got, je.query(pos, neg, **kw))
+        assert got.stats == {"path": "index",
+                             "bytes_touched": te.indexes[0].rows.nbytes}
+        assert got.train_time_s == 0.0
+
+
+def test_scan_models_refine_and_batch(data):
+    """refine() of a scan model, and query_batch() of the models that
+    query() answers one by one."""
+    x, y, pos, neg = data
+    je, te = _engines(x)
+    res = te.query(pos[:6], neg[:20], model="rforest", n_models=5)
+    _same_all(te.refine(res, pos[6:], neg[20:], pos[:6], neg[:20],
+                        n_models=5),
+              je.refine(res, pos[6:], neg[20:], pos[:6], neg[:20],
+                        n_models=5))
+    rng = np.random.default_rng(4)
+    reqs = []
+    for i, (model, mr, inc) in enumerate([("dtree", None, False),
+                                          ("knn", 20, True),
+                                          ("rforest", 10, False),
+                                          ("knn", None, False),
+                                          ("dtree", 5, True)]):
+        p = rng.choice(np.nonzero(y == 1)[0], 8 + i, replace=False)
+        n = rng.choice(np.nonzero(y == 0)[0], 30, replace=False)
+        reqs.append({"pos_ids": p, "neg_ids": n, "model": model,
+                     "max_results": mr, "include_training": inc,
+                     "n_models": 4, "seed": i, "k_neighbors": 200})
+    got = te.query_batch(reqs)
+    for a, b in zip(got, je.query_batch(reqs)):
+        _same_all(a, b)
+
+
+@pytest.mark.parametrize("model", ["dbranch", "dbens"])
+def test_host_oracle_engine_matches_reference(data, model):
+    """use_fused=False: the host query_index oracle. Ids, scores and the
+    aggregated stats bitwise the reference's use_fused=False engine, and
+    ranked ids equal to the port's fused engine on the same requests."""
+    x, y, pos, neg = data
+    je, te = _engines(x, use_fused=False)
+    fused = SearchEngine(x, device="cpu", **KW)
+    for mr in (None, 10):
+        for inc in (False, True):
+            kw = dict(model=model, max_results=mr, include_training=inc,
+                      n_models=6)
+            got = te.query(pos, neg, **kw)
+            _same_all(got, je.query(pos, neg, **kw))
+            assert got.n_found > 0 and got.stats["n_range_queries"] > 0
+            ref = fused.query(pos, neg, **kw)
+            np.testing.assert_array_equal(got.ids, ref.ids)
+            np.testing.assert_array_equal(got.scores, ref.scores)
+    rng = np.random.default_rng(7)
+    reqs = [{"pos_ids": rng.choice(np.nonzero(y == 1)[0], 8, replace=False),
+             "neg_ids": rng.choice(np.nonzero(y == 0)[0], 30, replace=False),
+             "model": model, "max_results": mr, "n_models": 4, "seed": i}
+            for i, mr in enumerate((None, 12, None))]
+    for a, b, c in zip(te.query_batch(reqs), je.query_batch(reqs),
+                       fused.query_batch(reqs)):
+        _same_all(a, b)
+        np.testing.assert_array_equal(a.ids, c.ids)
+
+
+def test_mixed_batch_isolates_failures():
+    """A batch of dbens, knn, dtree and a request with a bad id returns
+    each result in place and the bad request's exception in its slot,
+    like the reference."""
+    x, y = _clustered(n=2000, seed=11)
+    pos = np.nonzero(y == 1)[0][:10]
+    neg = np.nonzero(y == 0)[0][:30]
+    reqs = [{"pos_ids": pos, "neg_ids": neg, "model": "dbens",
+             "n_models": 4, "max_results": 20},
+            {"pos_ids": pos, "neg_ids": neg, "model": "knn"},
+            {"pos_ids": pos, "neg_ids": neg, "model": "dtree",
+             "max_results": 30},
+            {"pos_ids": [len(x) + 5], "neg_ids": neg, "model": "dtree"},
+            {"pos_ids": pos, "neg_ids": neg, "model": "nope"}]
+    for uf in (True, False):
+        je, te = _engines(x, use_fused=uf)
+        got = te.query_batch(reqs)
+        want = je.query_batch(reqs)
+        assert isinstance(got[3], IndexError)
+        assert isinstance(got[4], ValueError)
+        for a, b in zip(got, want):
+            if uf and not isinstance(b, Exception) and b.model == "dbens":
+                _same(a, b, batched=True)        # the fused batch's stats
+            else:
+                _same_all(a, b)

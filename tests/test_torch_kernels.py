@@ -3,11 +3,15 @@
 On the CPU: the plain PyTorch versions (repro_torch.kernels.ref, what the
 wrappers use for CPU tensors) against the Pallas kernels run in interpret
 mode, at the shapes of tests/test_kernels.py and tests/test_fused_query.py
-plus the half-open boundary and +-inf / NaN padding cases. Outputs are
-bool or int32: equality is exact.
+plus the half-open boundary and +-inf / NaN padding cases. The box and
+zone outputs are bool or int32: equality is exact. Squared distances are
+held to the kernel tolerance of tests/test_kernels.py (rtol 1e-4, atol
+1e-3): the Pallas kernel expands |x|^2 - 2x.q + |q|^2 and the port sums
+(x - q)^2 directly, so they differ by rounding; on integer-valued inputs
+both are exact and must agree bitwise.
 
 On a CUDA card (marker ``gpu``; skipped without one): the hand-written
-CUDA kernels against their plain versions at the same shapes, exactly.
+CUDA kernels against their plain versions at the same shapes, bitwise.
 Run them there with ``python -m pytest -m gpu tests/test_torch_kernels.py``.
 """
 import jax.numpy as jnp
@@ -16,8 +20,12 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.box_scan import box_scan_pallas
+from repro.kernels.l2dist import l2dist_pallas
 from repro.kernels.zone_prune import zone_prune_pallas
 from repro_torch.kernels import box_scan as tbox_scan
+from repro_torch.kernels import l2dist as tl2dist
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import zone_prune as tzone_prune
@@ -46,6 +54,20 @@ def _seg_case(n, d, b, q, seed):
     return x, lo, hi, onehot
 
 
+# tests/test_kernels.py: the raw kernel's aligned shapes, the wrapper's
+# ragged ones; then the card's other code paths: D > 384, and boxes that
+# take more than one shared-memory chunk (D = 384 with 100 boxes, d' = 6
+# with 5000)
+SCAN_PALLAS_SHAPES = [(1024, 128, 4), (2048, 128, 16), (1024, 256, 1),
+                      (4096, 128, 64)]
+SCAN_SHAPES = [(100, 6, 3), (1000, 384, 25), (1023, 17, 1), (1, 6, 2),
+               (513, 130, 7)]
+SCAN_CUDA_SHAPES = SCAN_PALLAS_SHAPES + SCAN_SHAPES + [
+    (3000, 400, 9), (700, 384, 100), (2500, 6, 5000), (4099, 6, 64)]
+L2_SHAPES = [(1024, 128, 8), (2048, 384, 4), (1000, 5, 3), (777, 17, 15),
+             (513, 130, 2), (1, 6, 1)]
+L2_CUDA_SHAPES = L2_SHAPES + [(4099, 384, 100), (3000, 6, 15)]
+
 ZONE_SHAPES = [(512, 128, 8), (1024, 128, 32), (512, 256, 2),
                (37, 6, 3), (513, 5, 9), (1, 6, 1), (1024, 6, 64)]
 SEG_SHAPES = [(300, 6, 7, 3), (1024, 4, 16, 1), (513, 17, 5, 9),
@@ -62,6 +84,28 @@ def _zone_case(nz, d, b):
         zlo[-1], zhi[-1] = np.inf, -np.inf
     blo[0, 0], bhi[0, 0] = -np.inf, np.inf
     return zlo, zhi, blo, bhi
+
+
+def _scan_case(n, d, b, seed):
+    """Rows and boxes in the manner of tests/test_kernels.py, with the
+    full scan's edge cases: most box dims (-inf, +inf) as a tree leaf
+    leaves them, rows holding NaN, -inf and +inf, rows exactly on a
+    box's lo (outside) and hi (inside)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    lo, hi = _boxes(rng, b, d)
+    free = rng.random((b, d)) < 0.8
+    free[0] = False
+    lo[free], hi[free] = -np.inf, np.inf
+    if n > 4:
+        x[1, d - 1] = np.nan
+        x[2, 0] = -np.inf
+        x[3, 0] = np.inf
+        x[4] = hi[0]                        # inside box 0: x == hi
+    if n > 5:
+        x[5] = hi[0]
+        x[5, 0] = lo[0, 0]                  # outside box 0: x == lo
+    return x, lo, hi
 
 
 def _t(*arrs, device="cpu"):
@@ -129,6 +173,131 @@ def test_box_scan_seg_half_open_semantics():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n,d,b", SCAN_PALLAS_SHAPES)
+def test_box_scan_ref_matches_pallas(n, d, b):
+    rng = np.random.default_rng(n + d + b)
+    x = rng.normal(0, 1, (n, d)).astype(np.float32)
+    lo, hi = _boxes(rng, b, d)
+    want = np.asarray(box_scan_pallas(*map(jnp.asarray, (x, lo, hi)),
+                                      tile_n=512, interpret=True))
+    got = tref.box_scan_ref(*_t(x, lo, hi))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,d,b", SCAN_SHAPES)
+def test_box_scan_ref_matches_wrapper(n, d, b):
+    """Ragged shapes through the padded wrapper, with +-inf box dims and
+    NaN / +-inf rows."""
+    x, lo, hi = _scan_case(n, d, b, seed=n * 7 + d)
+    want = np.asarray(jops.box_scan(*map(jnp.asarray, (x, lo, hi)),
+                                    interpret=True))
+    got = tref.box_scan_ref(*_t(x, lo, hi))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(tops.box_scan(*_t(x, lo, hi)).numpy(),
+                                  want)
+    if n > 5:
+        assert got[1] == 0 and got[2] == 0          # NaN, -inf rows
+        in0 = ((x > lo[0]) & (x <= hi[0])).all(1)
+        assert in0[4] and not in0[5]                # x == hi in, == lo out
+
+
+def test_box_scan_ref_chunks_rows():
+    """More rows than one comparison chunk holds: the chunked loop gives
+    the unchunked answer."""
+    x, lo, hi = _scan_case(6000, 384, 40, seed=3)
+    step = tref._SCAN_CHUNK_ELEMS // (40 * 384)
+    assert step < 6000
+    want = np.asarray(jref.box_scan_ref(*map(jnp.asarray, (x, lo, hi))))
+    np.testing.assert_array_equal(tref.box_scan_ref(*_t(x, lo, hi)).numpy(),
+                                  want)
+
+
+def test_box_scan_half_open_and_empty():
+    """x == lo excluded, x == hi included (tests/test_kernels.py); no
+    boxes count nothing."""
+    x = np.array([[0.0], [1.0], [0.5]], np.float32)
+    lo, hi = np.array([[0.0]], np.float32), np.array([[1.0]], np.float32)
+    want = np.asarray(jops.box_scan(*map(jnp.asarray, (x, lo, hi)),
+                                    interpret=True))
+    np.testing.assert_array_equal(want, [0, 1, 1])
+    np.testing.assert_array_equal(tref.box_scan_ref(*_t(x, lo, hi)).numpy(),
+                                  want)
+    empty = np.zeros((0, 1), np.float32)
+    got = tops.box_scan(*_t(x, empty, empty))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), [0, 0, 0])
+
+
+def _l2_case(n, d, q, seed, integer=False):
+    rng = np.random.default_rng(seed)
+    if integer:
+        return (rng.integers(-8, 9, (n, d)).astype(np.float32),
+                rng.integers(-8, 9, (q, d)).astype(np.float32))
+    return (rng.normal(0, 1, (n, d)).astype(np.float32),
+            rng.normal(0, 1, (q, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,d,q", L2_SHAPES)
+def test_l2dist_ref_matches_pallas(n, d, q):
+    x, qq = _l2_case(n, d, q, seed=n + d + q)
+    want = np.asarray(jops.l2dist(*map(jnp.asarray, (x, qq)),
+                                  interpret=True))
+    if n % 512 == 0 and d % 128 == 0:
+        raw = l2dist_pallas(*map(jnp.asarray, (x, qq)), tile_n=512,
+                            interpret=True)
+        np.testing.assert_array_equal(np.asarray(raw), want)
+    got = tref.l2dist_ref(*_t(x, qq))
+    assert got.dtype == torch.float32 and got.shape == (n, q)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-3)
+    np.testing.assert_array_equal(tops.l2dist(*_t(x, qq)).numpy(),
+                                  got.numpy())
+    # integer-valued inputs: every step of both forms is exact
+    xi, qi = _l2_case(n, d, q, seed=n + d + q, integer=True)
+    want = np.asarray(jops.l2dist(*map(jnp.asarray, (xi, qi)),
+                                  interpret=True))
+    np.testing.assert_array_equal(tref.l2dist_ref(*_t(xi, qi)).numpy(),
+                                  want)
+
+
+def test_l2dist_ref_sums_dims_in_order():
+    """The plain version is the sequential f32 sum the CUDA kernel
+    spells with round-to-nearest intrinsics."""
+    x, qq = _l2_case(300, 17, 5, seed=1)
+    acc = np.zeros((300, 5), np.float32)
+    for j in range(17):
+        t = x[:, j, None] - qq[None, :, j]
+        acc = acc + t * t
+    np.testing.assert_array_equal(tref.l2dist_ref(*_t(x, qq)).numpy(), acc)
+
+
+@pytest.mark.parametrize("n,d,q,k", [(500, 6, 3, 10), (2000, 384, 2, 100),
+                                     (1000, 6, 15, 1000)])
+def test_knn_topk_matches_reference(n, d, q, k):
+    """Distances within the tolerance at every rank. On integer-valued
+    rows with many exact ties the indices must be equal too: distance
+    ascending, the lower row position first on ties."""
+    x, qq = _l2_case(n, d, q, seed=n + k)
+    wd, wi = jops.knn_topk(jnp.asarray(x), jnp.asarray(qq), k)
+    gd, gi = tops.knn_topk(*_t(x, qq), k)
+    assert gi.dtype == torch.int32 and gd.dtype == torch.float32
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-4,
+                               atol=1e-3)
+    xi, qi = _l2_case(n, d, q, seed=n + k, integer=True)
+    xi = xi[np.random.default_rng(k).integers(0, n // 4, n)]   # duplicates
+    if d > 6:
+        xi[:, 6:] = 0
+    for interpret in (None, True):
+        wd, wi = jops.knn_topk(jnp.asarray(xi), jnp.asarray(qi), k,
+                               interpret=interpret)
+        gd, gi = tops.knn_topk(*_t(xi, qi), k)
+        np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    ties = np.diff(gd.numpy(), axis=1) == 0
+    assert ties.any()
+    assert (np.diff(gi.numpy(), axis=1)[ties] > 0).all()
+
+
 def test_zone_prune_boundary_zone():
     """A zone ending exactly at box lo cannot contain a match."""
     zlo = np.array([[0.0], [2.0]], np.float32)
@@ -150,6 +319,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x, lo, hi, onehot = _t(*_seg_case(300, 6, 7, 3, seed=0))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tbox_scan.box_scan_seg(x, lo, hi, onehot)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tbox_scan.box_scan(x, lo, hi)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tl2dist.l2dist(x, lo)
 
 
 # ----------------------------------------------------------------------
@@ -181,10 +354,10 @@ def test_zone_prune_cuda_matches_plain(cuda, nz, d, b):
 @pytest.mark.parametrize("n,d,b,q", SEG_SHAPES)
 def test_box_scan_seg_cuda_matches_plain(cuda, n, d, b, q):
     x, lo, hi, onehot = _t(*_seg_case(n, d, b, q, seed=n + b), device=cuda)
-    n0 = tbox_scan.launches
+    n0 = tbox_scan.seg_launches
     got = tbox_scan.box_scan_seg(x, lo, hi, onehot)
     torch.cuda.synchronize()
-    assert tbox_scan.launches == n0 + 1
+    assert tbox_scan.seg_launches == n0 + 1
     assert torch.equal(got, tref.box_scan_seg_ref(x, lo, hi, onehot))
     # gather mode: blocks of 64 rows (single rows when 64 does not
     # divide n) read in place
@@ -200,3 +373,31 @@ def test_box_scan_seg_cuda_matches_plain(cuda, n, d, b, q):
                                             onehot)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,b", SCAN_CUDA_SHAPES)
+def test_box_scan_cuda_matches_plain(cuda, n, d, b):
+    x, lo, hi = _t(*_scan_case(n, d, b, seed=n + d + b), device=cuda)
+    n0 = tbox_scan.scan_launches
+    got = tbox_scan.box_scan(x, lo, hi)
+    torch.cuda.synchronize()
+    assert tbox_scan.scan_launches == n0 + 1
+    assert torch.equal(got, tref.box_scan_ref(x, lo, hi))
+    none = tbox_scan.box_scan(x, lo[:0], hi[:0])     # B = 0: no launch
+    assert tbox_scan.scan_launches == n0 + 1
+    assert not none.any() and none.dtype == torch.int32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,q", L2_CUDA_SHAPES)
+def test_l2dist_cuda_matches_plain(cuda, n, d, q):
+    x, qq = _t(*_l2_case(n, d, q, seed=n + d + q), device=cuda)
+    n0 = tl2dist.launches
+    got = tl2dist.l2dist(x, qq)
+    torch.cuda.synchronize()
+    assert tl2dist.launches == n0 + 1
+    assert torch.equal(got, tref.l2dist_ref(x, qq))
+    cd, ci = tops.knn_topk(x, qq, min(50, n))
+    hd, hi_ = tops.knn_topk(x.cpu(), qq.cpu(), min(50, n))
+    assert torch.equal(cd.cpu(), hd) and torch.equal(ci.cpu(), hi_)

@@ -1,17 +1,23 @@
-"""Carry index state built elsewhere into the port.
+"""Carry state built elsewhere into the port.
 
 ``index_from_arrays`` wraps the fields of a zone-map index, given as numpy
 arrays (for instance read off the reference engine's indexes), in the
 port's ``ZoneMapIndex`` on a chosen device; ``SearchEngine.from_arrays``
 assembles a whole engine from such state. An engine built this way
 answers exactly as one that built the same state itself.
+
+``vit_from_numpy`` turns a reference ViT parameter tree (``init_vit`` of
+``repro.features.vit``, or trained weights, with numpy leaves) into the
+port's ``ViT``.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.index import ZoneMapIndex
 from repro_torch.device import resolve_device
+from repro_torch.features.vit import ViT, load_arrays
 
 
 def index_from_arrays(dims, perm, rows, zlo, zhi, block: int, n_rows: int,
@@ -31,3 +37,29 @@ def index_from_arrays(dims, perm, rows, zlo, zhi, block: int, n_rows: int,
     return ZoneMapIndex(np.asarray(dims), perm, rows, zlo, zhi, block,
                         int(n_rows), int(subset_id),
                         device=resolve_device(device))
+
+
+def vit_from_numpy(params, cfg: ModelConfig, *, image_size: int,
+                   patch_size: int, device=None):
+    """The port's ViT holding the reference tree ``params``: {patch_proj,
+    patch_bias, cls, pos, final_norm, layers: {norm1, attn: {wq, wk, wv,
+    wo}, norm2, mlp: {w_in, w_out}}}, numpy leaves, each layer leaf
+    stacked [L, ...] as ``jax.vmap`` made it. Weights keep their [in, out]
+    layout. ``device`` defaults to CUDA."""
+    model = ViT(cfg, image_size=image_size, patch_size=patch_size,
+                device=device)
+    arrays = {k: params[k] for k in ("patch_proj", "patch_bias", "cls",
+                                     "pos", "final_norm")}
+    lay = params["layers"]
+    per_layer = {"norm1": lay["norm1"], "norm2": lay["norm2"],
+                 **{k: lay["attn"][k] for k in ("wq", "wk", "wv", "wo")},
+                 **{k: lay["mlp"][k] for k in ("w_in", "w_out")}}
+    for name, stacked in per_layer.items():
+        stacked = np.asarray(stacked)
+        if stacked.shape[0] != cfg.num_layers:
+            raise ValueError(f"layers.{name}: {stacked.shape[0]} layers "
+                             f"stacked, the config has {cfg.num_layers}")
+        for i in range(cfg.num_layers):
+            arrays[f"layers.{i}.{name}"] = stacked[i]
+    load_arrays(model, arrays)
+    return model

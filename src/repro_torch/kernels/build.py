@@ -22,14 +22,16 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("zone_prune", "box_scan_seg", "box_scan", "l2dist")
+SOURCES = ("zone_prune", "box_scan_seg", "box_scan", "l2dist",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer), and row counts
-# that may pass 2^31 are c_longlong
+# that may pass 2^31 are c_longlong; flash attention's scale is a c_float
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_F = ctypes.c_float
 ARGTYPES = {
     "zone_prune": ("zone_prune_launch",
                    [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
@@ -37,6 +39,8 @@ ARGTYPES = {
                      [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
     "box_scan": ("box_scan_launch", [_P, _P, _P, _L, _I, _I, _P, _P]),
     "l2dist": ("l2dist_launch", [_P, _P, _L, _I, _I, _P, _P]),
+    "flash_attention": ("flash_attention_launch",
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -3,7 +3,8 @@ part of ``repro.kernels.ops``.
 
 Dispatch follows the tensors: on CUDA tensors the kernel stages launch
 the hand-written CUDA kernels (``kernels/zone_prune.py``,
-``kernels/box_scan.py``, ``kernels/l2dist.py``) or raise; only tensors on
+``kernels/box_scan.py``, ``kernels/l2dist.py``,
+``kernels/flash_attention.py``) or raise; only tensors on
 the CPU take the plain PyTorch versions in ``kernels/ref.py``. No TPU
 padding to 128 lanes or 1024-row tiles: the CUDA kernels take ragged N
 and D as they are.
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import box_scan as _box_scan
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import l2dist as _l2dist
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import zone_prune as _zone_prune
@@ -57,6 +59,40 @@ def l2dist(x, q) -> torch.Tensor:
     if _on_cpu(x):
         return kref.l2dist_ref(x, q)
     return _l2dist.l2dist(x, q)
+
+
+def kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Model layout q [B, S, Hq, D], k/v [B, S, Hkv, D] -> the kernel's
+    contiguous q [B*Hkv, S, G, D], k/v [B*Hkv, S, D] (G = Hq / Hkv; query
+    head h belongs to kv head h // G)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    if hq % hkv:
+        raise ValueError(f"flash_attention: {hq} query heads do not group "
+                         f"over {hkv} kv heads")
+    g = hq // hkv
+    qk = q.reshape(b, s, hkv, g, d).permute(0, 2, 1, 3, 4)
+    qk = qk.reshape(b * hkv, s, g, d).contiguous()
+    kk = k.permute(0, 2, 1, 3).reshape(b * hkv, s, d).contiguous()
+    vk = v.permute(0, 2, 1, 3).reshape(b * hkv, s, d).contiguous()
+    return qk, kk, vk
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    *, causal: bool = True) -> torch.Tensor:
+    """GQA attention in model layout: q [B, S, Hq, D]; k/v [B, S, Hkv, D]
+    -> [B, S, Hq, D]. Repacks to the kernel's layout and back, as the
+    reference wrapper does; the kernel takes any S (no chunk sizes, no
+    padding)."""
+    b, s, hq, d = q.shape
+    hkv = k.shape[2]
+    qk, kk, vk = kernel_layout(q, k, v)
+    if _on_cpu(qk):
+        out = kref.flash_attention_ref(qk, kk, vk, causal=causal)
+    else:
+        out = _flash.flash_attention(qk, kk, vk, causal=causal)
+    out = out.reshape(b, hkv, s, hq // hkv, d).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, s, hq, d)
 
 
 def knn_topk(x, q, k: int):

@@ -83,3 +83,22 @@ def l2dist_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         t = x[:, j, None] - q[None, :, j]
         acc = acc + t * t
     return acc
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True) -> torch.Tensor:
+    """Materialised-softmax attention in the kernel's layout.
+    q: [BH, S, G, D]; k/v: [BH, S, D] -> [BH, S, G, D] in q's dtype.
+    Scores are taken in float32 and scaled by D^-0.5 after the product;
+    causal masking keeps qpos >= kpos and sets the rest to -1e30."""
+    s, d = q.shape[1], q.shape[3]
+    scale = d ** -0.5
+    scores = torch.einsum("bqgd,bkd->bgqk", q.to(torch.float32),
+                          k.to(torch.float32)) * scale
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        mask = pos[:, None] >= pos[None, :]
+        scores = scores.masked_fill(~mask, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bgqk,bkd->bqgd", probs, v.to(torch.float32))
+    return out.to(q.dtype)

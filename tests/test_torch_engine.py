@@ -192,7 +192,10 @@ def test_from_arrays_host_oracle_engine_matches():
 
 def test_port_imports_neither_jax_nor_repro():
     code = (
-        "import sys, numpy as np\n"
+        "import importlib, pkgutil, sys, numpy as np\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "from repro_torch.core import SearchEngine\n"
         "x = np.random.default_rng(0).normal(size=(600, 12))"
         ".astype(np.float32)\n"
@@ -201,6 +204,20 @@ def test_port_imports_neither_jax_nor_repro():
         "assert r.n_found > 0\n"
         "for m in ('dtree', 'knn'):\n"
         "    assert e.query(range(8), range(100, 130), model=m).n_found\n"
+        "from repro_torch.configs.base import ModelConfig\n"
+        "from repro_torch.features import extract, vit\n"
+        "from repro_torch.data.synthetic import PatchDatasetConfig, "
+        "generate_patches\n"
+        "cfg = ModelConfig(name='t', family='vit', num_layers=1, d_model=16,"
+        " vocab_size=0, num_heads=2, num_kv_heads=2, d_ff=32)\n"
+        "imgs = generate_patches(PatchDatasetConfig(n_patches=5, "
+        "patch_size=16))['images']\n"
+        "import torch\n"
+        "m = vit.init_vit(cfg, image_size=16, patch_size=8, "
+        "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+        "f = extract.extract_catalog(imgs, extract.vit_feature_fn(m), "
+        "batch=4, device='cpu')\n"
+        "assert f.shape == (5, 32)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -221,6 +238,21 @@ def test_no_silent_cpu_fallback():
         SearchEngine(x, n_subsets=2, block=64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_index(x, np.arange(6), block=64)
+    from repro_torch.configs import get_config
+    from repro_torch.features.extract import (extract_catalog,
+                                              extraction_throughput)
+    from repro_torch.features.vit import ViT, init_vit
+    cfg = get_config("rapidearth-vit-t")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ViT(cfg, image_size=64, patch_size=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_vit(cfg, image_size=64, patch_size=16,
+                 generator=torch.Generator().manual_seed(0))
+    imgs = np.zeros((2, 64, 64, 3), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extract_catalog(imgs, lambda t: t, batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        extraction_throughput(lambda t: t, imgs, batch=2)
 
 
 @pytest.mark.parametrize("opt,item", [

@@ -9,9 +9,12 @@ and device ranking), the dtree/rforest full scan and the knn search
 (``query_batch`` through ``query_index``), and the feature-extraction
 path: 16,384 synthetic patches through the full-width ViT-T
 (``extract_catalog``, flash attention in every layer) into a
-``SearchEngine`` and a query batch, GPU against CPU.
+``SearchEngine`` and a query batch, GPU against CPU, and 512 patches at
+the paper's 400x400 (626 tokens). The flash library's SASS must hold
+wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only flash,extraction_400   # those phases
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -50,10 +53,10 @@ FULL_N, FULL_D = 1_048_576, 384
 MID_N = 65_536
 N_CLUSTERS = 1024
 TIME_ITERS = 30
-# attention's two products: f32 FMAs outside the tensor cores (an FMA
-# counted as two FLOPs) and bf16 on them, dense (NVIDIA data sheet)
-F32_FLOPS_PER_S = 67e12
+# attention's two products on the tensor cores, dense (NVIDIA data
+# sheet): bf16, and TF32 for the f32 route (3xTF32)
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 LIBRARY_NOTE = ("no single PyTorch call computes an interval-overlap or "
                 "half-open box-membership count, so library_ms is null for "
                 "zone_prune, box_scan_seg and box_scan; for l2dist it is "
@@ -70,6 +73,11 @@ EXTRACT_N = 16_384
 EXTRACT_BATCH = 128
 CPU_CHECK_N = 512
 FEATURE_TOL = 1e-4
+# the same extractor at the paper's own patch size (paper §3: 400x400,
+# /16 plus CLS = 626 tokens); the CPU re-extracts the first 8
+EXTRACT400_N = 512
+EXTRACT400_SIZE = 400
+CPU_CHECK400_N = 8
 # flash attention, model layout (b, s, hq, hkv, d, causal, dtype): the
 # shapes of tests/test_kernels.py, the ViT's own (batch 128 x 3 heads, 16
 # patches + CLS), the paper's 400x400 patches at /16 plus CLS, and a long
@@ -187,23 +195,6 @@ def time_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-def loop_ms(fn, iters: int = TIME_ITERS, warmup: int = 3) -> float:
-    """CUDA events around ``iters`` back-to-back calls, over ``iters``:
-    the launch path hides behind the device where a call outlasts it."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3):
     """(ms, source): the device-only time of one call, the summed self
     time of the device events torch.profiler records over ``iters`` calls,
@@ -211,8 +202,8 @@ def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3):
     the host's launch path. The profiler has been seen on the H100 to stop
     recording device events after some twenty profiling contexts in one
     process; when it records none, the time is taken by CUDA events
-    around ``iters`` back-to-back calls instead (source "events_loop"),
-    which hides the launch path only where a call outlasts it."""
+    around one replay of a CUDA graph of ``iters`` calls instead (source
+    "graph"), which leaves out the host's launch path too."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -228,7 +219,32 @@ def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3):
              if e.device_type == DeviceType.CUDA)
     if us > 0:
         return us * 1e-3 / iters, "profiler"
-    return loop_ms(fn, iters=iters, warmup=0), "events_loop"
+    return graph_ms(fn, iters=iters), "graph"
+
+
+def graph_ms(fn, iters: int = TIME_ITERS) -> float:
+    """CUDA events around one replay of a CUDA graph that holds ``iters``
+    calls of ``fn``, over ``iters``: device time with the launches
+    back to back and no host launch path between them."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def _self_device_us(e) -> float:
@@ -302,14 +318,16 @@ def l2dist_bound(n: int, d: int, nq: int):
 def flash_bound(bh: int, s: int, g: int, d: int, causal: bool,
                 dtype: str):
     """q, k, v read once and out written once, against 4 BH G S^2 D FLOPs
-    (two products, an FMA counted as two), halved when causal, over the
-    f32 or the bf16 peak."""
+    (two products, an FMA counted as two), halved when causal, on the
+    tensor cores by the kernel's own route: bf16 at the bf16 peak; f32 as
+    3xTF32 (each product three TF32 products: hi.hi + hi.lo + lo.hi), so
+    3x the FLOPs at the TF32 peak."""
     item = 2 if dtype == "bfloat16" else 4
     byts = (2 * bh * s * g * d + 2 * bh * s * d) * item
     flops = 4 * bh * g * s * s * d / (2 if causal else 1)
     tb = byts / HBM_BYTES_PER_S
-    to = flops / (BF16_FLOPS_PER_S if dtype == "bfloat16"
-                  else F32_FLOPS_PER_S)
+    to = (flops / BF16_FLOPS_PER_S if dtype == "bfloat16"
+          else 3 * flops / TF32_FLOPS_PER_S)
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -474,9 +492,8 @@ def synthetic_probe(nb: int, capacity: int, seed: int, device):
 def measure_flash(q, k, v, causal: bool, profile: bool = False) -> dict:
     """flash_attention on kernel-layout inputs (q [BH, S, G, D], k/v
     [BH, S, D]) against flash_attention_ref, within 2e-4 (f32) or 2e-2
-    (bf16); times of the kernel, the plain version and SDPA, and with
-    ``profile`` the kernel's and the plain version's device times by
-    torch.profiler."""
+    (bf16); event and device times of the kernel, the plain version and
+    SDPA."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -505,14 +522,17 @@ def measure_flash(q, k, v, causal: bool, profile: bool = False) -> dict:
            "ms": time_ms(kern),
            "plain_ms": time_ms(plain, iters=10, warmup=1),
            "library_ms": time_ms(lib)}
-    # device times: torch.profiler where asked (it records device events
-    # for only some twenty contexts a process), else events around
+    # device times of the kernel, the plain version and SDPA, by one
+    # helper for all three (at the ViT shape event times are the launch
+    # path): torch.profiler where asked (it records device events for
+    # only some twenty contexts a process), else a CUDA graph of
     # back-to-back calls
-    res["device_ms"], res["device_ms_by"] = (
-        device_ms(kern) if profile else (loop_ms(kern), "events_loop"))
-    if profile:
-        res["plain_device_ms"], res["plain_device_ms_by"] = device_ms(
-            plain, iters=10, warmup=1)
+    def dev(f, iters=TIME_ITERS):
+        return (device_ms(f, iters=iters) if profile
+                else (graph_ms(f, iters=iters), "graph"))
+    res["device_ms"], res["device_ms_by"] = dev(kern)
+    res["library_device_ms"], res["library_device_ms_by"] = dev(lib)
+    res["plain_device_ms"], res["plain_device_ms_by"] = dev(plain, iters=10)
     res["bound_ms"], res["bound_by"] = flash_bound(bh, s, g, d, causal, dt)
     return res
 
@@ -547,12 +567,86 @@ def phase_kernels(device) -> None:
             torch.randn(n, d, device=device, generator=g),
             torch.randn(nq, d, device=device, generator=g),
             plain_device=False))
-    flash = [measure_flash(*flash_case(*case, seed=10 + i, device=device),
-                           causal=case[5])
-             for i, case in enumerate(FLASH_CASES)]
     emit({"phase": "kernels_synthetic", "library_note": LIBRARY_NOTE,
           "runs": out, "box_scan": scans, "l2dist": dists,
-          "flash_attention": flash})
+          "flash_attention": flash_rows(device)})
+
+
+def flash_rows(device) -> list:
+    """flash_attention at every FLASH_CASES shape (measure_flash)."""
+    return [measure_flash(*flash_case(*case, seed=10 + i, device=device),
+                          causal=case[5])
+            for i, case in enumerate(FLASH_CASES)]
+
+
+def sass_check(lib: Path) -> dict:
+    """Per kernel function of a built library (cuobjdump -sass): its
+    HGMMA (wgmma on the tensor cores, by operand type) and UTMALDG (TMA
+    load) instructions."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {"HGMMA": 0, "HGMMA_BF16": 0,
+                                                 "HGMMA_TF32": 0,
+                                                 "UTMALDG": 0})
+        elif cur is not None:
+            if "HGMMA." in line:
+                cur["HGMMA"] += 1
+                cur["HGMMA_BF16"] += ".BF16" in line
+                cur["HGMMA_TF32"] += ".TF32" in line
+            cur["UTMALDG"] += "UTMALDG" in line
+    if not counts:
+        raise AssertionError(f"cuobjdump found no kernel in {lib}")
+    return demangled(counts)
+
+
+def ptxas_stats(lib: Path) -> dict:
+    """Per kernel function, registers and spill bytes from the
+    ``-Xptxas -v`` output that build.py keeps beside the library (none
+    for a library built without it)."""
+    import re
+    log = lib.with_suffix(".log")
+    stats, cur = {}, None
+    for line in (log.read_text() if log.exists() else "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = stats.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+    return demangled(stats)
+
+
+def demangled(by_name: dict) -> dict:
+    """``by_name`` with its C++ symbol names demangled (c++filt), where
+    the host has c++filt."""
+    import shutil
+    filt = shutil.which("c++filt")
+    if not filt or not by_name:
+        return by_name
+    names = subprocess.run([filt], input="\n".join(by_name),
+                           capture_output=True, text=True,
+                           check=True).stdout.split("\n")
+    return dict(zip(names, by_name.values()))
+
+
+def sass_missing(counts: dict) -> list:
+    """The functions of ``sass_check``'s counts with no HGMMA or no
+    UTMALDG."""
+    return [n for n, c in counts.items() if not (c["HGMMA"] and c["UTMALDG"])]
 
 
 def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
@@ -637,9 +731,17 @@ def profile_batch(fn) -> dict:
                 "device_ms_per_launch": sum(u for u, _ in mine) * 1e-3
                 / sum(c for _, c in mine),
                 "count": sum(c for _, c in mine)}
+    # flash attention, cuBLAS's products and the rest
+    by_class = {"flash_attention": 0.0, "cublas": 0.0, "other": 0.0}
+    for us, k, _ in rows:
+        low = k.lower()
+        cls = ("flash_attention" if "flash_attention_kernel" in k else
+               "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass"))
+               else "other")
+        by_class[cls] += us * 1e-3
     return {"wall_s": wall, "device_busy_s": busy,
             "device_idle_share": 1.0 - busy / wall if wall else None,
-            "path_kernels": per_launch,
+            "path_kernels": per_launch, "device_ms_by_class": by_class,
             "top_device": [{"name": k[:60], "ms": us * 1e-3, "count": c}
                            for us, k, c in rows[:8]]}
 
@@ -922,6 +1024,87 @@ def phase_extraction(device):
     return feats, data["labels"], launches, flash_in
 
 
+def phase_extraction_400(device) -> dict:
+    """The extractor at the paper's own patch size: the paper-config
+    ViT-T at 400x400, /16 (626 tokens), seeded port init, over
+    EXTRACT400_N synthetic patches by extract_catalog at batch 128, one
+    resident batch by extraction_throughput, the first CPU_CHECK400_N
+    re-extracted on the CPU with the same weights within FEATURE_TOL, and
+    one batch under torch.profiler (flash attention against cuBLAS
+    against the rest)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.rapidearth_vit import FEATURE_DIM, PATCH_SIZE
+    from repro_torch.data.synthetic import (PatchDatasetConfig,
+                                            generate_patches)
+    from repro_torch.features.extract import (extract_catalog,
+                                              extraction_throughput,
+                                              vit_feature_fn)
+    from repro_torch.features.vit import init_vit
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config("rapidearth-vit-t")
+    size, n, b = EXTRACT400_SIZE, EXTRACT400_N, EXTRACT_BATCH
+    t0 = time.perf_counter()
+    imgs = generate_patches(PatchDatasetConfig(
+        n_patches=n, patch_size=size, seed=0))["images"]
+    gen_s = time.perf_counter() - t0
+    model = init_vit(cfg, image_size=size, patch_size=PATCH_SIZE,
+                     generator=torch.Generator().manual_seed(0),
+                     device=device)
+    fn = vit_feature_fn(model)
+    extract_catalog(imgs[:b], fn, batch=b, device=device)     # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    feats = extract_catalog(imgs, fn, batch=b, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fa.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = -(-n // b)
+    if launches != n_batches * cfg.num_layers:
+        raise AssertionError(f"flash_attention launched {launches} times "
+                             f"for {n_batches} batches of "
+                             f"{cfg.num_layers} layers")
+    if feats.shape != (n, FEATURE_DIM) or not np.isfinite(feats).all():
+        raise AssertionError(f"features {feats.shape}: not [{n}, "
+                             f"{FEATURE_DIM}] finite values")
+    cpu_model = init_vit(cfg, image_size=size, patch_size=PATCH_SIZE,
+                         generator=torch.Generator().manual_seed(0),
+                         device="cpu")
+    t0 = time.perf_counter()
+    want = extract_catalog(imgs[:CPU_CHECK400_N], vit_feature_fn(cpu_model),
+                           batch=CPU_CHECK400_N, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    err = float(np.abs(feats[:CPU_CHECK400_N] - want).max())
+    if not np.allclose(feats[:CPU_CHECK400_N], want, rtol=FEATURE_TOL,
+                       atol=FEATURE_TOL):
+        raise AssertionError(f"GPU features != CPU features at {size}x"
+                             f"{size} (max abs err {err})")
+    throughput = extraction_throughput(fn, imgs, batch=b, iters=10,
+                                       device=device)
+    batch = torch.from_numpy(imgs[:b]).to(device)
+    prof = profile_batch(lambda: fn(batch))
+    seq = model.pos.shape[-2]
+    res = {"phase": "extraction_400", "model": cfg.name,
+           "image_size": size, "patch_size": PATCH_SIZE, "tokens": seq,
+           "patches": n, "batch": b, "data_gen_s": gen_s,
+           "image_bytes": int(imgs.nbytes), "extract_catalog_s": wall,
+           "extract_catalog_patches_per_s": n / wall,
+           "throughput": throughput,
+           "resident_patches_per_s": throughput["patches_per_s"],
+           "profile_one_batch": prof, "flash_launches": launches,
+           "flash_launches_per_batch": launches / n_batches,
+           "max_memory_allocated": peak,
+           "peak_above_resident": peak - resident,
+           "cpu_check_patches": CPU_CHECK400_N, "cpu_extract_s": cpu_s,
+           "gpu_vs_cpu_max_abs_err": err, "tol": FEATURE_TOL}
+    emit(res)
+    return res
+
+
 def phase_search_vit(device, feats, labels, k: int = 100) -> None:
     """The ViT features, normalised as examples/train_extractor.py does,
     into a SearchEngine on the card and one on the CPU; a query batch of
@@ -976,8 +1159,22 @@ KERNELS = {
 }
 
 
-def main() -> int:
+ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
+                                   "flash_attention": flash_rows(dev)}),
+        "extraction_400": phase_extraction_400}
+
+
+def main(argv) -> int:
+    """With no arguments, every phase and the closing records. With
+    ``--only flash,extraction_400`` (either or both), the kernels are
+    built and only those phases run: the FLASH_CASES rows and the
+    400x400 extraction, for comparing two trees on one card."""
     import torch
+    only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
+        else None
+    if only is not None and not set(only) <= set(ONLY):
+        print(f"chip_smoke: --only takes {sorted(ONLY)}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -993,6 +1190,18 @@ def main() -> int:
         build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
+    sass = sass_check(libs["flash_attention"])
+    missing = sass_missing(sass)
+    emit({"phase": "flash_sass", "functions": sass, "missing": missing,
+          "ptxas": ptxas_stats(libs["flash_attention"])})
+    if only is not None:
+        for name in only:
+            ONLY[name](torch.device("cuda", 0))
+        print(card, flush=True)
+        return 0
+    if missing:
+        raise AssertionError(f"flash_attention: no wgmma or no TMA load in "
+                             f"{missing}")
     dev = torch.device("cuda", 0)
     phase_kernels(dev)
     phase_gpu_vs_cpu(dev)
@@ -1000,6 +1209,7 @@ def main() -> int:
     scan_launches, scan_in, knn_in = phase_full_scan_knn(*ctx)
     feats, labels, flash_launches, flash_in = phase_extraction(dev)
     phase_search_vit(dev, feats, labels)
+    ext400 = phase_extraction_400(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
     res["l2dist"] = measure_l2dist(*knn_in)
@@ -1037,7 +1247,11 @@ def main() -> int:
                      "plain_device_ms": r["plain_device_ms"],
                      "plain_device_ms_by": r["plain_device_ms_by"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                     "library_ms": r.get("library_ms"), "shape": r["shape"]})
+                     "library_ms": r.get("library_ms"),
+                     "library_device_ms": r.get("library_device_ms"),
+                     "shape": r["shape"]})
+    rows[-1]["sass"] = sass
+    rows[-1]["extraction_400_flash_launches"] = ext400["flash_launches"]
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1046,4 +1260,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -24,8 +24,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("zone_prune", "box_scan_seg", "box_scan", "l2dist",
            "flash_attention")
+# -Xptxas -v: each kernel's registers, shared memory and spills, kept in
+# <library>.log beside the library
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer), and row counts
@@ -88,6 +90,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             errors.append(f"{n}.cu:\n{log.decode(errors='replace')}")
             tmp.unlink(missing_ok=True)
         else:
+            out[n].with_suffix(".log").write_bytes(log)
             os.replace(tmp, out[n])
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

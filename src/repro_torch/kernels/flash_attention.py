@@ -4,8 +4,10 @@
 Counterpart of ``repro.kernels.flash_attention``. In the kernel layout:
 q [BH, S, G, D], k/v [BH, S, D] (BH = batch x kv heads), float32 or
 bfloat16, D in {16, 32, 64, 128}, any S; the output is [BH, S, G, D] in
-q's dtype. The kernel picks its own tiles, so S needs no padding. It
-takes CUDA tensors only; the CPU dispatch to the plain version
+q's dtype. The kernel picks its own tiles, so S needs no padding; its
+products run on the tensor cores (bf16, or 3xTF32 for float32) from
+tiles that TMA loads, so every tensor must start on a 16-byte boundary.
+It takes CUDA tensors only; the CPU dispatch to the plain version
 (``kernels/ref.flash_attention_ref``) lives in ``kernels/ops.py``. There
 is no backward: an input that requires grad raises.
 
@@ -52,6 +54,11 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor,
         if t.device != q.device:
             raise ValueError("flash_attention: all inputs must be on one "
                              "device")
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             f"aligned (TMA), its data starts at "
+                             f"{t.data_ptr():#x}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "flash_attention has no backward yet (the attention backward is "
@@ -68,6 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if out.data_ptr() % 16:
+        raise ValueError("flash_attention: out must be 16-byte aligned (TMA)")
     fn = launch_fn("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -10,10 +10,16 @@ G = 1, D = 64, non-causal). Tolerance 2e-4 for f32, 2e-2 for bf16, as
 there: the Pallas kernel scales q before the product and sums online;
 the plain versions scale the scores and materialise the softmax.
 
+The kernel's f32 route (3xTF32) is emulated in torch on the CPU and held
+against the reference, beside a one-pass TF32 emulation that errs at
+least 10x more.
+
 On a CUDA card (marker ``gpu``; skipped without one): the CUDA kernel
 against its plain version over causal and non-causal inputs, G in
-{1, 2, 4, 8}, D in {16, 32, 64, 128}, ragged S, f32 and bf16. Run them
-there with ``python -m pytest -m gpu tests/test_torch_attention.py``.
+{1, 2, 3, 4, 8}, D in {16, 32, 64, 128}, ragged S and ragged query
+tiles, the ViT's batch of 384 bh, f32 and bf16, and the wrapper's
+16-byte alignment check. Run them there with
+``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_attention.py``.
 """
 from __future__ import annotations
 
@@ -151,6 +157,78 @@ def test_flash_wrapper_checks_inputs():
 
 
 # ----------------------------------------------------------------------
+# the CUDA kernel's f32 route (3xTF32), emulated on the CPU
+# ----------------------------------------------------------------------
+
+def _tf32_hi(x):
+    """x with its low 13 mantissa bits cleared: a TF32 value."""
+    return (x.view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tf32_rna(x):
+    """x rounded to TF32, to nearest with ties away from zero (the
+    kernel's cvt.rna.tf32.f32)."""
+    return ((x.view(torch.int32) + 4096) & -8192).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b in f32 from TF32 products: 3 passes (lo.hi + hi.lo + hi.hi,
+    the kernel's route) or 1 (each operand rounded to TF32). Products of
+    two TF32 values are exact in f32, so f32 matmuls of the parts model
+    the tensor cores' f32 accumulation."""
+    if passes == 1:
+        return _tf32_rna(a) @ _tf32_rna(b)
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    al, bl = _tf32_rna(a - ah), _tf32_rna(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _flash_tf32(q, k, v, causal, passes, tile=32):
+    """The f32 kernel's arithmetic in the kernel layout: per key tile of
+    ``tile``, scores from TF32 products scaled after the product, masked
+    (-1e30 causal, -inf past S), an f32 online softmax, P V from TF32
+    products, l floored at 1e-30."""
+    bh, s, g, d = q.shape
+    qm = q.reshape(bh, s * g, d)
+    qpos = torch.arange(s * g) // g
+    m = torch.full((bh, s * g, 1), -1e30)
+    l = torch.zeros(bh, s * g, 1)
+    acc = torch.zeros(bh, s * g, d)
+    for k0 in range(0, s, tile):
+        kt, vt = k[:, k0:k0 + tile], v[:, k0:k0 + tile]
+        sc = _tf32_matmul(qm, kt.transpose(1, 2), passes) * d ** -0.5
+        if causal:
+            kpos = torch.arange(k0, k0 + kt.shape[1])
+            sc = torch.where(kpos[None, None] > qpos[None, :, None],
+                             torch.tensor(-1e30), sc)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + _tf32_matmul(p, vt, passes)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).reshape(bh, s, g, d)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,causal", [
+    (2, 17, 3, 3, 64, False),      # the ViT's shape
+    (1, 626, 3, 3, 64, False),     # 400x400 patches at /16 + CLS
+    (1, 128, 4, 1, 32, True),      # causal MQA
+])
+def test_flash_tf32_route_needs_three_passes(b, s, hq, hkv, d, causal):
+    """3xTF32 stays within a tenth of the f32 tolerance of the JAX
+    reference; one TF32 pass errs at least 10x more. This is why the f32
+    kernel makes three products and never one."""
+    q, k, v = _kernel_layout_np(*_model_inputs(b, s, hq, hkv, d,
+                                               seed=s + d))
+    want = np.asarray(jref.flash_attention_ref(*_j(q, k, v), causal=causal))
+    err = {n: float(np.abs(_flash_tf32(*_t(q, k, v), causal, n).numpy()
+                           - want).max()) for n in (1, 3)}
+    assert err[3] <= TOL["float32"] / 10, err
+    assert err[1] >= 10 * err[3], err
+
+
+# ----------------------------------------------------------------------
 # the CUDA kernel vs its plain version (on a card only)
 # ----------------------------------------------------------------------
 
@@ -163,6 +241,7 @@ def cuda():
 
 
 def _cuda_case(s, g, d, dtype, seed, device, bh=3):
+    """Seeded N(0, 1) q [bh, s, g, d], k and v [bh, s, d] on the card."""
     gen = torch.Generator(device=device).manual_seed(seed)
     q = torch.randn(bh, s, g, d, device=device, generator=gen)
     k = torch.randn(bh, s, d, device=device, generator=gen)
@@ -187,8 +266,9 @@ def _check_cuda(q, k, v, causal, dtype):
 @pytest.mark.parametrize("g", [1, 2, 4, 8])
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_cuda_matches_plain(cuda, d, g, causal, dtype):
-    """S = 67: two full key tiles and a ragged third; the last query
-    tile ragged too."""
+    """S = 67: two full 32-key tiles (f32) or one 64-key tile (bf16) and
+    a ragged last one; S * G (67, 134, 268, 536) never a multiple of 64,
+    so the last query tile is ragged too."""
     _check_cuda(*_cuda_case(67, g, d, dtype, seed=d + g, device=cuda),
                 causal, dtype)
 
@@ -218,3 +298,60 @@ def test_flash_cuda_model_layout_op(cuda):
     assert tflash.launches == n0 + 1
     want = tops.flash_attention(q, k, v, causal=False)
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("s", [33, 95])
+def test_flash_cuda_ragged_tiles(cuda, s, d, dtype):
+    """G = 3: S * G (99, 285) is no multiple of 64 rows and S no
+    multiple of the key tile (32 or 64); S = 33 is one ragged bf16 tile."""
+    _check_cuda(*_cuda_case(s, 3, d, dtype, seed=s + d, device=cuda),
+                True, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_cuda_vit_batch(cuda, dtype):
+    """The ViT's batch, BH = 384 at S = 17: every bh is one 64-row tile
+    of which 47 rows lie past its end, and a 2-D view would read them
+    from the next bh; the 3-D tensor maps read zeros there."""
+    _check_cuda(*_cuda_case(17, 1, 64, dtype, seed=17, device=cuda,
+                            bh=384), False, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [40, 200])
+def test_flash_cuda_causal_gqa8(cuda, s, dtype):
+    """Causal, G = 8: a 64-row block holds 8 query positions, so the
+    diagonal runs through the block, and a 128-row CTA's last key tile
+    is cut at its last position."""
+    _check_cuda(*_cuda_case(s, 8, 64, dtype, seed=s, device=cuda),
+                True, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [32, 77, 300])
+def test_flash_cuda_d128_f32(cuda, s, causal):
+    """D = 128 f32: one consumer warpgroup and 32-key tiles (shared memory
+    holds no more beside Q's hi and lo); S = 32 is one full tile."""
+    _check_cuda(*_cuda_case(s, 2, 128, "float32", seed=s, device=cuda),
+                causal, "float32")
+
+
+@pytest.mark.gpu
+def test_flash_cuda_refuses_unaligned(cuda):
+    """TMA needs 16-byte aligned tensors: a view 4 bytes into its
+    storage raises, and so does an unaligned k or v."""
+    q, k, v = _cuda_case(8, 1, 32, "float32", seed=0, device=cuda)
+    flat = torch.zeros(q.numel() + 1, device=cuda)
+    bad = flat[1:].view(q.shape)
+    bad.copy_(q)
+    assert bad.is_contiguous() and bad.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(bad, k, v)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention(q, flat[1:1 + k.numel()].view(k.shape), v)

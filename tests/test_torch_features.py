@@ -87,12 +87,18 @@ def test_config_matches_reference():
         get_config("llama3-8b")
 
 
-@pytest.mark.parametrize("case", ["small", "paper"])
+@pytest.mark.parametrize("case", ["small", "paper", "paper400"])
 def test_vit_features_match_reference(case):
+    """paper400: the paper's own 400x400 patches at /16 (626 tokens), the
+    ViT-T's widths with 2 of its 12 layers, a batch of 2."""
     if case == "small":
         cfg, image, patch, n = _small_cfg(), 16, 8, 10
-    else:
+    elif case == "paper":
         cfg, image, patch, n = jget_config("rapidearth-vit-t"), 64, 16, 8
+    else:
+        cfg = dataclasses.replace(jget_config("rapidearth-vit-t"),
+                                  num_layers=2)
+        image, patch, n = 400, 16, 2
     params, model = _pair(cfg, image, patch)
     imgs = _images(n, image)
     want = np.asarray(jvit.extract_features(params, jnp.asarray(imgs), cfg,
@@ -100,7 +106,7 @@ def test_vit_features_match_reference(case):
     got = tvit.extract_features(model, imgs)
     assert got.shape == (n, 2 * cfg.d_model) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=RTOL)
-    if case == "paper":
+    if case != "small":
         return
     toks = np.asarray(jvit.vit_forward(params, jnp.asarray(imgs), cfg, CTX,
                                        patch_size=patch))

@@ -11,10 +11,14 @@ path: 16,384 synthetic patches through the full-width ViT-T
 (``extract_catalog``, flash attention in every layer) into a
 ``SearchEngine`` and a query batch, GPU against CPU, and 512 patches at
 the paper's 400x400 (626 tokens). The flash library's SASS must hold
-wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation.
+wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
+scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg and
+zone_prune are timed warm and with the L2 flushed before each launch, as
+the fused batch finds their inputs.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash,extraction_400   # those phases
+    python3 chip_smoke.py --only box_scan    # the box scans at full size
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -247,6 +251,16 @@ def graph_ms(fn, iters: int = TIME_ITERS) -> float:
     return start.elapsed_time(end) / iters
 
 
+def dev_ms(fn, profile: bool, iters: int = TIME_ITERS, warmup: int = 3):
+    """device_ms where ``profile``, else a CUDA graph's (graph_ms): each
+    torch.profiler context counts against the twenty or so a process
+    records, so the synthetic shapes take graphs and the main path's
+    inputs the profiler."""
+    if profile:
+        return device_ms(fn, iters=iters, warmup=warmup)
+    return graph_ms(fn, iters=iters), "graph"
+
+
 def _self_device_us(e) -> float:
     return getattr(e, "self_device_time_total",
                    getattr(e, "self_cuda_time_total", 0))
@@ -275,12 +289,13 @@ def zone_prune_bound(nz: int, nb: int, d: int):
     return _bound(byts, ops)
 
 
-def box_scan_bound(rows: int, c_rows: int, nb: int, d: int, nq: int):
+def box_scan_bound(rows: int, c_rows: int, nb: int, d: int, nq: int,
+                   compares: int):
     """rows: rows the data needs tested (min(n_hit, C) * block); c_rows:
-    C * block output rows written."""
+    C * block output rows written; ``compares`` as this run's data needs
+    them (scan_compares over the tested rows)."""
     byts = rows * d * 4 + c_rows * nq * 4 + nb * d * 8 + nb * nq * 4
-    ops = rows * nb * d * 2
-    return _bound(byts, ops)
+    return _bound(byts, compares)
 
 
 def scan_bound(n: int, d: int, nb: int, compares: int):
@@ -290,23 +305,37 @@ def scan_bound(n: int, d: int, nb: int, compares: int):
 
 
 def scan_compares(x, lo, hi) -> tuple:
-    """(compares the data needs, the most it could need) for box_scan:
-    per (row, box), two per dim up to and including the first failing
-    dim in ascending order (all D when the row is inside), against
-    N * B * D * 2. Counted on the card in row chunks."""
+    """(compares the data needs, the earlier count) for box_scan. The
+    earlier count (``compares_upper``): per (row, box), two a dim up to
+    and including the first failing dim in ascending order (all D when
+    the row is inside), what the dense kernel tests and what D <= 8 still
+    needs. For D > 8 the kernel needs less: per (row, box), two a
+    constrained dim ((lo, hi) != (-inf, +inf)) up to and including the
+    first failing one, and the row check (x > -inf on every dim: D
+    compares) only for a row inside some box by those lists. Counted on
+    the card in row chunks."""
     import torch
     n, d = x.shape
     nb = lo.shape[0]
-    step = max(1, (1 << 26) // max(nb * d, 1))
-    need = 0
+    inf = float("inf")
+    cons = ~((lo == -inf) & (hi == inf))                      # [B, D]
+    upto = cons.to(torch.int64).cumsum(1)    # constrained dims up to k
+    boxes = torch.arange(nb, device=x.device)[None]
+    step = max(1, (1 << 25) // max(nb * d, 1))
+    dense = lists = 0
     for r0 in range(0, n, step):
-        xc = x[r0:r0 + step, None, :]
-        fail = ~((xc > lo[None]) & (xc <= hi[None]))         # [c, B, D]
+        xr = x[r0:r0 + step]
+        fail = ~((xr[:, None] > lo[None]) & (xr[:, None] <= hi[None]))
+        last = torch.full_like(fail[..., 0], d - 1, dtype=torch.int64)
         first = torch.where(fail.any(-1), fail.to(torch.int8).argmax(-1),
-                            torch.full_like(fail[..., 0], d - 1,
-                                            dtype=torch.int64))
-        need += int((first + 1).sum()) * 2
-    return need, n * nb * d * 2
+                            last)                             # [c, B]
+        dense += int((first + 1).sum()) * 2
+        fail &= cons[None]
+        inside = ~fail.any(-1)
+        first = torch.where(inside, last, fail.to(torch.int8).argmax(-1))
+        lists += int(upto[boxes, first].sum()) * 2
+        lists += d * int(inside.any(1).sum())
+    return (lists if d > 8 else dense), dense
 
 
 def l2dist_bound(n: int, d: int, nq: int):
@@ -336,9 +365,53 @@ def _bound(byts: int, ops: int):
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int) -> dict:
+# written between cold launches: more than the H100's 50 MB L2
+L2_FLUSH_BYTES = 128 << 20
+
+
+def cold_device_ms(fn, kernel: str, iters: int = TIME_ITERS,
+                   use_profiler: bool = True):
+    """(ms, source): the device time of one call of ``fn`` with the L2
+    flushed before it by a 128 MB write, as the path finds its inputs
+    (the fused batch's probes each read another subset's index mirror).
+    torch.profiler's self time of the device events whose name holds
+    ``kernel`` (the flush left out), over ``iters``; where the profiler
+    records none, the difference of two CUDA graphs, ``iters`` x (flush,
+    call) less ``iters`` x flush (source "graph_diff"), which is also
+    taken without ``use_profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+
+    def cold():
+        flush.fill_(1.0)
+        fn()
+    for _ in range(3):
+        cold()
+    torch.cuda.synchronize()
+    us = 0
+    if use_profiler:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                cold()
+            torch.cuda.synchronize()
+        us = sum(_self_device_us(e) for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if us > 0:
+        return us * 1e-3 / iters, "profiler"
+    return (graph_ms(cold, iters=iters)
+            - graph_ms(lambda: flush.fill_(1.0), iters=iters)), "graph_diff"
+
+
+def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int,
+                    profile: bool = True) -> dict:
     """Hold both path kernels against their plain versions on one probe's
-    inputs (zone_hits -> compaction -> gathered box scan) and time them."""
+    inputs (zone_hits -> compaction -> gathered box scan) and time them:
+    device ms warm (the same inputs back to back) and cold (the L2
+    flushed before each launch, as on the path)."""
     import torch
     from repro_torch.kernels import box_scan, ops, ref, zone_prune
     nz, block, d = rows3.shape
@@ -379,12 +452,19 @@ def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int) -> dict:
     for name, (kern, plain) in fns.items():
         res[name]["ms"] = time_ms(kern)
         res[name]["plain_ms"] = time_ms(plain)
-        res[name]["device_ms"], res[name]["device_ms_by"] = device_ms(kern)
-        (res[name]["plain_device_ms"],
-         res[name]["plain_device_ms_by"]) = device_ms(plain)
+        res[name]["device_ms"], res[name]["device_ms_by"] = dev_ms(
+            kern, profile)
+        (res[name]["device_ms_cold"],
+         res[name]["device_ms_cold_by"]) = cold_device_ms(
+             kern, f"{name}_kernel", use_profiler=profile)
+        res[name]["plain_device_ms"] = res[name]["plain_device_ms_by"] = None
+        if profile:
+            (res[name]["plain_device_ms"],
+             res[name]["plain_device_ms_by"]) = device_ms(plain)
     bz = zone_prune_bound(nz, nb, d)
-    bb = box_scan_bound(min(nh, capacity) * block, capacity * block, nb, d,
-                        nq)
+    tested = rows3[cand[:min(nh, capacity)].long()].reshape(-1, d)
+    bb = box_scan_bound(tested.shape[0], capacity * block, nb, d, nq,
+                        scan_compares(tested, lo, hi)[0])
     res["zone_prune"]["bound_ms"], res["zone_prune"]["bound_by"] = bz
     res["box_scan_seg"]["bound_ms"], res["box_scan_seg"]["bound_by"] = bb
     return res
@@ -392,24 +472,31 @@ def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int) -> dict:
 
 def measure_one(name: str, kern, plain, bound, library=None,
                 plain_iters: int = TIME_ITERS,
-                plain_device: bool = True) -> dict:
+                plain_device: bool = True, profile: bool = True) -> dict:
     """Exactness against the plain version, then event / device times of
     the kernel, the plain version (device time only with
-    ``plain_device``) and the library call."""
+    ``plain_device``) and the library call (dev_ms: torch.profiler where
+    ``profile``, else CUDA graphs)."""
     res = compare(kern, plain, name)
     res["ms"] = time_ms(kern)
-    res["device_ms"], res["device_ms_by"] = device_ms(kern)
+    res["device_ms"], res["device_ms_by"] = dev_ms(kern, profile)
     res["plain_ms"] = time_ms(plain, iters=plain_iters, warmup=1)
     res["plain_device_ms"] = res["plain_device_ms_by"] = None
     if plain_device:
-        res["plain_device_ms"], res["plain_device_ms_by"] = device_ms(
-            plain, iters=plain_iters, warmup=1)
-    res["library_ms"] = time_ms(library) if library is not None else None
+        res["plain_device_ms"], res["plain_device_ms_by"] = dev_ms(
+            plain, profile, iters=plain_iters, warmup=1)
+    res["library_ms"] = res["library_device_ms"] = None
+    res["library_device_ms_by"] = None
+    if library is not None:
+        res["library_ms"] = time_ms(library)
+        res["library_device_ms"], res["library_device_ms_by"] = dev_ms(
+            library, profile)
     res["bound_ms"], res["bound_by"] = bound
     return res
 
 
-def measure_scan(x, lo, hi, plain_device: bool = True) -> dict:
+def measure_scan(x, lo, hi, plain_device: bool = True,
+                 profile: bool = True) -> dict:
     """box_scan on (x, lo, hi) against box_scan_ref."""
     from repro_torch.kernels import box_scan, ref
     need, upper = scan_compares(x, lo, hi)
@@ -418,14 +505,15 @@ def measure_scan(x, lo, hi, plain_device: bool = True) -> dict:
     res = measure_one("box_scan", lambda: box_scan.box_scan(x, lo, hi),
                       lambda: ref.box_scan_ref(x, lo, hi),
                       scan_bound(n, d, nb, need), plain_iters=PLAIN_ITERS,
-                      plain_device=plain_device)
+                      plain_device=plain_device, profile=profile)
     res["bound_ms_upper"], res["bound_by_upper"] = scan_bound(n, d, nb, upper)
     res["compares_needed"], res["compares_upper"] = need, upper
     res["shape"] = {"n": n, "d": d, "boxes": nb}
     return res
 
 
-def measure_l2dist(x, q, plain_device: bool = True) -> dict:
+def measure_l2dist(x, q, plain_device: bool = True,
+                   profile: bool = True) -> dict:
     """l2dist on (x, q) against l2dist_ref; torch.cdist as the library."""
     import torch
     from repro_torch.kernels import l2dist, ref
@@ -434,7 +522,7 @@ def measure_l2dist(x, q, plain_device: bool = True) -> dict:
                       lambda: ref.l2dist_ref(x, q),
                       l2dist_bound(n, d, q.shape[0]),
                       library=lambda: torch.cdist(x, q),
-                      plain_device=plain_device)
+                      plain_device=plain_device, profile=profile)
     res["shape"] = {"n": n, "d": d, "queries": q.shape[0]}
     return res
 
@@ -550,13 +638,14 @@ def flash_case(b, s, hq, hkv, d, causal, dtype, seed, device):
 
 def phase_kernels(device) -> None:
     import torch
-    out = [measure_kernels(*synthetic_probe(nb, cap, seed, device))
+    # device times by CUDA graphs here and plain device times only at the
+    # main path's inputs: each torch.profiler context counts against the
+    # twenty or so that record device events
+    out = [measure_kernels(*synthetic_probe(nb, cap, seed, device),
+                           profile=False)
            for nb, cap, seed in ((64, 64, 1), (512, 256, 2))]
-    # plain device times only at the main path's inputs: each profiler
-    # profiling context counts against the twenty or so that record
-    # device events
     scans = [measure_scan(*synthetic_scan(n, d, nb, seed, device),
-                          plain_device=False)
+                          plain_device=False, profile=False)
              for n, d, nb, seed in ((FULL_N, FULL_D, 16, 3),
                                     (FULL_N, FULL_D, 64, 4),
                                     (256 * 1024, 6, 64, 5))]
@@ -566,7 +655,7 @@ def phase_kernels(device) -> None:
         dists.append(measure_l2dist(
             torch.randn(n, d, device=device, generator=g),
             torch.randn(nq, d, device=device, generator=g),
-            plain_device=False))
+            plain_device=False, profile=False))
     emit({"phase": "kernels_synthetic", "library_note": LIBRARY_NOTE,
           "runs": out, "box_scan": scans, "l2dist": dists,
           "flash_attention": flash_rows(device)})
@@ -581,8 +670,8 @@ def flash_rows(device) -> list:
 
 def sass_check(lib: Path) -> dict:
     """Per kernel function of a built library (cuobjdump -sass): its
-    HGMMA (wgmma on the tensor cores, by operand type) and UTMALDG (TMA
-    load) instructions."""
+    HGMMA (wgmma on the tensor cores, by operand type), UTMALDG (TMA
+    load) and UBLKCP (cp.async.bulk) instructions."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -594,20 +683,22 @@ def sass_check(lib: Path) -> dict:
         if m:
             cur = counts.setdefault(m.group(1), {"HGMMA": 0, "HGMMA_BF16": 0,
                                                  "HGMMA_TF32": 0,
-                                                 "UTMALDG": 0})
+                                                 "UTMALDG": 0, "UBLKCP": 0})
         elif cur is not None:
             if "HGMMA." in line:
                 cur["HGMMA"] += 1
                 cur["HGMMA_BF16"] += ".BF16" in line
                 cur["HGMMA_TF32"] += ".TF32" in line
             cur["UTMALDG"] += "UTMALDG" in line
+            cur["UBLKCP"] += "UBLKCP" in line
     if not counts:
         raise AssertionError(f"cuobjdump found no kernel in {lib}")
     return demangled(counts)
 
 
 def ptxas_stats(lib: Path) -> dict:
-    """Per kernel function, registers and spill bytes from the
+    """Per kernel function, registers, spill bytes, stack frame and static
+    shared memory (the box scans' is all dynamic, set at launch) from the
     ``-Xptxas -v`` output that build.py keeps beside the library (none
     for a library built without it)."""
     import re
@@ -623,6 +714,11 @@ def ptxas_stats(lib: Path) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            cur["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -641,6 +737,26 @@ def demangled(by_name: dict) -> dict:
                            capture_output=True, text=True,
                            check=True).stdout.split("\n")
     return dict(zip(names, by_name.values()))
+
+
+# the kernels designed around bulk copies, which must hold cp.async.bulk
+# (UBLKCP): box_scan's full-width route and box_scan_seg; box_scan's
+# narrow (D <= 8) and widest routes keep the earlier kernel without it
+BULK_KERNELS = ("box_scan_kernel_lists", "box_scan_seg_kernel")
+
+
+def bulk_sass(libs: dict) -> dict:
+    """The box_scan_sass record: per function of the two box-scan
+    libraries, its UBLKCP count, registers, spills and stack frame, and
+    the bulk-copy kernels that hold no UBLKCP."""
+    funcs = {}
+    for name in ("box_scan", "box_scan_seg"):
+        stats = ptxas_stats(libs[name])
+        for f, c in sass_check(libs[name]).items():
+            funcs[f] = {"UBLKCP": c["UBLKCP"], **stats.get(f, {})}
+    missing = [f for f, c in funcs.items()
+               if any(k in f for k in BULK_KERNELS) and not c["UBLKCP"]]
+    return {"phase": "box_scan_sass", "functions": funcs, "missing": missing}
 
 
 def sass_missing(counts: dict) -> list:
@@ -746,13 +862,11 @@ def profile_batch(fn) -> dict:
                            for us, k, c in rows[:8]]}
 
 
-def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
-    """The main path at full size. Returns the kernel launch counts of
-    the timed query_batch and the inputs of its largest probe."""
-    import torch
+def full_engine(device, n: int, d: int, k: int):
+    """The main path's catalog (clustered, seed 0), its batch of 8
+    requests and the engine over it at its default geometry; returns
+    (engine, requests, data seconds, build seconds)."""
     from repro_torch.core import SearchEngine
-    from repro_torch.core.index import sparse_probe
-    from repro_torch.kernels import box_scan, zone_prune
     t0 = time.perf_counter()
     x, assign = clustered(n, d, seed=0)
     gen_s = time.perf_counter() - t0
@@ -762,6 +876,69 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
     build_s = time.perf_counter() - t0
     if eng.subsets.shape != (32, 6) or eng.indexes[0].block != 1024:
         raise AssertionError("not the engine's default geometry")
+    return eng, reqs, gen_s, build_s
+
+
+def request_fits(eng, reqs) -> list:
+    """Each request's box sets as query_batch and query() fit them."""
+    return [eng._fit_boxes(r["model"], eng.x[r["pos_ids"]],
+                           eng.x[r["neg_ids"]], max_depth=12, n_models=25,
+                           seed=0, frange=eng.frange) for r in reqs]
+
+
+def probe_inputs(eng, reqs) -> list:
+    """One round of the fused batch's probes, boxes uploaded: (index, lo,
+    hi, onehot, capacity) for each, as query_batch builds them."""
+    fits = request_fits(eng, reqs)
+    jobs, _ = eng._make_jobs(
+        [(bs, q) for q, f in enumerate(fits) for bs in f], len(reqs))
+    return [(eng.indexes[sid], *eng._probe_inputs(m, o, len(reqs)),
+             eng._initial_capacity(eng.indexes[sid], m.n_boxes))
+            for sid, m, o in jobs]
+
+
+def largest_probe(inputs) -> tuple:
+    """measure_kernels' inputs at the probe with the most boxes."""
+    ix, lo, hi, oh, cap = max(inputs, key=lambda t: t[1].shape[0])
+    rows3, zlo, zhi = ix.device_arrays()
+    return rows3, zlo, zhi, lo, hi, oh, cap
+
+
+def largest_query_index(eng, reqs) -> tuple:
+    """box_scan's inputs (rows, lo, hi) at the use_fused=False batch's
+    largest query_index call by rows x boxes: each request's boxes of one
+    subset merged, the hit blocks' rows gathered, as query_index does."""
+    from repro_torch.core.index import to_device_f32
+    from repro_torch.kernels import ops
+    best, size = None, -1
+    for fits in request_fits(eng, reqs):
+        by_subset = {}
+        for bs in fits:
+            by_subset.setdefault(bs.subset_id, []).append(bs)
+        for sid, group in by_subset.items():
+            merged = group[0]
+            for g in group[1:]:
+                merged = merged.concatenate(g)
+            ix = eng.indexes[sid]
+            rows3, zlo, zhi = ix.device_arrays()
+            lo = to_device_f32(merged.lo, ix.device)
+            hi = to_device_f32(merged.hi, ix.device)
+            hit = ops.zone_prune(zlo, zhi, lo, hi).any(1).nonzero().flatten()
+            if hit.numel() * ix.block * merged.n_boxes > size:
+                size = hit.numel() * ix.block * merged.n_boxes
+                best = (rows3.index_select(0, hit).reshape(
+                    -1, rows3.shape[-1]), lo, hi)
+    return best
+
+
+def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
+    """The main path at full size. Returns the kernel launch counts of
+    the timed query_batch and the inputs of its largest probe."""
+    import torch
+    from repro_torch.core.index import sparse_probe
+    from repro_torch.kernels import box_scan, zone_prune
+    eng, reqs, gen_s, build_s = full_engine(device, n, d, k)
+    x = eng.x
     eng.query_batch(reqs)                     # warm: mirrors, hints
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -790,14 +967,7 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
             raise AssertionError(f"request {i}: empty or non-finite result")
     # one round's probes with the boxes already uploaded, under the sync
     # debugger: nothing on the dispatch path may synchronise
-    fits = [eng._fit_boxes(r["model"], x[r["pos_ids"]], x[r["neg_ids"]],
-                           max_depth=12, n_models=25, seed=0,
-                           frange=eng.frange) for r in reqs]
-    jobs, _ = eng._make_jobs(
-        [(bs, q) for q, f in enumerate(fits) for bs in f], len(reqs))
-    inputs = [(eng.indexes[sid], *eng._probe_inputs(m, o, len(reqs)),
-               eng._initial_capacity(eng.indexes[sid], m.n_boxes))
-              for sid, m, o in jobs]
+    inputs = probe_inputs(eng, reqs)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -827,22 +997,19 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
           "max_memory_allocated": peak, "launches": launches,
           "device_ranked_equals_host": True,
           "sync_free_probes": len(probes)})
-    big = max(inputs, key=lambda t: t[1].shape[0])
-    ix, lo, hi, oh, cap = big
-    rows3, zlo, zhi = ix.device_arrays()
-    return launches, (rows3, zlo, zhi, lo, hi, oh, cap), (eng, reqs, full)
+    return launches, largest_probe(inputs), (eng, reqs, full)
 
 
 def phase_full_scan_knn(eng, reqs, full, k: int = 100):
     """The scan and knn paths, and the use_fused=False host oracle, on
     the full-size engine of phase_full (no second index build). Returns
     the launch counts of each path and the main-path inputs of box_scan
-    and l2dist."""
+    (rforest's scan, and the host oracle's largest query_index call) and
+    l2dist."""
     import torch
     from repro_torch.core.boxes import boxes_contain
     from repro_torch.core.convert import index_from_arrays
     from repro_torch.core.knn import knn_subset, knn_vote
-    from repro_torch.core.trees import fit_random_forest
     from repro_torch.kernels import box_scan, l2dist, zone_prune
     pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
     kw = dict(max_results=k, max_depth=12, n_models=25, k_neighbors=1000)
@@ -865,11 +1032,7 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
         raise AssertionError(f"a scan/knn kernel never launched: {launches}")
     # right by the repo's own means: the scan scores are the host
     # oracle's box counts; knn equals the same search on the CPU
-    forest = fit_random_forest(
-        np.concatenate([eng.x[pos], eng.x[neg]]),
-        np.concatenate([np.ones(len(pos)), np.zeros(len(neg))]),
-        n_trees=25, max_depth=12, seed=0)
-    lo_rf, hi_rf = forest.boxes()
+    lo_rf, hi_rf = rforest_boxes(eng, pos, neg)
     r = res["rforest"]
     if r.n_found == 0 or not np.array_equal(
             r.scores, boxes_contain(eng.x[r.ids], lo_rf, hi_rf)):
@@ -925,7 +1088,42 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
     scan_in = (eng._device_features(), *(torch.from_numpy(a).to(eng.device)
                                          for a in (lo_rf, hi_rf)))
     knn_in = (rows3.reshape(-1, rows3.shape[-1])[:ix0.n_rows], q0)
-    return {**launches, "host_oracle": uf_launches}, scan_in, knn_in
+    return ({**launches, "host_oracle": uf_launches}, scan_in, knn_in,
+            largest_query_index(eng, reqs))
+
+
+def rforest_boxes(eng, pos, neg):
+    """The boxes of the rforest query's forest (25 trees, depth 12)."""
+    from repro_torch.core.trees import fit_random_forest
+    forest = fit_random_forest(
+        np.concatenate([eng.x[pos], eng.x[neg]]),
+        np.concatenate([np.ones(len(pos)), np.zeros(len(neg))]),
+        n_trees=25, max_depth=12, seed=0)
+    return forest.boxes()
+
+
+def phase_box_scan(device) -> None:
+    """Rows 2-3 of the kernel table alone, at full size: the main path's
+    engine after one batch, the fused batch's largest probe (box_scan_seg
+    and zone_prune, warm and cold), rforest's boxes over the 1,048,576 x
+    384 features and the use_fused=False batch's largest query_index
+    call (box_scan), and the synthetic 1,048,576 x 384 x 64 scan. For
+    comparing two trees' kernels on one card."""
+    import torch
+    eng, reqs, _, build_s = full_engine(device, FULL_N, FULL_D, 100)
+    eng.query_batch(reqs)         # the capacity hints phase_full's probe has
+    probe = largest_probe(probe_inputs(eng, reqs))
+    pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
+    scan_in = (eng._device_features(), *(torch.from_numpy(a).to(eng.device)
+                                         for a in rforest_boxes(eng, pos,
+                                                                neg)))
+    qi_in = largest_query_index(eng, reqs)
+    res = measure_kernels(*probe)
+    res["box_scan"] = measure_scan(*scan_in)
+    res["box_scan"]["query_index"] = measure_scan(*qi_in)
+    res["box_scan"]["synthetic_64"] = measure_scan(
+        *synthetic_scan(FULL_N, FULL_D, 64, 4, device), plain_device=False)
+    emit({"phase": "box_scan_only", "build_s": build_s, "runs": [res]})
 
 
 def phase_extraction(device):
@@ -1161,14 +1359,16 @@ KERNELS = {
 
 ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
                                    "flash_attention": flash_rows(dev)}),
-        "extraction_400": phase_extraction_400}
+        "extraction_400": phase_extraction_400,
+        "box_scan": phase_box_scan}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
-    ``--only flash,extraction_400`` (either or both), the kernels are
-    built and only those phases run: the FLASH_CASES rows and the
-    400x400 extraction, for comparing two trees on one card."""
+    ``--only`` and a comma-separated subset of flash, extraction_400 and
+    box_scan, the kernels are built and only those phases run: the
+    FLASH_CASES rows, the 400x400 extraction, the box scans at the main
+    path's inputs; for comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -1194,6 +1394,8 @@ def main(argv) -> int:
     missing = sass_missing(sass)
     emit({"phase": "flash_sass", "functions": sass, "missing": missing,
           "ptxas": ptxas_stats(libs["flash_attention"])})
+    box_sass = bulk_sass(libs)
+    emit(box_sass)
     if only is not None:
         for name in only:
             ONLY[name](torch.device("cuda", 0))
@@ -1202,16 +1404,23 @@ def main(argv) -> int:
     if missing:
         raise AssertionError(f"flash_attention: no wgmma or no TMA load in "
                              f"{missing}")
+    if box_sass["missing"]:
+        raise AssertionError(f"box scans: no cp.async.bulk in "
+                             f"{box_sass['missing']}")
     dev = torch.device("cuda", 0)
     phase_kernels(dev)
     phase_gpu_vs_cpu(dev)
     launches, probe, ctx = phase_full(dev)
-    scan_launches, scan_in, knn_in = phase_full_scan_knn(*ctx)
+    scan_launches, scan_in, knn_in, qi_in = phase_full_scan_knn(*ctx)
     feats, labels, flash_launches, flash_in = phase_extraction(dev)
     phase_search_vit(dev, feats, labels)
     ext400 = phase_extraction_400(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
+    # the narrow route, at the use_fused=False batch's largest call
+    res["box_scan"]["query_index"] = {
+        **measure_scan(*qi_in, plain_device=False),
+        "launches": scan_launches["host_oracle"]["box_scan"]}
     res["l2dist"] = measure_l2dist(*knn_in)
     res["flash_attention"] = measure_flash(*flash_in, causal=False,
                                            profile=True)
@@ -1244,12 +1453,23 @@ def main(argv) -> int:
                      "ms": r["ms"], "kernel_ms": r["ms"],
                      "plain_ms": r["plain_ms"], "device_ms": r["device_ms"],
                      "device_ms_by": r["device_ms_by"],
+                     "device_ms_cold": r.get("device_ms_cold"),
+                     "device_ms_cold_by": r.get("device_ms_cold_by"),
                      "plain_device_ms": r["plain_device_ms"],
                      "plain_device_ms_by": r["plain_device_ms_by"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r.get("library_ms"),
                      "library_device_ms": r.get("library_device_ms"),
+                     "library_device_ms_by": r.get("library_device_ms_by"),
                      "shape": r["shape"]})
+    by_name = {r["name"]: r for r in rows}
+    scan = res["box_scan"]
+    by_name["box_scan"].update(
+        {k: scan[k] for k in ("compares_needed", "compares_upper",
+                              "bound_ms_upper", "query_index")})
+    for name in ("box_scan", "box_scan_seg"):
+        by_name[name]["sass"] = {f: c for f, c in box_sass["functions"].items()
+                                 if f"{name}_kernel" in f}
     rows[-1]["sass"] = sass
     rows[-1]["extraction_400_flash_launches"] = ext400["flash_launches"]
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})

@@ -5,8 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``ctypes``. Builds happen at first use, all sources at once (one ``nvcc``
 process each, started together), into ``<repo>/build/kernels/`` — a
 directory ``.gitignore`` lists — under a file name keyed by a hash of the
-source and the flags, so an edited ``.cu`` rebuilds and an unchanged one
-is reused. A missing ``nvcc`` or a failed build raises; nothing falls
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. A missing ``nvcc`` or a failed build raises; nothing falls
 back to the plain PyTorch versions.
 """
 from __future__ import annotations
@@ -62,7 +62,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers (csrc/*.cuh) are part of every source's key
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 

@@ -12,13 +12,16 @@ path: 16,384 synthetic patches through the full-width ViT-T
 ``SearchEngine`` and a query batch, GPU against CPU, and 512 patches at
 the paper's 400x400 (626 tokens). The flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
-scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg and
-zone_prune are timed warm and with the L2 flushed before each launch, as
-the fused batch finds their inputs.
+scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
+probe's one-launch zone_candidates and l2dist are timed warm and with the
+L2 flushed before each launch, as the fused batch finds their inputs;
+zone_candidates beside the launch chain it replaced and an empty launch.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash,extraction_400   # those phases
     python3 chip_smoke.py --only box_scan    # the box scans at full size
+    python3 chip_smoke.py --only zone_prune  # the probe's front end
+    python3 chip_smoke.py --only l2dist      # l2dist's times, every way
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -98,6 +101,27 @@ FLASH_CASES = (
     (2, 2048, 16, 4, 128, True, "bfloat16"),
 )
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# ROADMAP C1's catalog: 4,096 x 12 normal rows (seed 0), row 7 +inf and
+# row 9 -inf, four subsets of 6 dims, blocks of 256; knn with 16
+# neighbours. The reference's ids and scores (tests/test_torch_models.py
+# holds the JAX engine's to these): a +inf query against the +inf row is
+# inf - inf, a negative NaN, which ranks first
+C1_POS, C1_NEG = (7, 1, 2, 9), (3, 4, 5)
+C1_KNN_IDS = (172, 801, 1125, 1281, 1448, 1880, 2154, 2809, 3003, 3448,
+              3752, 3789, 3852, 4006, 112, 201, 305, 425, 459, 498, 718,
+              726, 1206, 1480, 1664, 1733, 1754, 1963, 2126, 2221, 2264,
+              2378, 2595, 2645, 2741, 2789, 3099, 3127, 3194, 3324, 3432,
+              3613, 3702, 3794, 3859)
+C1_KNN_SCORES = (2.0,) * 14 + (1.0,) * 31
+
+
+def c1_catalog():
+    x = np.random.default_rng(0).standard_normal((4096, 12)).astype(
+        np.float32)
+    x[7], x[9] = np.inf, -np.inf
+    return x
+
+
 # the search over the ViT features asks for each object class in turn
 VIT_QUERY_CLASSES = (1, 2, 3, 4)    # solar_panel, forest, water, building
 
@@ -205,8 +229,9 @@ def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3):
     over ``iters`` (source "profiler"). Unlike ``time_ms`` it leaves out
     the host's launch path. The profiler has been seen on the H100 to stop
     recording device events after some twenty profiling contexts in one
-    process; when it records none, the time is taken by CUDA events
-    around one replay of a CUDA graph of ``iters`` calls instead (source
+    process, and to record only some of them before that; unless it
+    records every call's events, the time is taken by CUDA events around
+    one replay of a CUDA graph of ``iters`` calls instead (source
     "graph"), which leaves out the host's launch path too."""
     import torch
     from torch.autograd import DeviceType
@@ -219,11 +244,19 @@ def device_ms(fn, iters: int = TIME_ITERS, warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(_self_device_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    if us > 0:
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(_self_device_us(e) for e in evs)
+    if us > 0 and _all_recorded(evs, iters):
         return us * 1e-3 / iters, "profiler"
     return graph_ms(fn, iters=iters), "graph"
+
+
+def _all_recorded(events, iters: int) -> bool:
+    """Whether torch.profiler recorded every call's device events: each
+    kind of event ``iters`` times or a multiple of it. Late in a process
+    it has been seen to record only some of them (l2dist on an H100:
+    0.0509 and 0.1006 ms where CUDA events and graphs read 0.12)."""
+    return all(e.count >= iters and e.count % iters == 0 for e in events)
 
 
 def graph_ms(fn, iters: int = TIME_ITERS) -> float:
@@ -237,7 +270,9 @@ def graph_ms(fn, iters: int = TIME_ITERS) -> float:
         fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # captured after the warm call, so what a wrapper allocates at first
+    # use (zone_candidates' scratch) is in place before the capture
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -287,6 +322,13 @@ def zone_prune_bound(nz: int, nb: int, d: int):
     byts = nz * d * 8 + nb * d * 8 + nz
     ops = nz * nb * d * 2
     return _bound(byts, ops)
+
+
+def zone_candidates_bound(nz: int, nb: int, d: int, capacity: int):
+    """zone_prune_bound's reads and compares, with cand [capacity] and
+    n_hit written in place of the hit vector."""
+    byts = nz * d * 8 + nb * d * 8 + 4 * (capacity + 1)
+    return _bound(byts, nz * nb * d * 2)
 
 
 def box_scan_bound(rows: int, c_rows: int, nb: int, d: int, nq: int,
@@ -376,7 +418,7 @@ def cold_device_ms(fn, kernel: str, iters: int = TIME_ITERS,
     (the fused batch's probes each read another subset's index mirror).
     torch.profiler's self time of the device events whose name holds
     ``kernel`` (the flush left out), over ``iters``; where the profiler
-    records none, the difference of two CUDA graphs, ``iters`` x (flush,
+    misses any, the difference of two CUDA graphs, ``iters`` x (flush,
     call) less ``iters`` x flush (source "graph_diff"), which is also
     taken without ``use_profiler``."""
     import torch
@@ -398,30 +440,138 @@ def cold_device_ms(fn, kernel: str, iters: int = TIME_ITERS,
             for _ in range(iters):
                 cold()
             torch.cuda.synchronize()
-        us = sum(_self_device_us(e) for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel in e.key)
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key]
+        if _all_recorded(evs, iters):
+            us = sum(_self_device_us(e) for e in evs)
     if us > 0:
         return us * 1e-3 / iters, "profiler"
     return (graph_ms(cold, iters=iters)
             - graph_ms(lambda: flush.fill_(1.0), iters=iters)), "graph_diff"
 
 
+def earlier_chain(zlo, zhi, lo, hi, capacity: int):
+    """The probe's front end as it was before zone_candidates, from the
+    package's own functions: the [NZ] hit vector (zone_prune.zone_hits),
+    its sum and the prefix-sum compaction (ops._compact) — eleven to
+    fourteen launches where zone_candidates makes one."""
+    import torch
+    from repro_torch.kernels import ops, zone_prune
+    hit = zone_prune.zone_hits(zlo, zhi, lo, hi)
+    return ops._compact(hit, int(capacity)), hit.sum(dtype=torch.int32)
+
+
+def device_kernels(fn) -> dict:
+    """Device work of one warm call of ``fn`` by torch.profiler: kernels,
+    and memory copies / sets, counted apart."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = mem = 0
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            if e.key.startswith(("Memcpy", "Memset")):
+                mem += e.count
+            else:
+                kernels += e.count
+    if kernels == 0:              # the profiler records nothing any more
+        return {"kernels": None, "memcpy_memset": None}
+    return {"kernels": kernels, "memcpy_memset": mem}
+
+
+def empty_launch_ms(profile: bool = True) -> dict:
+    """The practical floor of a launch, measured: an empty kernel
+    (torch.cuda._sleep(0)), its device time by torch.profiler (where
+    ``profile``) and by a CUDA graph of 30 back-to-back launches."""
+    import torch
+    fn = lambda: torch.cuda._sleep(0)
+    out = {"what": "torch.cuda._sleep(0), measured",
+           "graph_ms": graph_ms(fn), "profiler_ms": None}
+    if profile:
+        ms, by = device_ms(fn)
+        out["profiler_ms"] = ms if by == "profiler" else None
+    return out
+
+
+def measure_candidates(zlo, zhi, lo, hi, capacity: int,
+                       profile: bool = True) -> dict:
+    """zone_candidates against zone_candidates_ref (cand and n_hit
+    bitwise) and the earlier launch chain on the same inputs; event,
+    device (warm, and cold: the L2 flushed before each launch) and
+    CUDA-graph times of each, the bound and the floor of one launch."""
+    import torch
+    from repro_torch.kernels import ref, zone_prune
+    nz, d = zlo.shape
+    nb = lo.shape[0]
+    kern = lambda: zone_prune.zone_candidates(zlo, zhi, lo, hi, capacity)
+    plain = lambda: ref.zone_candidates_ref(zlo, zhi, lo, hi, capacity)
+    chain = lambda: earlier_chain(zlo, zhi, lo, hi, capacity)
+    (gc, gn), (wc, wn), (ec, en) = kern(), plain(), chain()
+    torch.cuda.synchronize()
+    cand_exact, n_exact = bool(torch.equal(gc, wc)), bool(torch.equal(gn, wn))
+    if not (cand_exact and n_exact):
+        raise AssertionError(f"zone_candidates NZ={nz}: kernel != plain "
+                             f"version (cand {cand_exact}, n_hit {n_exact})")
+    if not (torch.equal(ec, wc) and torch.equal(en, wn)):
+        raise AssertionError("the earlier chain != zone_candidates_ref")
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                        device=zlo.device)
+    fill = lambda: flush.fill_(1.0)
+    flush_ms = time_ms(fill)
+    res = {"exact": True, "cand_exact": cand_exact, "n_hit_exact": n_exact,
+           "max_abs_err": 0.0,
+           "shape": {"nz": nz, "d": d, "boxes": nb, "capacity": capacity,
+                     "n_hit": int(wn)},
+           "ctas": "one" if nz <= ONE_CTA_ZONES else "several",
+           "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "ms_cold": time_ms(lambda: (fill(), kern())) - flush_ms,
+           "device_ms_graph": graph_ms(kern)}
+    res["device_ms"], res["device_ms_by"] = dev_ms(kern, profile)
+    res["device_ms_cold"], res["device_ms_cold_by"] = cold_device_ms(
+        kern, "zone_candidates_kernel", use_profiler=profile)
+    res["plain_device_ms"] = res["plain_device_ms_by"] = None
+    if profile:
+        res["plain_device_ms"], res["plain_device_ms_by"] = device_ms(plain)
+    res["bound_ms"], res["bound_by"] = zone_candidates_bound(nz, nb, d,
+                                                             capacity)
+    res["library_ms"] = None
+    cold_chain = lambda: (fill(), chain())
+    res["earlier"] = {
+        "what": "zone_prune.zone_hits + sum + ops._compact",
+        "ms": time_ms(chain),
+        "ms_cold": time_ms(cold_chain) - flush_ms,
+        "device_ms_graph": graph_ms(chain),
+        "device_ms_cold_graph": graph_ms(cold_chain) - graph_ms(fill)}
+    res["device_ms_cold_graph"] = (graph_ms(lambda: (fill(), kern()))
+                                   - graph_ms(fill))
+    if profile:
+        res["device_work"] = device_kernels(kern)
+        res["earlier"]["device_work"] = device_kernels(chain)
+    return res
+
+
 def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int,
                     profile: bool = True) -> dict:
-    """Hold both path kernels against their plain versions on one probe's
-    inputs (zone_hits -> compaction -> gathered box scan) and time them:
-    device ms warm (the same inputs back to back) and cold (the L2
-    flushed before each launch, as on the path)."""
-    import torch
-    from repro_torch.kernels import box_scan, ops, ref, zone_prune
+    """Hold the probe's kernels against their plain versions on one
+    probe's inputs (zone_candidates -> gathered box scan; the [NZ] and
+    [NZ, B] zone_prune entries beside them) and time them: device ms warm
+    (the same inputs back to back) and cold (the L2 flushed before each
+    launch, as on the path)."""
+    from repro_torch.kernels import box_scan, ref, zone_prune
     nz, block, d = rows3.shape
     nb, nq = lo.shape[0], onehot.shape[1]
-    hit = zone_prune.zone_hits(zlo, zhi, lo, hi)
-    n_hit = hit.sum(dtype=torch.int32)
-    cand = ops._compact(hit, capacity)
-    res = {"zone_prune": compare(
+    res = {"zone_candidates": measure_candidates(zlo, zhi, lo, hi, capacity,
+                                                 profile=profile)}
+    cand, n_hit = zone_prune.zone_candidates(zlo, zhi, lo, hi, capacity)
+    res["zone_prune"] = compare(
         lambda: zone_prune.zone_hits(zlo, zhi, lo, hi),
-        lambda: ref.zone_hits_ref(zlo, zhi, lo, hi), "zone_prune hits")}
+        lambda: ref.zone_hits_ref(zlo, zhi, lo, hi), "zone_prune hits")
     mask_chk = compare(lambda: zone_prune.zone_prune(zlo, zhi, lo, hi),
                        lambda: ref.zone_prune_ref(zlo, zhi, lo, hi),
                        "zone_prune mask")
@@ -518,11 +668,14 @@ def measure_l2dist(x, q, plain_device: bool = True,
     import torch
     from repro_torch.kernels import l2dist, ref
     n, d = x.shape
-    res = measure_one("l2dist", lambda: l2dist.l2dist(x, q),
-                      lambda: ref.l2dist_ref(x, q),
+    kern = lambda: l2dist.l2dist(x, q)
+    res = measure_one("l2dist", kern, lambda: ref.l2dist_ref(x, q),
                       l2dist_bound(n, d, q.shape[0]),
                       library=lambda: torch.cdist(x, q),
                       plain_device=plain_device, profile=profile)
+    res["device_ms_cold"], res["device_ms_cold_by"] = cold_device_ms(
+        kern, "l2dist", use_profiler=profile)
+    res["device_ms_graph"] = graph_ms(kern)
     res["shape"] = {"n": n, "d": d, "queries": q.shape[0]}
     return res
 
@@ -636,6 +789,73 @@ def flash_case(b, s, hq, hkv, d, causal, dtype, seed, device):
     return ops.kernel_layout(q, k, v)
 
 
+def synthetic_zones(nz: int, nb: int, seed: int, device):
+    """Zone maps made directly, as the main path's Morton-ordered blocks
+    give them (d' = 6: bounds that drift along the zones, a NaN zone, a
+    +inf padded last zone), and boxes around some of the zones."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    d = 6
+    centres = torch.sort(torch.randn(nz, device=device, generator=g) * 3)[0]
+    zlo = centres[:, None] + torch.randn(nz, d, device=device, generator=g)
+    zhi = zlo + torch.randn(nz, d, device=device, generator=g).abs() * 0.5
+    zlo[nz // 3, 2] = float("nan")
+    zlo[-1], zhi[-1] = float("inf"), float("inf")
+    pick = torch.randint(0, nz, (nb,), device=device, generator=g)
+    lo = zlo[pick] - 0.2
+    hi = lo + torch.rand(nb, d, device=device, generator=g) * 1.5 + 0.5
+    return zlo.contiguous(), zhi.contiguous(), lo.contiguous(), hi.contiguous()
+
+
+# zone_candidates takes one CTA up to 1,024 zones (256 threads x 4 zones,
+# csrc/zone_prune.cu), several joined by a look-back scan beyond
+ONE_CTA_ZONES = 1024
+
+
+def zone_rows(device) -> dict:
+    """zone_candidates on zone maps made directly, held to the plain
+    version and timed beside the earlier chain: at the most one CTA takes
+    and a zone either side of it, at 8,192 and at 131,072 zones."""
+    rows = [measure_candidates(*synthetic_zones(nz, 16, 20 + i, device),
+                               capacity=nz // 4, profile=False)
+            for i, nz in enumerate((ONE_CTA_ZONES - 1, ONE_CTA_ZONES,
+                                    ONE_CTA_ZONES + 1, 8192, 131072))]
+    return {"one_cta_zones": ONE_CTA_ZONES, "runs": rows}
+
+def l2dist_nan_check(device) -> dict:
+    """The CUDA l2dist's NaN bits against l2dist_ref on CPU copies of the
+    inputs (torch's CUDA ops give 0x7FFFFFFF for every NaN): the NaN
+    rule's edge cases (inf - inf, -inf - -inf, NaN in x, in q, in both
+    with opposite signs, a NaN after an earlier inf - inf), every row
+    against every query, on the tiled route (D = 3) and the D-chunked
+    one (D = 130)."""
+    import torch
+    from repro_torch.kernels import l2dist, ref
+    inf = float("inf")
+    bits = lambda w: np.array([w], np.uint32).view(np.float32)[0]
+    cases = [([inf, 0, 0], [inf, 0, 0]), ([-inf, 1, 0], [-inf, 1, 0]),
+             ([0, bits(0x7FC00123), 0], [0, 0, 0]),
+             ([1, 2, 3], [1, bits(0xFFC00042), 3]),
+             ([bits(0xFFC00001), 0, 0], [bits(0x7FC00123), 0, 0]),
+             ([inf, 0, bits(0x7FC00123)], [inf, 0, 0])]
+    out = {}
+    for d in (3, 130):
+        xs = np.zeros((len(cases) + 1, d), np.float32)
+        qs = np.zeros((len(cases), d), np.float32)
+        for i, (xr, qr) in enumerate(cases):
+            xs[i, :3], qs[i, :3] = xr, qr
+        xs[-1] = np.arange(d)
+        x, q = torch.from_numpy(xs), torch.from_numpy(qs)
+        got = l2dist.l2dist(x.to(device), q.to(device)).cpu()
+        want = ref.l2dist_ref(x, q)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"l2dist D={d}: NaN bits != the CPU "
+                                 f"plain version's")
+        out[f"d{d}"] = [hex(int(v) & 0xFFFFFFFF) for v in
+                        got.view(torch.int32).diagonal().tolist()]
+    return {"bitwise_equal_cpu": True, "diagonal_bits": out}
+
+
 def phase_kernels(device) -> None:
     import torch
     # device times by CUDA graphs here and plain device times only at the
@@ -650,14 +870,18 @@ def phase_kernels(device) -> None:
                                     (FULL_N, FULL_D, 64, 4),
                                     (256 * 1024, 6, 64, 5))]
     dists = []
-    for n, d, nq, seed in ((FULL_N, 6, 15, 6), (MID_N, FULL_D, 8, 7)):
+    for n, d, nq, seed in ((FULL_N, 6, 15, 6), (MID_N, FULL_D, 8, 7),
+                           (FULL_N, 6, 16, 8), (FULL_N, 6, 33, 9)):
         g = torch.Generator(device=device).manual_seed(seed)
         dists.append(measure_l2dist(
             torch.randn(n, d, device=device, generator=g),
             torch.randn(nq, d, device=device, generator=g),
             plain_device=False, profile=False))
     emit({"phase": "kernels_synthetic", "library_note": LIBRARY_NOTE,
-          "runs": out, "box_scan": scans, "l2dist": dists,
+          "runs": out, "zone_candidates": zone_rows(device),
+          "empty_launch": empty_launch_ms(profile=False),
+          "box_scan": scans, "l2dist": dists,
+          "l2dist_nan": l2dist_nan_check(device),
           "flash_attention": flash_rows(device)})
 
 
@@ -796,9 +1020,26 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
     for mr in (100, None):
         rq = [{**r, "max_results": mr} for r in reqs]
         same_all(ug.query_batch(rq), uc.query_batch(rq))
+    # ROADMAP C1: knn over +-inf rows, on the card and the CPU, equal to
+    # the reference's ids and scores
+    geo = dict(n_subsets=4, subset_dim=6, block=256)
+    xc = c1_catalog()
+    c1g = SearchEngine(xc, device=device, **geo)
+    c1c = SearchEngine(xc, device="cpu", **geo)
+    for mr in (None, 100):
+        kw = dict(model="knn", k_neighbors=16, max_results=mr)
+        a = c1g.query(C1_POS, C1_NEG, **kw)
+        same_all([a], [c1c.query(C1_POS, C1_NEG, **kw)])
+        if not (a.ids.tolist() == list(C1_KNN_IDS)
+                and a.scores.tolist() == list(C1_KNN_SCORES)):
+            raise AssertionError(f"C1 catalog, max_results={mr}: knn ids "
+                                 f"!= the reference's")
     emit({"phase": "gpu_vs_cpu", "rows": n, "dims": d, "requests": 8,
           "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
           "use_fused_false": True, "n_found_scan_knn": n_found,
+          "c1_inf_catalog_knn": {"rows": int(xc.shape[0]),
+                                 "ids": len(C1_KNN_IDS),
+                                 "gpu_equals_cpu_equals_reference": True},
           "bitwise_equal": True, "seconds": time.perf_counter() - t0})
 
 
@@ -816,19 +1057,26 @@ def host_oracle_engine(eng, device):
         eng.frange, device=device, use_fused=False)
 
 
-def profile_batch(fn) -> dict:
+def profile_batch(fn, counters=None) -> dict:
     """One more warm call of ``fn`` (a query batch, an extraction batch)
     under torch.profiler: device busy time (the sum of kernel self times
-    on the card) against the host wall, and the kernels that take it."""
+    on the card) against the host wall, and the kernels that take it.
+    ``counters`` maps a kernel's name to a function that reads its
+    wrapper's launch counter; where the profiler recorded another number
+    of that kernel's launches than the counter moved by, it dropped
+    events, and the launch count and busy time are None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    counters = counters or {}
+    before = {k: read() for k, read in counters.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = {k: read() - before[k] for k, read in counters.items()}
     rows = []
     for e in prof.key_averages():
         # device-side events only: a CPU op's device total repeats the
@@ -838,6 +1086,12 @@ def profile_batch(fn) -> dict:
             rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) * 1e-6
+    kernels = sum(c for _, k, c in rows
+                  if not k.startswith(("Memcpy", "Memset")))
+    recorded = {k: sum(c for _, key, c in rows if k in key) for k in counted}
+    all_recorded = recorded == counted
+    if not all_recorded:
+        busy = kernels = None
     # each path kernel's device self time per launch in this batch
     per_launch = {}
     for name in KERNELS:
@@ -856,7 +1110,13 @@ def profile_batch(fn) -> dict:
                else "other")
         by_class[cls] += us * 1e-3
     return {"wall_s": wall, "device_busy_s": busy,
-            "device_idle_share": 1.0 - busy / wall if wall else None,
+            "device_idle_share": (1.0 - busy / wall
+                                  if wall and busy is not None else None),
+            "device_kernel_launches": kernels,
+            "device_memcpy_memset": sum(
+                c for _, k, c in rows if k.startswith(("Memcpy", "Memset"))),
+            "launches_counted": counted, "launches_recorded": recorded,
+            "all_recorded": all_recorded,
             "path_kernels": per_launch, "device_ms_by_class": by_class,
             "top_device": [{"name": k[:60], "ms": us * 1e-3, "count": c}
                            for us, k, c in rows[:8]]}
@@ -936,19 +1196,23 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
     the timed query_batch and the inputs of its largest probe."""
     import torch
     from repro_torch.core.index import sparse_probe
-    from repro_torch.kernels import box_scan, zone_prune
+    from repro_torch.kernels import box_scan, ops, zone_prune
     eng, reqs, gen_s, build_s = full_engine(device, n, d, k)
     x = eng.x
     eng.query_batch(reqs)                     # warm: mirrors, hints
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zone_prune.launches = box_scan.seg_launches = 0
+    zone_prune.launches = zone_prune.candidates_launches = 0
+    box_scan.seg_launches = 0
     t0 = time.perf_counter()
     outs = eng.query_batch(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"zone_prune": zone_prune.launches,
+    launches = {"zone_candidates": zone_prune.candidates_launches,
                 "box_scan_seg": box_scan.seg_launches}
+    if zone_prune.launches != zone_prune.candidates_launches:
+        raise AssertionError("the fused batch launched zone_prune's mask "
+                             "or hit-vector entry")
     peak = torch.cuda.max_memory_allocated()
     for o in outs:
         if isinstance(o, Exception):
@@ -956,7 +1220,23 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
     if min(launches.values()) <= 0:
         raise AssertionError(f"a path kernel never launched: {launches}")
     st = outs[0].stats
-    prof = profile_batch(lambda: eng.query_batch(reqs))
+    counters = {
+        "zone_candidates_kernel": lambda: zone_prune.candidates_launches,
+        "zone_prune_kernel":
+            lambda: zone_prune.launches - zone_prune.candidates_launches,
+        "box_scan_seg_kernel": lambda: box_scan.seg_launches}
+    prof = profile_batch(lambda: eng.query_batch(reqs), counters)
+    # the same batch with each probe's front end as the launch chain that
+    # zone_candidates replaced, for the drop in device launches
+    fused_front = ops.zone_candidates
+    ops.zone_candidates = earlier_chain
+    try:
+        prof_earlier = profile_batch(lambda: eng.query_batch(reqs),
+                                     counters)
+        same_results(eng.query_batch(reqs), outs)
+    finally:
+        ops.zone_candidates = fused_front
+    probes = launches["zone_candidates"]
     # device-ranked == the first k of the host-ranked results
     full = eng.query_batch([{**r, "max_results": None} for r in reqs])
     for i, (a, b) in enumerate(zip(outs, full)):
@@ -971,8 +1251,8 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        probes = [sparse_probe(ix, lo, hi, oh, capacity=cap)
-                  for ix, lo, hi, oh, cap in inputs]
+        sync_free = [sparse_probe(ix, lo, hi, oh, capacity=cap)
+                     for ix, lo, hi, oh, cap in inputs]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -989,6 +1269,16 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
           "per_query_wall_s": wall / len(reqs),
           "fit_s": st["batch_fit_s"], "score_rank_s": outs[0].query_time_s,
           "profile": prof,
+          "device_kernel_launches": {
+              "batch": prof["device_kernel_launches"],
+              "batch_with_earlier_chain":
+                  prof_earlier["device_kernel_launches"],
+              "probes": probes,
+              "drop_per_probe": (
+                  (prof_earlier["device_kernel_launches"]
+                   - prof["device_kernel_launches"]) / max(probes, 1)
+                  if prof["all_recorded"] and prof_earlier["all_recorded"]
+                  else None)},
           "n_host_syncs": st["batch_n_host_syncs"],
           "retried_subsets": st["batch_retried_subsets"],
           "host_bytes_transferred": st["batch_host_bytes_transferred"],
@@ -996,7 +1286,7 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
           "n_found": [o.n_found for o in outs],
           "max_memory_allocated": peak, "launches": launches,
           "device_ranked_equals_host": True,
-          "sync_free_probes": len(probes)})
+          "sync_free_probes": len(sync_free)})
     return launches, largest_probe(inputs), (eng, reqs, full)
 
 
@@ -1053,12 +1343,14 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
     uf.query_batch(rq)                        # warm: index mirrors
     torch.cuda.synchronize()
     box_scan.scan_launches = zone_prune.launches = 0
+    zone_prune.candidates_launches = 0
     t0 = time.perf_counter()
     outs = uf.query_batch(rq)
     torch.cuda.synchronize()
     uf_wall = time.perf_counter() - t0
     uf_launches = {"box_scan": box_scan.scan_launches,
-                   "zone_prune": zone_prune.launches}
+                   "zone_prune": zone_prune.launches
+                   - zone_prune.candidates_launches}
     if min(uf_launches.values()) <= 0:
         raise AssertionError(f"host oracle kernels never launched: "
                              f"{uf_launches}")
@@ -1124,6 +1416,86 @@ def phase_box_scan(device) -> None:
     res["box_scan"]["synthetic_64"] = measure_scan(
         *synthetic_scan(FULL_N, FULL_D, 64, 4, device), plain_device=False)
     emit({"phase": "box_scan_only", "build_s": build_s, "runs": [res]})
+
+
+def phase_zone_prune(device) -> None:
+    """zone_candidates alone: a probe at the main path's shapes (1,024
+    zones of d' = 6, 16 boxes, capacity 1,024; synthetic_zones) beside the
+    earlier launch chain and an empty launch, then zone_rows (the
+    most one CTA takes +- 1, 8,192 and 131,072 zones)."""
+    zlo, zhi, lo, hi = synthetic_zones(1024, 16, 3, device)
+    emit({"phase": "zone_prune_only",
+          "probe": measure_candidates(zlo, zhi, lo, hi, 1024),
+          "empty_launch": empty_launch_ms(),
+          "zones": zone_rows(device)})
+
+
+def knn_inputs(device):
+    """l2dist's inputs on the knn path without building the engine:
+    subset 0's rows of the main path's catalog in its index's Morton
+    order, and the first request's 15 positives on the subset's dims (what
+    SearchEngine(x).query(..., model="knn") hands knn_subset)."""
+    import torch
+    from repro_torch.core.index import build_index
+    from repro_torch.core.subsets import make_subsets
+    x, assign = clustered(FULL_N, FULL_D, seed=0)
+    reqs = make_requests(assign, 8, 100, seed=1)
+    dims = make_subsets(FULL_D, 32, 6, seed=0)[0]
+    ix = build_index(x, dims, block=1024, subset_id=0, device=device)
+    rows3, _, _ = ix.device_arrays()
+    q = torch.from_numpy(np.ascontiguousarray(
+        x[reqs[0]["pos_ids"]][:, dims])).to(device)
+    return rows3.reshape(-1, rows3.shape[-1])[:ix.n_rows], q
+
+
+def clocks() -> str:
+    """The card's SM and memory clocks, the SM clock's maximum and the
+    active clock-event reasons, as nvidia-smi reads them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
+         "clocks_event_reasons.active", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    return (out.stdout or out.stderr).strip()
+
+
+def l2dist_times(x, q) -> dict:
+    """l2dist on (x, q), bitwise against l2dist_ref on the card (the
+    data holds no NaN), timed every way the script times a kernel: CUDA
+    events around a call, torch.profiler's device time, a CUDA graph of
+    30 calls, and with the L2 flushed before each launch by the profiler
+    and by the difference of two graphs."""
+    import torch
+    from repro_torch.kernels import l2dist, ref
+    kern = lambda: l2dist.l2dist(x, q)
+    if not torch.equal(kern(), ref.l2dist_ref(x, q)):
+        raise AssertionError("l2dist != l2dist_ref")
+    n, d = x.shape
+    res = {"shape": {"n": n, "d": d, "queries": q.shape[0]},
+           "clocks_before": clocks(), "ms": time_ms(kern),
+           "device_ms_graph": graph_ms(kern)}
+    res["device_ms"], res["device_ms_by"] = device_ms(kern)
+    res["device_ms_cold"], res["device_ms_cold_by"] = cold_device_ms(
+        kern, "l2dist")
+    res["device_ms_cold_graph"] = cold_device_ms(kern, "l2dist",
+                                                 use_profiler=False)[0]
+    res["clocks_after"] = clocks()
+    res["bound_ms"], res["bound_by"] = l2dist_bound(n, d, q.shape[0])
+    return res
+
+
+def phase_l2dist(device) -> None:
+    """l2dist alone, at the knn path's inputs (knn_inputs) and the
+    synthetic 1,048,576 x 6 x 15, 65,536 x 384 x 8 and 1,048,576 x 6 x 16
+    shapes, timed every way (l2dist_times). For comparing two trees' kernels on one card."""
+    import torch
+    runs = [l2dist_times(*knn_inputs(device))]
+    for n, d, nq, seed in ((FULL_N, 6, 15, 6), (MID_N, FULL_D, 8, 7),
+                           (FULL_N, 6, 16, 8)):
+        g = torch.Generator(device=device).manual_seed(seed)
+        runs.append(l2dist_times(
+            torch.randn(n, d, device=device, generator=g),
+            torch.randn(nq, d, device=device, generator=g)))
+    emit({"phase": "l2dist_only", "runs": runs})
 
 
 def phase_extraction(device):
@@ -1344,6 +1716,8 @@ def phase_search_vit(device, feats, labels, k: int = 100) -> None:
 
 
 KERNELS = {
+    "zone_candidates": ("src/repro_torch/kernels/csrc/zone_prune.cu",
+                        "src/repro/kernels/zone_prune.py:33"),
     "zone_prune": ("src/repro_torch/kernels/csrc/zone_prune.cu",
                    "src/repro/kernels/zone_prune.py:33"),
     "box_scan_seg": ("src/repro_torch/kernels/csrc/box_scan_seg.cu",
@@ -1360,15 +1734,19 @@ KERNELS = {
 ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
                                    "flash_attention": flash_rows(dev)}),
         "extraction_400": phase_extraction_400,
-        "box_scan": phase_box_scan}
+        "box_scan": phase_box_scan,
+        "zone_prune": phase_zone_prune,
+        "l2dist": phase_l2dist}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
-    ``--only`` and a comma-separated subset of flash, extraction_400 and
-    box_scan, the kernels are built and only those phases run: the
-    FLASH_CASES rows, the 400x400 extraction, the box scans at the main
-    path's inputs; for comparing two trees on one card."""
+    ``--only`` and a comma-separated subset of flash, extraction_400,
+    box_scan, zone_prune and l2dist, the kernels are built and only those
+    phases run: the FLASH_CASES rows, the 400x400 extraction, the box
+    scans at the main path's inputs, zone_candidates on synthetic zone
+    maps, l2dist at the knn path's inputs; for comparing two trees on one
+    card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -1426,15 +1804,18 @@ def main(argv) -> int:
                                            profile=True)
     emit({"phase": "kernels_main_path", "card": card, "runs": [res]})
     # each kernel's launches on its own path: the fused batch of 8 for
-    # zone_prune / box_scan_seg, the dtree + rforest + knn query set for
-    # box_scan / l2dist (and the use_fused=False batch of 8 beside them),
-    # the extraction of the catalog for flash_attention
-    launches = {**launches, "box_scan": scan_launches["box_scan"],
+    # zone_candidates / box_scan_seg, the use_fused=False batch of 8 for
+    # zone_prune's mask, the dtree + rforest + knn query set for box_scan /
+    # l2dist (and the use_fused=False batch beside them), the extraction
+    # of the catalog for flash_attention
+    launches = {**launches,
+                "zone_prune": scan_launches["host_oracle"]["zone_prune"],
+                "box_scan": scan_launches["box_scan"],
                 "l2dist": scan_launches["l2dist"],
                 "flash_attention": flash_launches}
-    by_path = {"zone_prune": {"fused_batch": launches["zone_prune"],
-                              "host_oracle_batch":
-                                  scan_launches["host_oracle"]["zone_prune"]},
+    by_path = {"zone_candidates": {"fused_batch":
+                                       launches["zone_candidates"]},
+               "zone_prune": {"host_oracle_batch": launches["zone_prune"]},
                "box_scan": {"scan_knn_set": scan_launches["box_scan"],
                             "host_oracle_batch":
                                 scan_launches["host_oracle"]["box_scan"]},
@@ -1463,6 +1844,14 @@ def main(argv) -> int:
                      "library_device_ms_by": r.get("library_device_ms_by"),
                      "shape": r["shape"]})
     by_name = {r["name"]: r for r in rows}
+    cands = res["zone_candidates"]
+    by_name["zone_candidates"].update(
+        {k: cands[k] for k in ("cand_exact", "n_hit_exact", "ms_cold",
+                               "device_ms_graph", "device_ms_cold_graph",
+                               "earlier", "device_work", "ctas")})
+    by_name["zone_candidates"]["floor"] = empty_launch_ms()
+    by_name["l2dist"].update({k: res["l2dist"][k] for k in (
+        "device_ms_graph",)})
     scan = res["box_scan"]
     by_name["box_scan"].update(
         {k: scan[k] for k in ("compares_needed", "compares_upper",

@@ -31,18 +31,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python
 # int would be passed as a 32-bit int and cut the pointer), and row counts
-# that may pass 2^31 are c_longlong; flash attention's scale is a c_float
+# that may pass 2^31 are c_longlong; flash attention's scale is a c_float.
+# Per source, its C entries; the first is the source's launch entry.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _F = ctypes.c_float
-ARGTYPES = {
-    "zone_prune": ("zone_prune_launch",
-                   [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P]),
-    "box_scan_seg": ("box_scan_seg_launch",
-                     [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    "box_scan": ("box_scan_launch", [_P, _P, _P, _L, _I, _I, _P, _P]),
-    "l2dist": ("l2dist_launch", [_P, _P, _L, _I, _I, _P, _P]),
-    "flash_attention": ("flash_attention_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+ENTRIES = {
+    "zone_prune": {
+        "zone_prune_launch": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+        "zone_candidates_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P,
+                                   _P, _L, _P]},
+    "box_scan_seg": {"box_scan_seg_launch": [_P, _P, _P, _I, _P, _P, _P, _I,
+                                             _I, _I, _I, _P, _P]},
+    "box_scan": {"box_scan_launch": [_P, _P, _P, _L, _I, _I, _P, _P]},
+    "l2dist": {"l2dist_launch": [_P, _P, _L, _I, _I, _P, _P]},
+    "flash_attention": {"flash_attention_launch": [_P, _P, _P, _P, _I, _I,
+                                                   _I, _I, _I, _I, _F, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -109,14 +112,15 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             for n, path in build().items():
                 lib = ctypes.CDLL(str(path))
-                fn_name, argtypes = ARGTYPES[n]
-                fn = getattr(lib, fn_name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                for fn_name, argtypes in ENTRIES[n].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
                 _libs[n] = lib
         return _libs[name]
 
 
-def launch_fn(name: str):
-    """The C launch entry of ``csrc/<name>.cu``."""
-    return getattr(load(name), ARGTYPES[name][0])
+def launch_fn(name: str, entry: str = ""):
+    """The C entry ``entry`` of ``csrc/<name>.cu``; by default its launch
+    entry, ``<name>_launch``."""
+    return getattr(load(name), entry or f"{name}_launch")

@@ -1,6 +1,7 @@
 // Bulk asynchronous copies from device memory into shared memory, and the
-// mbarriers that report their completion (sm_90). Shared by box_scan.cu and
-// box_scan_seg.cu; build.py hashes this header into both libraries' keys.
+// mbarriers that report their completion, and bulk stores back (sm_90).
+// Shared by box_scan.cu, box_scan_seg.cu and l2dist.cu; build.py hashes
+// this header into every library's key.
 //
 // A ring stage is filled by one thread: `copy_span` moves a contiguous span
 // of 4-byte words with one cp.async.bulk for its 16-byte-aligned middle
@@ -98,6 +99,63 @@ __device__ __forceinline__ void copy_span(uint8_t* stage, const void* src,
   if (mb > ma)
     bulk_load(smem_u32(dst + (ma - a)), reinterpret_cast<const void*>(ma),
               (uint32_t)(mb - ma), bar);
+}
+
+// cp.async.bulk store: `bytes` (a multiple of 16) from 16-byte-aligned
+// shared src to 16-byte-aligned global dst, in the thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          (uint64_t)dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of the thread's committed bulk groups still read
+// their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// wait until all of the thread's committed bulk groups are complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// makes this thread's plain shared-memory stores visible to the bulk
+// copies (the async proxy) that a later barrier lets another thread issue
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The store half of copy_span: writes the 4-byte words [dst, dst + bytes)
+// of global memory from the stage at `stage` (16-byte aligned), which
+// holds them from span_head(dst) bytes in: the 16-byte-aligned middle by
+// one cp.async.bulk store, the head and tail words (fewer than four each)
+// by plain stores, then commits the bulk group. Called by one thread,
+// after the stage's writers have run fence_async_shared and a barrier.
+__device__ __forceinline__ void store_span(void* dst, const uint8_t* stage,
+                                           uint32_t bytes) {
+  const uintptr_t a = (uintptr_t)dst, b = a + bytes;
+  const uint8_t* src = stage + (a & 15);
+  uintptr_t ma = (a + 15) & ~(uintptr_t)15, mb = b & ~(uintptr_t)15;
+  if (mb <= ma) ma = mb = b;             // no aligned middle: all scalar
+  for (uintptr_t p = a; p < ma; p += 4)
+    *reinterpret_cast<float*>(p) =
+        *reinterpret_cast<const float*>(src + (p - a));
+  for (uintptr_t p = mb; p < b; p += 4)
+    *reinterpret_cast<float*>(p) =
+        *reinterpret_cast<const float*>(src + (p - a));
+  if (mb > ma)
+    bulk_store(reinterpret_cast<void*>(ma), smem_u32(src + (ma - a)),
+               (uint32_t)(mb - ma));
+  bulk_commit();
 }
 
 }  // namespace bulk

@@ -10,7 +10,8 @@ padding to 128 lanes or 1024-row tiles: the CUDA kernels take ragged N
 and D as they are.
 
 Nothing here synchronises with the host. ``jnp.nonzero(size=capacity,
-fill_value=0)`` becomes a prefix-sum compaction (``_compact``), and the
+fill_value=0)`` becomes a prefix-sum compaction (``_compact``; fused into
+the zone prune's one launch as ``zone_candidates`` in the probe), and the
 out-of-range ``mode="fill"``/``mode="drop"`` gathers and scatters become
 clamped or sentinel-slot writes, so a whole probe is queued without one
 device->host read. Integers stay int32 as under JAX's x64-off default.
@@ -45,6 +46,15 @@ def zone_hits(zlo, zhi, blo, bhi) -> torch.Tensor:
     if _on_cpu(zlo):
         return kref.zone_hits_ref(zlo, zhi, blo, bhi)
     return _zone_prune.zone_hits(zlo, zhi, blo, bhi)
+
+
+def zone_candidates(zlo, zhi, blo, bhi, capacity: int):
+    """(cand [capacity] int32, n_hit [] int32): the first ``capacity``
+    zones that overlap any box, ascending, 0-filled past n_hit, and their
+    count before the cut (one launch on the card)."""
+    if _on_cpu(zlo):
+        return kref.zone_candidates_ref(zlo, zhi, blo, bhi, capacity)
+    return _zone_prune.zone_candidates(zlo, zhi, blo, bhi, capacity)
 
 
 def box_scan(x, lo, hi) -> torch.Tensor:
@@ -97,20 +107,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def knn_topk(x, q, k: int):
     """(distances [Q, k] f32, indices [Q, k] int32): the k nearest rows of
-    x per query, in the order ``lax.top_k(-d.T, k)`` gives — distance
-    ascending, the lower row position first on ties. One int64 key per
-    (query, row), (f32 bits of the distance) << 32 | position, makes every
-    key distinct, so the selection needs no tie rule of its own. The
-    distances are sums of squares (never below +0), where the f32 bits
-    order as the values do; the sign bit is cleared so that a NaN
-    distance sorts after every number."""
+    x per query, in the order ``lax.top_k(-d.T, k)`` gives — the total
+    order of the f32 bits of the distance, ascending (-NaN < -inf < ... <
+    +inf < +NaN), the lower row position first on ties. The bits b map to
+    the signed int32 b ^ ((b >> 31) & 0x7FFFFFFF), which orders as that
+    total order does, and one int64 key per (query, row), that int32
+    times 2^32 plus the position, makes every key distinct, so the
+    selection needs no tie rule of its own. A distance that is the
+    negative NaN of an ``inf - inf`` (kernels/ref.l2dist_ref) ranks first,
+    as in the reference. The distances come back with d's bits unchanged
+    (the map is its own inverse)."""
     d = l2dist(x, q)                                         # [N, Q]
     n = d.shape[0]
-    bits = d.T.view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    bits = d.T.view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
     pos = torch.arange(n, dtype=torch.int64, device=d.device)
-    top, _ = torch.topk((bits << 32) | pos[None], int(k), dim=1,
-                        largest=False, sorted=True)
-    dist = (top >> 32).to(torch.int32).view(torch.float32)
+    top, _ = torch.topk(key.to(torch.int64) * (1 << 32) + pos[None],
+                        int(k), dim=1, largest=False, sorted=True)
+    kb = (top >> 32).to(torch.int32)
+    dist = (kb ^ ((kb >> 31) & 0x7FFFFFFF)).view(torch.float32)
     return dist, (top & 0xFFFFFFFF).to(torch.int32)
 
 
@@ -131,18 +146,9 @@ def box_scan_seg_gather(rows3, cand, n_hit, lo, hi, onehot) -> torch.Tensor:
     return _box_scan.box_scan_seg_gather(rows3, cand, n_hit, lo, hi, onehot)
 
 
-def _compact(mask: torch.Tensor, size: int) -> torch.Tensor:
-    """Indices of the first ``size`` set entries of the 1-d ``mask``,
-    ascending, 0-filled past the set count — ``jnp.nonzero(mask,
-    size=size, fill_value=0)`` without a host sync. Set entries past
-    ``size`` and all unset entries write to a dump slot that is cut off."""
-    pos = torch.cumsum(mask, 0) - 1
-    dest = torch.where(mask & (pos < size), pos,
-                       torch.full_like(pos, size))
-    out = torch.zeros(size + 1, dtype=torch.int32, device=mask.device)
-    out.scatter_(0, dest, torch.arange(mask.shape[0], dtype=torch.int32,
-                                       device=mask.device))
-    return out[:size]
+# the prefix-sum compaction (jnp.nonzero(size=, fill_value=0)); the tile
+# stages use it, the probe's zone_candidates has it fused
+_compact = kref.compact_ref
 
 
 def fused_query(rows3, zlo, zhi, blo, bhi, onehot, *, capacity: int):
@@ -159,9 +165,7 @@ def fused_query(rows3, zlo, zhi, blo, bhi, onehot, *, capacity: int):
              0-filled past n_hit,
              n_hit [] int32 — TOTAL surviving blocks, pre-capacity)."""
     _, block, _ = rows3.shape
-    hit = zone_hits(zlo, zhi, blo, bhi)                      # [NB]
-    n_hit = hit.sum(dtype=torch.int32)
-    cand = _compact(hit, capacity)                           # [C]
+    cand, n_hit = zone_candidates(zlo, zhi, blo, bhi, capacity)
     counts = box_scan_seg_gather(rows3, cand, n_hit, blo, bhi, onehot)
     return counts.reshape(capacity, block, -1), cand, n_hit
 

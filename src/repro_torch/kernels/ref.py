@@ -24,6 +24,29 @@ def zone_hits_ref(zlo, zhi, blo, bhi) -> torch.Tensor:
     return zone_prune_ref(zlo, zhi, blo, bhi).any(1)
 
 
+def compact_ref(mask: torch.Tensor, size: int) -> torch.Tensor:
+    """Indices of the first ``size`` set entries of the 1-d ``mask``,
+    ascending, 0-filled past the set count — ``jnp.nonzero(mask,
+    size=size, fill_value=0)`` without a host sync. Set entries past
+    ``size`` and all unset entries write to a dump slot that is cut off."""
+    pos = torch.cumsum(mask, 0) - 1
+    dest = torch.where(mask & (pos < size), pos,
+                       torch.full_like(pos, size))
+    out = torch.zeros(size + 1, dtype=torch.int32, device=mask.device)
+    out.scatter_(0, dest, torch.arange(mask.shape[0], dtype=torch.int32,
+                                       device=mask.device))
+    return out[:size]
+
+
+def zone_candidates_ref(zlo, zhi, blo, bhi, capacity: int):
+    """(cand [capacity] int32, n_hit [] int32): the ascending ids of the
+    first ``capacity`` zones that overlap any box, 0-filled past n_hit,
+    and the number of such zones — zone_hits_ref, its sum and its
+    compaction, as the reference's fused_query takes them."""
+    hit = zone_hits_ref(zlo, zhi, blo, bhi)
+    return compact_ref(hit, int(capacity)), hit.sum(dtype=torch.int32)
+
+
 # elements of one [rows, B, D] comparison chunk in box_scan_ref: three
 # bool intermediates of this size stay near 200 MB
 _SCAN_CHUNK_ELEMS = 1 << 26
@@ -69,20 +92,47 @@ def box_scan_seg_gather_ref(rows3: torch.Tensor, cand: torch.Tensor,
     return (counts * valid[:, None, None]).reshape(c * block, -1)
 
 
+# the NaN of an invalid f32 operation on x86 (inf - inf), bits 0xFFC00000
+_X86_DEFAULT_NAN = -0x400000
+_QUIET_BIT = 0x400000
+
+
 def l2dist_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """[N, D] x [Q, D] -> [N, Q] f32 squared L2 distances, summed over
     the dims in ascending order: ``t = x_j - q_j; acc = acc + t * t``
     from acc = 0. Every step is a separate, correctly rounded f32 op, so
     the CUDA kernel (which spells the same steps with round-to-nearest
-    intrinsics) equals this bitwise."""
+    intrinsics) equals this bitwise.
+
+    NaN rule (x86's, spelled out so that every device gives the same
+    bits): an op with a NaN operand returns its first NaN operand,
+    quieted (bit 22 set), and an invalid op on numbers (``inf - inf``)
+    returns 0xFFC00000, a NaN with its sign bit set. So a NaN distance
+    takes its bits from the first dim whose step ``x - q`` is NaN: x's
+    NaN, else q's, else 0xFFC00000; each later ``acc + t * t`` returns
+    acc. Those bits are tracked beside the sum, as the arithmetic alone
+    gives others on the card (CUDA's 0x7FFFFFFF), and torch's CPU
+    subtraction can return q's NaN where x and q are both NaN. Nothing
+    here reads a value back to the host."""
     x = x.to(torch.float32)
     q = q.to(torch.float32)
-    acc = torch.zeros((x.shape[0], q.shape[0]), dtype=torch.float32,
-                      device=x.device)
+    shape = (x.shape[0], q.shape[0])
+    acc = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    nan_bits = torch.full(shape, _X86_DEFAULT_NAN, dtype=torch.int32,
+                          device=x.device)
+    open_ = torch.ones(shape, dtype=torch.bool, device=x.device)
     for j in range(x.shape[1]):
-        t = x[:, j, None] - q[None, :, j]
+        xj, qj = x[:, j, None], q[None, :, j]
+        t = xj - qj
         acc = acc + t * t
-    return acc
+        step = torch.isnan(t) & open_              # the first NaN step
+        bits = torch.where(torch.isnan(xj), xj.view(torch.int32) | _QUIET_BIT,
+                           torch.where(torch.isnan(qj),
+                                       qj.view(torch.int32) | _QUIET_BIT,
+                                       _X86_DEFAULT_NAN))
+        nan_bits = torch.where(step, bits, nan_bits)
+        open_ &= ~step
+    return torch.where(torch.isnan(acc), nan_bits.view(torch.float32), acc)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -66,7 +66,12 @@ SCAN_CUDA_SHAPES = SCAN_PALLAS_SHAPES + SCAN_SHAPES + [
     (3000, 400, 9), (700, 384, 100), (2500, 6, 5000), (4099, 6, 64)]
 L2_SHAPES = [(1024, 128, 8), (2048, 384, 4), (1000, 5, 3), (777, 17, 15),
              (513, 130, 2), (1, 6, 1)]
-L2_CUDA_SHAPES = L2_SHAPES + [(4099, 384, 100), (3000, 6, 15)]
+# the card's routes: tiled (D, Q <= 32 at 128-row tiles, <= 64 at 64-row
+# ones: ragged last tiles, Q over one 16-query group, even Q) and
+# D-chunked (the rest)
+L2_CUDA_SHAPES = L2_SHAPES + [(4099, 384, 100), (3000, 6, 15),
+                              (4097, 6, 33), (1000, 64, 64), (130, 32, 16),
+                              (257, 3, 100), (20000, 6, 15)]
 
 ZONE_SHAPES = [(512, 128, 8), (1024, 128, 32), (512, 256, 2),
                (37, 6, 3), (513, 5, 9), (1, 6, 1), (1024, 6, 64)]
@@ -298,6 +303,64 @@ def test_knn_topk_matches_reference(n, d, q, k):
     assert (np.diff(gi.numpy(), axis=1)[ties] > 0).all()
 
 
+def _bits(*words):
+    return np.array(words, np.uint32).view(np.float32)
+
+
+# The NaN rule's edge cases (kernels/ref.py l2dist_ref): a row and a query
+# of 3 dims, and the bits of their squared distance
+NAN_CASES = {
+    "inf_minus_inf": ([np.inf, 0, 0], [np.inf, 0, 0], 0xFFC00000),
+    "neg_inf_minus_neg_inf": ([-np.inf, 1, 0], [-np.inf, 1, 0], 0xFFC00000),
+    "nan_in_x": ([0, _bits(0x7FC00123)[0], 0], [0, 0, 0], 0x7FC00123),
+    "signalling_nan_in_x": ([_bits(0x7F800001)[0], 0, 0], [0, 0, 0],
+                            0x7FC00001),
+    "nan_in_q": ([1, 2, 3], [1, _bits(0xFFC00042)[0], 3], 0xFFC00042),
+    "nan_in_both_opposite_signs": ([_bits(0xFFC00001)[0], 0, 0],
+                                   [_bits(0x7FC00123)[0], 0, 0], 0xFFC00001),
+    "nan_after_inf_minus_inf": ([np.inf, 0, _bits(0x7FC00123)[0]],
+                                [np.inf, 0, 0], 0xFFC00000),
+    "inf_minus_neg_inf": ([np.inf, 0, 0], [-np.inf, 0, 0], 0x7F800000),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NAN_CASES))
+def test_l2dist_ref_nan_bits(name):
+    """The plain version's NaN bits on the rule's edge cases: the first
+    NaN operand, quieted, and x86's 0xFFC00000 for inf - inf; pinned, as
+    the CUDA kernel is held to them and the ranking reads their sign."""
+    xr, qr, want = NAN_CASES[name]
+    x = np.array([xr], np.float32)
+    q = np.array([qr], np.float32)
+    got = tref.l2dist_ref(*_t(x, q)).numpy().view(np.uint32)
+    assert got.shape == (1, 1) and int(got[0, 0]) == want, hex(got[0, 0])
+    # the same pair among other rows and queries (the rewrite of the NaN
+    # entries picks the right pair)
+    xs = np.concatenate([np.ones((3, 3), np.float32), x])
+    qs = np.concatenate([np.zeros((2, 3), np.float32), q])
+    got = tref.l2dist_ref(*_t(xs, qs)).numpy().view(np.uint32)
+    assert int(got[3, 2]) == want
+    assert np.isfinite(got[:3, :2].view(np.float32)).all()
+
+
+def test_knn_topk_ranks_nan_distances_as_reference():
+    """ROADMAP C1: an inf - inf distance is x86's negative NaN, which
+    lax.top_k(-d.T, k) ranks FIRST; a NaN from the data is positive and
+    ranks last. Ids and distance bits equal the reference's."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 1, (7, 2)).astype(np.float32)
+    x[2] = [np.inf, 0]
+    x[4] = [np.nan, 0]
+    q = np.array([[np.inf, 0]], np.float32)
+    wd, wi = jops.knn_topk(jnp.asarray(x), jnp.asarray(q), 7)
+    gd, gi = tops.knn_topk(*_t(x, q), 7)
+    np.testing.assert_array_equal(np.asarray(wi), [[2, 0, 1, 3, 5, 6, 4]])
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy().view(np.uint32),
+                                  np.asarray(wd).view(np.uint32))
+    assert int(gd.numpy().view(np.uint32)[0, 0]) == 0xFFC00000
+
+
 def test_zone_prune_boundary_zone():
     """A zone ending exactly at box lo cannot contain a match."""
     zlo = np.array([[0.0], [2.0]], np.float32)
@@ -401,3 +464,27 @@ def test_l2dist_cuda_matches_plain(cuda, n, d, q):
     cd, ci = tops.knn_topk(x, qq, min(50, n))
     hd, hi_ = tops.knn_topk(x.cpu(), qq.cpu(), min(50, n))
     assert torch.equal(cd.cpu(), hd) and torch.equal(ci.cpu(), hi_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_pad", [3, 130])       # tiled, D-chunked
+def test_l2dist_cuda_nan_bits_match_cpu(cuda, d_pad):
+    """The CUDA kernel's NaN bits equal the plain version's run on CPU
+    copies (torch's CUDA ops give 0x7FFFFFFF for every NaN), on the NaN
+    rule's edge cases, every row against every query."""
+    xs = np.zeros((len(NAN_CASES) + 2, d_pad), np.float32)
+    qs = np.zeros((len(NAN_CASES) + 1, d_pad), np.float32)
+    for i, name in enumerate(sorted(NAN_CASES)):
+        xs[i, :3], qs[i, :3] = NAN_CASES[name][0], NAN_CASES[name][1]
+    xs[-2:] = np.arange(2 * d_pad).reshape(2, d_pad)
+    x, q = _t(xs, qs)
+    got = tl2dist.l2dist(x.to(cuda), q.to(cuda))
+    want = tref.l2dist_ref(x, q)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    for i, name in enumerate(sorted(NAN_CASES)):
+        assert int(got[i, i].cpu().view(torch.int32)) & 0xFFFFFFFF \
+            == NAN_CASES[name][2]
+    cd, ci = tops.knn_topk(x.to(cuda), q.to(cuda), xs.shape[0])
+    hd, hi_ = tops.knn_topk(x, q, xs.shape[0])
+    assert torch.equal(ci.cpu(), hi_)
+    assert torch.equal(cd.cpu().view(torch.int32), hd.view(torch.int32))

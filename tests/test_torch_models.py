@@ -161,3 +161,38 @@ def test_knn_subset_reads_the_device_mirror():
     want = np.sort(((x[:, DIMS][None] - x[:3, DIMS][:, None]) ** 2)
                    .sum(-1), 1)[:, :5]
     np.testing.assert_allclose(d, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("max_results", [None, 100])
+def test_knn_engine_ranks_inf_rows_as_reference(max_results):
+    """ROADMAP C1 at engine level: a catalog with a +inf row and a -inf
+    row among the positives. A query of +inf against the +inf row is
+    inf - inf in every dim, x86's negative NaN, which the reference's
+    lax.top_k(-d.T, k) ranks first; the port ranks by the same total
+    order, so the knn ids and scores equal the reference's, and both
+    equal the ids and scores chip_smoke.py holds the card's engine to."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro.core.engine import SearchEngine as JEngine
+    from repro_torch.core import SearchEngine as TEngine
+    x = np.random.default_rng(0).standard_normal((4096, 12)).astype(
+        np.float32)
+    x[7], x[9] = np.inf, -np.inf
+    pos, neg = [7, 1, 2, 9], [3, 4, 5]
+    geo = dict(n_subsets=4, subset_dim=6, block=256)
+    want = JEngine(x, **geo).query(pos, neg, model="knn", k_neighbors=16,
+                                   max_results=max_results)
+    got = TEngine(x, device="cpu", **geo).query(
+        pos, neg, model="knn", k_neighbors=16, max_results=max_results)
+    assert len(want.ids) == 45
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.scores, want.scores)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    np.testing.assert_array_equal(smoke.c1_catalog(), x)
+    assert (smoke.C1_POS, smoke.C1_NEG) == (tuple(pos), tuple(neg))
+    assert want.ids.tolist() == list(smoke.C1_KNN_IDS)
+    assert want.scores.tolist() == list(smoke.C1_KNN_SCORES)

@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch port (``src/repro_torch``) on one CUDA
 card: build the hand-written kernels, hold each against its plain PyTorch
-version, check the GPU engine against the port's own CPU engine, then
-drive the engine's paths at full size: the main path
-(``SearchEngine.query_batch`` with the numpy fit, survivor-sparse scoring
-and device ranking), the dtree/rforest full scan and the knn search
+version, check the GPU engine against the port's own CPU engine (the
+default engine, the numpy-fit one and the dense one), then drive the
+engine's paths at full size: the main path (``SearchEngine.query_batch``
+of the default engine: the batched device fit, survivor-sparse scoring
+and device ranking; beside it the same batch with the numpy fit and with
+``score_mode="dense"``), the device fit alone (GPU against the port's CPU
+engine and the numpy trainers), the dtree/rforest full scan and the knn
+search
 (``SearchEngine.query``), the use_fused=False host oracle
 (``query_batch`` through ``query_index``), and the feature-extraction
 path: 16,384 synthetic patches through the full-width ViT-T
@@ -22,6 +26,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only box_scan    # the box scans at full size
     python3 chip_smoke.py --only zone_prune  # the probe's front end
     python3 chip_smoke.py --only l2dist      # l2dist's times, every way
+    python3 chip_smoke.py --only fit         # the batched device fit
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -35,6 +40,7 @@ result. Imports nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -164,6 +170,21 @@ def make_requests(assign, n_req: int, k, seed: int, groups=(0, 1, 2, 3)):
                      "model": "dbranch" if i % 2 == 0 else "dbens",
                      "max_results": k})
     return reqs
+
+
+def deep_requests(reqs) -> list:
+    """make_requests' batch with each request's negatives led by the
+    positives of the request four on (the same cluster) that it does not
+    hold itself, still 80 in all: an analyst marking look-alikes as
+    negatives. The roots are no longer pure, so lanes outlive the fit's
+    first round and the trees grow deep."""
+    out = []
+    for i, r in enumerate(reqs):
+        other = reqs[(i + 4) % len(reqs)]["pos_ids"]
+        near = other[~np.isin(other, r["pos_ids"])]
+        out.append({**r, "neg_ids": np.concatenate(
+            [near, r["neg_ids"][:80 - len(near)]])})
+    return out
 
 
 STAT_KEYS = ("n_host_syncs", "retried_subsets", "blocks_touched",
@@ -989,6 +1010,21 @@ def sass_missing(counts: dict) -> list:
     return [n for n, c in counts.items() if not (c["HGMMA"] and c["UTMALDG"])]
 
 
+# the engine configurations gpu_vs_cpu holds GPU against CPU: the default
+# (the batched device fit, survivor tiles), the numpy trainers, the dense
+# score oracle; set on the same two engines, which keeps their capacity
+# hints in step
+ENGINE_MODES = {"default": {"use_jax_fit": True, "score_mode": "sparse"},
+                "numpy_fit": {"use_jax_fit": False, "score_mode": "sparse"},
+                "dense": {"use_jax_fit": True, "score_mode": "dense"}}
+
+
+def set_mode(engines, mode: str) -> None:
+    for e in engines:
+        for k, v in ENGINE_MODES[mode].items():
+            setattr(e, k, v)
+
+
 def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
     from repro_torch.core import SearchEngine
     x, assign = clustered(n, d, seed=5)
@@ -997,14 +1033,17 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
     for cf in (0.25, 1 / 64):                 # 1/64 forces overflow retry
         eg = SearchEngine(x, device=device, capacity_frac=cf)
         ec = SearchEngine(x, device="cpu", capacity_frac=cf)
-        for mr in (100, None):
-            rq = [{**r, "max_results": mr} for r in reqs]
-            same_results(eg.query_batch(rq), ec.query_batch(rq))
-        for r in reqs[:2]:
-            kw = dict(model=r["model"], max_results=100)
-            same_results([eg.query(r["pos_ids"], r["neg_ids"], **kw)],
-                         [ec.query(r["pos_ids"], r["neg_ids"], **kw)],
-                         batched=False)
+        for mode in ENGINE_MODES:
+            set_mode((eg, ec), mode)
+            for mr in (100, None):
+                rq = [{**r, "max_results": mr} for r in reqs]
+                same_results(eg.query_batch(rq), ec.query_batch(rq))
+            for r in reqs[:2]:
+                kw = dict(model=r["model"], max_results=100)
+                same_results([eg.query(r["pos_ids"], r["neg_ids"], **kw)],
+                             [ec.query(r["pos_ids"], r["neg_ids"], **kw)],
+                             batched=False)
+        set_mode((eg, ec), "default")
     # the last pair's state: the scan and knn models, and use_fused=False
     # engines carrying it over
     n_found = {}
@@ -1035,6 +1074,7 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
             raise AssertionError(f"C1 catalog, max_results={mr}: knn ids "
                                  f"!= the reference's")
     emit({"phase": "gpu_vs_cpu", "rows": n, "dims": d, "requests": 8,
+          "engine_modes": list(ENGINE_MODES),
           "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
           "use_fused_false": True, "n_found_scan_knn": n_found,
           "c1_inf_catalog_knn": {"rows": int(xc.shape[0]),
@@ -1057,14 +1097,24 @@ def host_oracle_engine(eng, device):
         eng.frange, device=device, use_fused=False)
 
 
-def profile_batch(fn, counters=None) -> dict:
-    """One more warm call of ``fn`` (a query batch, an extraction batch)
-    under torch.profiler: device busy time (the sum of kernel self times
-    on the card) against the host wall, and the kernels that take it.
-    ``counters`` maps a kernel's name to a function that reads its
-    wrapper's launch counter; where the profiler recorded another number
-    of that kernel's launches than the counter moved by, it dropped
-    events, and the launch count and busy time are None."""
+# the runtime calls that launch one kernel each, as torch.profiler names
+# them on the host side (PyTorch's own kernels go through these)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC")
+
+
+def profile_batch(fn, counters=None, graph_fallback: bool = False) -> dict:
+    """One more warm call of ``fn`` (a query batch, a batched fit, an
+    extraction batch) under torch.profiler: device busy time (the sum of
+    kernel self times on the card) against the host wall, and the kernels
+    that take it. Late in a process the profiler drops device events, so
+    the record must hold every launch: ``counters`` maps a kernel's name
+    to a function that reads its wrapper's launch counter, and the
+    profiler's count of that kernel must equal the counter's move; and no
+    fewer device kernels than the host-side launch calls it recorded
+    (``LAUNCH_CALLS``; equal where every kernel is PyTorch's, as in the
+    fit). Where either fails, the launch count is None, and the busy time
+    is None too unless ``graph_fallback``: then it is one replay of a
+    CUDA graph of ``fn`` (only for a ``fn`` with no host sync)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1077,21 +1127,27 @@ def profile_batch(fn, counters=None) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counted = {k: read() - before[k] for k, read in counters.items()}
-    rows = []
+    rows, launch_calls = [], 0
     for e in prof.key_averages():
         # device-side events only: a CPU op's device total repeats the
         # time of the kernels it launched
         us = _self_device_us(e)
         if e.device_type == DeviceType.CUDA and us > 0:
             rows.append((us, e.key, e.count))
+        elif e.device_type != DeviceType.CUDA and e.key in LAUNCH_CALLS:
+            launch_calls += e.count
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) * 1e-6
     kernels = sum(c for _, k, c in rows
                   if not k.startswith(("Memcpy", "Memset")))
     recorded = {k: sum(c for _, key, c in rows if k in key) for k in counted}
-    all_recorded = recorded == counted
+    all_recorded = recorded == counted and kernels >= launch_calls
+    busy_by = "profiler"
     if not all_recorded:
-        busy = kernels = None
+        kernels = None
+        busy, busy_by = None, None
+        if graph_fallback:
+            busy, busy_by = graph_ms(fn, iters=3) * 1e-3, "graph"
     # each path kernel's device self time per launch in this batch
     per_launch = {}
     for name in KERNELS:
@@ -1110,9 +1166,11 @@ def profile_batch(fn, counters=None) -> dict:
                else "other")
         by_class[cls] += us * 1e-3
     return {"wall_s": wall, "device_busy_s": busy,
+            "device_busy_by": busy_by,
             "device_idle_share": (1.0 - busy / wall
                                   if wall and busy is not None else None),
             "device_kernel_launches": kernels,
+            "host_launch_calls": launch_calls,
             "device_memcpy_memset": sum(
                 c for _, k, c in rows if k.startswith(("Memcpy", "Memset"))),
             "launches_counted": counted, "launches_recorded": recorded,
@@ -1139,11 +1197,131 @@ def full_engine(device, n: int, d: int, k: int):
     return eng, reqs, gen_s, build_s
 
 
-def request_fits(eng, reqs) -> list:
-    """Each request's box sets as query_batch and query() fit them."""
+def request_fits(eng, reqs, use_jax=None) -> list:
+    """Each request's box sets as query() fits them (the engine's trainer
+    unless ``use_jax`` says; the device fit's boxes are CUDA tensors)."""
     return [eng._fit_boxes(r["model"], eng.x[r["pos_ids"]],
                            eng.x[r["neg_ids"]], max_depth=12, n_models=25,
-                           seed=0, frange=eng.frange) for r in reqs]
+                           seed=0, use_jax=use_jax, frange=eng.frange)
+            for r in reqs]
+
+
+def fit_specs(eng, reqs) -> list:
+    """The batched fit's specs as query_batch builds them (depth 12, 25
+    dbens models, seed 0)."""
+    return [(r["model"], eng.x[r["pos_ids"]], eng.x[r["neg_ids"]], 25, 0)
+            for r in reqs]
+
+
+def batched_fit(eng, reqs):
+    """query_batch's fit phase: (lo_c, hi_c, entries) on the engine's
+    device."""
+    return eng._fit_boxes_batched(fit_specs(eng, reqs), max_depth=12,
+                                  return_device=True, frange=eng.frange)
+
+
+@contextlib.contextmanager
+def fit_recorder():
+    """Record each batched fit made inside: its lanes T, groups, worklist
+    size, round 2's survivor bucket (0 where no lane outlived round 1),
+    the bytes it uploads (the packed inputs, and round 2's lane index)
+    and fit_select's outputs (lo_c, hi_c, meta [2, G])."""
+    from repro_torch.core import dbranch, engine
+    fits, bucket = [], []
+    fit_select, grow_round = engine.fit_select, dbranch._grow_round
+
+    def rec_grow(x_all, m_all, tables, state=None, **kw):
+        if state is not None:
+            bucket.append(int(x_all.shape[0]))
+        return grow_round(x_all, m_all, tables, state, **kw)
+
+    def rec_fit(*args, **kw):
+        bucket.clear()
+        out = fit_select(*args, **kw)
+        b = bucket[0] if bucket else 0
+        fits.append({"lanes": int(args[0].shape[0]),
+                     "rows_per_lane": int(args[0].shape[1]),
+                     "dims": int(args[0].shape[2]), "p_cnt": kw["p_cnt"],
+                     "n_groups": kw["n_groups"],
+                     "max_nodes": kw["max_nodes"], "round2_bucket": b,
+                     "upload_bytes": int(sum(a.nbytes for a in args)) + 8 * b,
+                     "out": out})
+        return out
+    engine.fit_select, dbranch._grow_round = rec_fit, rec_grow
+    try:
+        yield fits
+    finally:
+        engine.fit_select, dbranch._grow_round = fit_select, grow_round
+
+
+def host_syncs(fn):
+    """(fn's result, its host syncs: {"file:line": warnings}): torch's
+    sync debug mode warns "called a synchronizing CUDA operation" at each
+    synchronising call (a blocking copy, .item(), nonzero, a stream
+    sync), put to the line of Python that made the call. The syncs are
+    the call sites, and every site must warn as often as one
+    device->host copy does (counted first on one .cpu(): once in torch
+    2.11); a site that warns more syncs more than once."""
+    import os
+    import warnings
+    import torch
+
+    def sites(f):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = f()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        where = {}
+        for w in caught:
+            if "called a synchronizing" in str(w.message):
+                k = f"{os.path.basename(w.filename)}:{w.lineno}"
+                where[k] = where.get(k, 0) + 1
+        return out, where
+    _, one = sites(lambda: torch.zeros(1, device="cuda").cpu())
+    per_copy = sum(one.values())
+    out, where = sites(fn)
+    if per_copy < 1 or any(n != per_copy for n in where.values()):
+        raise AssertionError(f"sync warnings by call site {where}: not "
+                             f"{per_copy} a site, as one device->host "
+                             f"copy ({one})")
+    return out, where
+
+
+def sorted_boxes(lo, hi):
+    """A box set in one order (the trainers emit in different orders:
+    numpy DFS, the device worklist BFS)."""
+    lo = lo.cpu().numpy() if hasattr(lo, "cpu") else np.asarray(lo)
+    hi = hi.cpu().numpy() if hasattr(hi, "cpu") else np.asarray(hi)
+    key = np.lexsort(np.concatenate([lo, hi], 1).T[::-1])
+    return lo[key], hi[key]
+
+
+def same_fit_as_numpy(eng, reqs):
+    """Each request's device-fit winners against the numpy trainers': the
+    same subsets, and the same boxes bitwise as a set per winner. Returns
+    (the number of winners compared, the numpy trainers' seconds)."""
+    dev = request_fits(eng, reqs, use_jax=True)
+    t0 = time.perf_counter()
+    npy = request_fits(eng, reqs, use_jax=False)
+    numpy_s = time.perf_counter() - t0
+    n = 0
+    for i, (a, b) in enumerate(zip(dev, npy)):
+        if len(a) != len(b):
+            raise AssertionError(f"request {i}: {len(a)} device winners, "
+                                 f"{len(b)} numpy ones")
+        for u, v in zip(a, b):
+            if u.subset_id != v.subset_id or not all(
+                    np.array_equal(p, q) for p, q in zip(
+                        sorted_boxes(u.lo, u.hi), sorted_boxes(v.lo, v.hi))):
+                raise AssertionError(f"request {i}: device fit != numpy "
+                                     f"fit (subset {u.subset_id} / "
+                                     f"{v.subset_id})")
+            n += 1
+    return n, numpy_s
 
 
 def probe_inputs(eng, reqs) -> list:
@@ -1171,7 +1349,7 @@ def largest_query_index(eng, reqs) -> tuple:
     from repro_torch.core.index import to_device_f32
     from repro_torch.kernels import ops
     best, size = None, -1
-    for fits in request_fits(eng, reqs):
+    for fits in request_fits(eng, reqs, use_jax=False):
         by_subset = {}
         for bs in fits:
             by_subset.setdefault(bs.subset_id, []).append(bs)
@@ -1189,6 +1367,127 @@ def largest_query_index(eng, reqs) -> tuple:
                 best = (rows3.index_select(0, hit).reshape(
                     -1, rows3.shape[-1]), lo, hi)
     return best
+
+
+def fit_measure(eng, reqs, iters: int = 10) -> dict:
+    """The batched fit of ``reqs`` alone on ``eng``'s card, warm: the wall
+    of one call (host clock to a synchronize), the median of ``iters`` by
+    CUDA events, its host syncs (which must be 2: round 1's flags and the
+    [2, G] meta), the bytes it uploads, its lanes and round 2's survivor
+    bucket, and one call under torch.profiler (device busy time and
+    kernel launches, None where the profiler dropped events)."""
+    import torch
+    batched_fit(eng, reqs)                   # warm: pinned staging buffers
+    torch.cuda.synchronize()
+    with fit_recorder() as fits:
+        t0 = time.perf_counter()
+        batched_fit(eng, reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, sync_sites = host_syncs(lambda: batched_fit(eng, reqs))
+    syncs = len(sync_sites)
+    if syncs != 2:
+        raise AssertionError(f"the batched fit made {syncs} host syncs, "
+                             f"not 2: {sync_sites}")
+    prof = profile_batch(lambda: batched_fit(eng, reqs))
+    return {**{k: v for k, v in fits[0].items() if k != "out"},
+            "host_s": host_split(lambda: batched_fit(eng, reqs)),
+            "fit_wall_s": wall, "host_syncs": syncs,
+            "host_sync_sites": sync_sites,
+            "event_ms": time_ms(lambda: batched_fit(eng, reqs), iters=iters,
+                                warmup=1),
+            "device_busy_ms": (None if prof["device_busy_s"] is None
+                               else prof["device_busy_s"] * 1e3),
+            "device_kernel_launches": prof["device_kernel_launches"],
+            "host_launch_calls": prof["host_launch_calls"],
+            "all_recorded": prof["all_recorded"],
+            "device_idle_share": prof["device_idle_share"],
+            "top_device": prof["top_device"]}
+
+
+# the stages of the batched fit whose host time host_split reports
+FIT_STAGES = ("_fit_boxes_batched", "dbens_draws", "split_tables",
+              "to_device_async", "fit_select", "_grow_lanes",
+              "_select_expand")
+
+
+def host_split(fn) -> dict:
+    """Host seconds of one call of ``fn`` by stage (FIT_STAGES, cumulative
+    as cProfile reports them; ``_fit_boxes_batched`` is the whole fit, and
+    what its stages leave is the packing of the lane stack in numpy).
+    cProfile slows Python calls, not the numpy and torch calls inside."""
+    import cProfile
+    import pstats
+    import torch
+    pr = cProfile.Profile()
+    pr.enable()
+    fn()
+    torch.cuda.synchronize()
+    pr.disable()
+    out = {}
+    for (_, _, name), row in pstats.Stats(pr).stats.items():
+        if name in FIT_STAGES:
+            out[name] = out.get(name, 0.0) + row[3]
+    return out
+
+
+def rank_methods(eng, reqs, k: int) -> dict:
+    """The dense [N, Q] score buffer of the batch, ranked by each
+    rank_topk method at the engine's k and score bound: the three results
+    bitwise equal, each timed by CUDA events around a call and by a CUDA
+    graph of 30 calls (device time)."""
+    import torch
+    from repro_torch.kernels import ops
+    lo_c, hi_c, ent = batched_fit(eng, reqs)
+    jobs, bound = eng._make_jobs_flat(
+        [(lo_c, hi_c, g, sid, cnt, q) for q, e in enumerate(ent)
+         for g, sid, cnt in e], len(reqs))
+    scores, _ = eng._device_scores(jobs, len(reqs), eng._view())
+    n = eng.n
+    kk = min(eng._pow2ceil(k), n)
+    tr = [np.concatenate([r["pos_ids"], r["neg_ids"]]) for r in reqs]
+    tids = np.full((len(reqs), -(-max(map(len, tr)) // 16) * 16), n,
+                   np.int32)
+    for q, t in enumerate(tr):
+        tids[q, :len(t)] = t
+    tids = torch.from_numpy(tids).to(eng.device)
+    outs, times = {}, {}
+    for m in ("topk", "sort", "threshold"):
+        fn = (lambda m=m: ops.rank_topk(scores, tids, k=kk,
+                                        score_bound=bound, method=m,
+                                        scores_transposed=True))
+        outs[m] = fn()
+        times[m] = {"ms": time_ms(fn), "device_ms": graph_ms(fn)}
+    for m in ("sort", "threshold"):
+        if not all(torch.equal(a, b) for a, b in zip(outs[m], outs["topk"])):
+            raise AssertionError(f"rank_topk {m} != topk on the dense batch")
+    return {"buffer": [n, len(reqs)], "k": kk, "score_bound": bound,
+            "methods": times, "equal": True,
+            "fastest": min(times, key=lambda m: times[m]["device_ms"]),
+            "cuda_default": ops.CUDA_RANK_METHOD}
+
+
+def same_ranked(a, b, what: str) -> None:
+    """ids and scores bitwise equal (results of two engine modes)."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        for r in (ra, rb):
+            if isinstance(r, Exception):
+                raise r
+        if not (np.array_equal(ra.ids, rb.ids)
+                and np.array_equal(ra.scores, rb.scores)):
+            raise AssertionError(f"{what}, request {i}: ids/scores differ")
+
+
+def timed_batch(eng, reqs):
+    """(results, wall s, peak device bytes) of one warm query_batch."""
+    import torch
+    eng.query_batch(reqs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    outs = eng.query_batch(reqs)
+    torch.cuda.synchronize()
+    return outs, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
 def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
@@ -1245,6 +1544,30 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
             raise AssertionError(f"request {i}: device ranking != host")
         if len(a.ids) == 0 or not np.all(np.isfinite(a.scores)):
             raise AssertionError(f"request {i}: empty or non-finite result")
+    if st["fit_path"] != "jax":
+        raise AssertionError("the default engine did not run the device fit")
+    fit = fit_measure(eng, reqs)
+    # the same batch on the numpy trainers, and on the dense score buffer
+    set_mode([eng], "numpy_fit")
+    try:
+        outs_np, wall_np, _ = timed_batch(eng, reqs)
+    finally:
+        set_mode([eng], "default")
+    same_results(outs_np, outs)
+    set_mode([eng], "dense")
+    try:
+        outs_d, wall_d, peak_d = timed_batch(eng, reqs)
+        full_d = eng.query_batch([{**r, "max_results": None} for r in reqs])
+        ranking = rank_methods(eng, reqs, k)
+    finally:
+        set_mode([eng], "default")
+    same_ranked(outs_d, outs, "dense != sparse")
+    same_ranked(full_d, full, "dense != sparse, max_results=None")
+    st_d = outs_d[0].stats
+    dense_bytes = st_d["batch_score_buffer_bytes_peak"]
+    if dense_bytes != n * len(reqs) * 4:
+        raise AssertionError(f"dense buffer of {dense_bytes} bytes, not "
+                             f"{n} x {len(reqs)} x 4")
     # one round's probes with the boxes already uploaded, under the sync
     # debugger: nothing on the dispatch path may synchronise
     inputs = probe_inputs(eng, reqs)
@@ -1267,7 +1590,24 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
               + ix.perm.size * 4 for ix in eng.indexes)),
           "batch": len(reqs), "query_batch_wall_s": wall,
           "per_query_wall_s": wall / len(reqs),
+          "fit_path": st["fit_path"],
           "fit_s": st["batch_fit_s"], "score_rank_s": outs[0].query_time_s,
+          "fit": fit,
+          "numpy_fit": {"fit_s": outs_np[0].stats["batch_fit_s"],
+                        "query_batch_wall_s": wall_np,
+                        "per_query_wall_s": wall_np / len(reqs),
+                        "bitwise_equal_device_fit": True},
+          "dense": {"query_batch_wall_s": wall_d,
+                    "per_query_wall_s": wall_d / len(reqs),
+                    "score_buffer_bytes_peak":
+                        st_d["batch_score_buffer_bytes_peak"],
+                    "sparse_score_bytes_peak":
+                        st["batch_score_buffer_bytes_peak"],
+                    "max_memory_allocated": peak_d,
+                    "n_host_syncs": st_d["batch_n_host_syncs"],
+                    "bitwise_equal_sparse": True,
+                    "bitwise_equal_sparse_max_results_none": True,
+                    "rank_topk": ranking},
           "profile": prof,
           "device_kernel_launches": {
               "batch": prof["device_kernel_launches"],
@@ -1287,7 +1627,7 @@ def phase_full(device, n: int = FULL_N, d: int = FULL_D, k: int = 100):
           "max_memory_allocated": peak, "launches": launches,
           "device_ranked_equals_host": True,
           "sync_free_probes": len(sync_free)})
-    return launches, largest_probe(inputs), (eng, reqs, full)
+    return launches, largest_probe(inputs), (eng, reqs, full), fit
 
 
 def phase_full_scan_knn(eng, reqs, full, k: int = 100):
@@ -1382,6 +1722,51 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
     knn_in = (rows3.reshape(-1, rows3.shape[-1])[:ix0.n_rows], q0)
     return ({**launches, "host_oracle": uf_launches}, scan_in, knn_in,
             largest_query_index(eng, reqs))
+
+
+def phase_fit(device, eng=None, reqs=None, main_fit=None) -> None:
+    """The batched device fit at full size (``--only fit``): full_size's
+    batch of 8 (4 dbranch over 32 subsets, 4 dbens of 25 models x 5
+    candidates) through ``_fit_boxes_batched`` on the card and on a CPU
+    engine over the same state (from_arrays): lo_c, hi_c and the [2, G]
+    meta bitwise, and each request's winners bitwise the numpy trainers'
+    (the same subsets, the same boxes as a set); then timed warm
+    (fit_measure; ``main_fit`` is full_size's, taken on the same engine).
+    The same for deep_requests' batch, whose lanes outlive round 1, so the
+    survivor round runs on the card."""
+    import torch
+    from repro_torch.core import SearchEngine
+    if eng is None:
+        eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    cpu = SearchEngine.from_arrays(
+        eng.x, eng.subsets,
+        [{f: getattr(ix, f) for f in INDEX_FIELDS} for ix in eng.indexes],
+        eng.frange, device="cpu")
+    res = {"phase": "fit", "rows": eng.n, "dims": eng.d,
+           "subsets": int(eng.subsets.shape[0]), "requests": len(reqs)}
+    for name, rq in (("batch", reqs), ("deep", deep_requests(reqs))):
+        with fit_recorder() as fg:
+            batched_fit(eng, rq)
+        t0 = time.perf_counter()
+        with fit_recorder() as fc:
+            batched_fit(cpu, rq)
+        cpu_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for what, a, b in zip(("lo_c", "hi_c", "meta"), fg[0]["out"],
+                              fc[0]["out"]):
+            if not (a.dtype == b.dtype and torch.equal(a.cpu(), b)):
+                raise AssertionError(f"fit {name}: {what} on the card != "
+                                     f"on the CPU")
+        winners, numpy_s = same_fit_as_numpy(eng, rq)
+        meas = (main_fit if name == "batch" and main_fit is not None
+                else fit_measure(eng, rq))
+        if name == "deep" and meas["round2_bucket"] == 0:
+            raise AssertionError("the deep batch never reached round 2")
+        res[name] = {**meas, "gpu_equals_cpu": True, "cpu_fit_s": cpu_s,
+                     "winners_equal_numpy": winners,
+                     "numpy_trainers_s": numpy_s,
+                     "meta_groups": int(fg[0]["out"][2].shape[1])}
+    emit(res)
 
 
 def rforest_boxes(eng, pos, neg):
@@ -1498,6 +1883,12 @@ def phase_l2dist(device) -> None:
     emit({"phase": "l2dist_only", "runs": runs})
 
 
+def flash_counter() -> dict:
+    """profile_batch's counter of the flash kernel's launches."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention_kernel": lambda: fa.launches}
+
+
 def phase_extraction(device):
     """The extraction path at full width: the paper-config ViT-T (seeded
     port init) over EXTRACT_N synthetic 64x64 patches by extract_catalog
@@ -1568,7 +1959,8 @@ def phase_extraction(device):
                                         device=device)
                   for b in (EXTRACT_BATCH, 1024)]
     batch = torch.from_numpy(imgs[:EXTRACT_BATCH]).to(device)
-    prof = profile_batch(lambda: fn(batch))
+    prof = profile_batch(lambda: fn(batch), flash_counter(),
+                         graph_fallback=True)
     emit({"phase": "extraction", "model": cfg.name,
           "layers": cfg.num_layers, "d_model": cfg.d_model,
           "heads": cfg.num_heads, "head_dim": cfg.resolved_head_dim,
@@ -1656,7 +2048,8 @@ def phase_extraction_400(device) -> dict:
     throughput = extraction_throughput(fn, imgs, batch=b, iters=10,
                                        device=device)
     batch = torch.from_numpy(imgs[:b]).to(device)
-    prof = profile_batch(lambda: fn(batch))
+    prof = profile_batch(lambda: fn(batch), flash_counter(),
+                         graph_fallback=True)
     seq = model.pos.shape[-2]
     res = {"phase": "extraction_400", "model": cfg.name,
            "image_size": size, "patch_size": PATCH_SIZE, "tokens": seq,
@@ -1736,17 +2129,18 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "extraction_400": phase_extraction_400,
         "box_scan": phase_box_scan,
         "zone_prune": phase_zone_prune,
-        "l2dist": phase_l2dist}
+        "l2dist": phase_l2dist,
+        "fit": phase_fit}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
-    box_scan, zone_prune and l2dist, the kernels are built and only those
-    phases run: the FLASH_CASES rows, the 400x400 extraction, the box
-    scans at the main path's inputs, zone_candidates on synthetic zone
-    maps, l2dist at the knn path's inputs; for comparing two trees on one
-    card."""
+    box_scan, zone_prune, l2dist and fit, the kernels are built and only
+    those phases run: the FLASH_CASES rows, the 400x400 extraction, the
+    box scans at the main path's inputs, zone_candidates on synthetic zone
+    maps, l2dist at the knn path's inputs, the batched device fit at full
+    size; for comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -1788,7 +2182,8 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     phase_kernels(dev)
     phase_gpu_vs_cpu(dev)
-    launches, probe, ctx = phase_full(dev)
+    launches, probe, ctx, main_fit = phase_full(dev)
+    phase_fit(dev, ctx[0], ctx[1], main_fit)
     scan_launches, scan_in, knn_in, qi_in = phase_full_scan_knn(*ctx)
     feats, labels, flash_launches, flash_in = phase_extraction(dev)
     phase_search_vit(dev, feats, labels)

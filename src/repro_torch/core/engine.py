@@ -2,9 +2,15 @@
 paths of ``repro.core.engine`` for all five models.
 
   offline:  features [N, D]  ->  K feature subsets  ->  K zone-map indexes
-  online :  (pos ids, neg ids, model)  ->  fit classifier (numpy)  ->
-            boxes  ->  one fused probe per subset on the device  ->
-            survivor tiles  ->  ranked object ids + query statistics
+  online :  (pos ids, neg ids, model)  ->  batched device fit  ->
+            winning boxes on the device  ->  one fused probe per subset
+            ->  survivor tiles  ->  ranked object ids + query statistics
+
+The dbranch/dbens fit of a whole batch window is one batched device
+program (core/dbranch.fit_select) with two host syncs; the winning boxes
+stay on the device. ``use_jax_fit=False`` selects the numpy trainers
+(the oracle), and ``score_mode="dense"`` the dense [N, Q] score buffer
+(the oracle of the survivor tiles), ranked by ``rank_topk``.
 
 The dtree/rforest models scan the whole feature matrix with their
 full-width boxes (box_scan), the knn model ranks the rows of subset 0
@@ -37,14 +43,17 @@ from repro_torch.core.boxes import BoxSet, concat_box_arrays
 from repro_torch.core.capacity import HintTable
 from repro_torch.core.capacity import hybrid_bucket as _cap_hybrid
 from repro_torch.core.capacity import pow2ceil as _cap_pow2ceil
-from repro_torch.core.dbranch import fit_dbens, fit_dbranch_best_subset
+from repro_torch.core.capacity import quantum_bucket as _cap_quantum
+from repro_torch.core.dbranch import (DBENS_SUBSET_CANDIDATES, dbens_draws,
+                                      fit_dbens, fit_dbranch_best_subset,
+                                      fit_select, split_tables)
 from repro_torch.core.errors import check_deadline
 from repro_torch.core.index import (ZoneMapIndex, build_index, full_scan,
                                     fused_stats, pad_boxes, query_index,
                                     sparse_probe, to_device_f32)
 from repro_torch.core.subsets import make_subsets
 from repro_torch.core.trees import fit_decision_tree, fit_random_forest
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device_async
 from repro_torch.kernels import ops as kops
 
 MODELS = ("dbranch", "dbens", "dtree", "rforest", "knn")
@@ -113,15 +122,18 @@ class SearchEngine:
     ``max_results`` (constructor default, overridable per query) caps how
     many ranked ids a query returns AND switches ranking to the device;
     with ``max_results=None`` the full ranked list comes from the host
-    ranking oracle. The trainer is the numpy one (``use_jax_fit=False``
-    in the reference); the batched device fit is ROADMAP A5.
+    ranking oracle.
 
     Options (``_configure``): ``device``, ``capacity_frac`` (cold-start
     gather capacity as a fraction of the blocks), ``max_results``,
-    ``use_fused`` (False: the host ``query_index`` oracle for
-    dbranch/dbens), and the reference's ``use_jax_fit``, ``score_mode``,
+    ``use_fused`` (False: the host ``query_index`` oracle and the numpy
+    trainers for dbranch/dbens), ``use_jax_fit`` (the reference's name,
+    so one set of keyword arguments builds both engines: True, the
+    default, trains on the engine's device; False, the numpy trainers),
+    ``fit_max_nodes`` (the device fit's worklist floor), ``score_mode``
+    ("sparse" survivor tiles or the "dense" oracle), and the reference's
     ``mirror``, ``n_shards``, ``live``, ``data_dir`` and ``faults``, which
-    take only the values of the static sparse path.
+    take only the values of the static single-device path.
 
     The scan models read the whole [N, D] feature matrix. The reference
     uploads it on every scan; this engine keeps one device copy,
@@ -145,20 +157,15 @@ class SearchEngine:
     def _configure(self, features, *, device=None,
                    capacity_frac: float = 0.25,
                    max_results: Optional[int] = None,
-                   use_jax_fit: bool = False, use_fused: bool = True,
-                   score_mode: str = "sparse", mirror: str = "f32",
-                   n_shards: int = 1, live: bool = False, data_dir=None,
+                   use_jax_fit: bool = True, fit_max_nodes: int = 64,
+                   use_fused: bool = True, score_mode: str = "sparse",
+                   mirror: str = "f32", n_shards: int = 1,
+                   live: bool = False, data_dir=None,
                    faults=None) -> None:
         """The options every constructor takes; each one the port does not
         implement yet raises NotImplementedError naming its ROADMAP item."""
         self.device = resolve_device(device)
-        if use_jax_fit:
-            raise _unported("use_jax_fit=True (the batched device fit)",
-                            "A5")
-        if score_mode == "dense":
-            raise _unported("score_mode='dense' (the dense oracle)",
-                            "A3/A4")
-        if score_mode != "sparse":
+        if score_mode not in ("sparse", "dense"):
             raise ValueError(f"score_mode must be 'sparse' or 'dense', "
                              f"got {score_mode!r}")
         if mirror == "quantized":
@@ -178,6 +185,14 @@ class SearchEngine:
         self.capacity_frac = capacity_frac
         self.max_results = max_results
         self.use_fused = bool(use_fused)
+        # the batched device trainer (DESIGN.md §10): every dbranch/dbens
+        # fit of a batch window in one program, winning boxes kept on the
+        # device; the numpy trainers stay the oracle (use_jax_fit=False)
+        self.use_jax_fit = bool(use_jax_fit)
+        # worklist FLOOR per trained model (batched fits scale it to 2x
+        # the padded positive count so realistic trees never hit it)
+        self.fit_max_nodes = int(fit_max_nodes)
+        self.score_mode = score_mode
         # the scan models' device copy of x, uploaded at first use
         self._x_dev: Optional[torch.Tensor] = None
         # survivor counts observed by the probes, keyed by (generation,
@@ -283,9 +298,21 @@ class SearchEngine:
 
         t0 = time.perf_counter()
         if model in ("dbranch", "dbens"):
-            boxes = self._fit_boxes(model, xp, xn, max_depth=max_depth,
-                                    n_models=n_models, seed=seed,
-                                    frange=view.frange)
+            if self.use_jax_fit and self.use_fused:
+                # device fit, device boxes: only the [2, G] winner meta
+                # crosses to the host
+                lo_c, hi_c, entries = self._fit_boxes_batched(
+                    [(model, xp, xn, n_models, seed)], max_depth=max_depth,
+                    return_device=True, frange=view.frange)
+                if isinstance(entries[0], Exception):
+                    raise entries[0]
+                boxes = ("device", lo_c, hi_c, entries[0])
+            else:
+                # the non-fused engine is the all-oracle configuration:
+                # host inference AND the numpy trainer
+                boxes = self._fit_boxes(model, xp, xn, max_depth=max_depth,
+                                        n_models=n_models, seed=seed,
+                                        use_jax=False, frange=view.frange)
         elif model in ("dtree", "rforest"):
             xtr = np.concatenate([xp, xn])
             ytr = np.concatenate([np.ones(len(xp)), np.zeros(len(xn))])
@@ -305,7 +332,10 @@ class SearchEngine:
                 boxes, pos_ids, neg_ids, include_training, mr, view,
                 deadline_s=deadline_s)
             stats["path"] = "index"
-            stats["fit_path"] = "numpy"
+            # named after the reference's option, not the library: "jax"
+            # is the batched device fit
+            stats["fit_path"] = ("jax" if self.use_jax_fit and self.use_fused
+                                 else "numpy")
         elif model == "knn":
             k = min(k_neighbors, view.n)
             ids_k, _ = knn_mod.knn_subset(view.indexes[0], xp, k=k)
@@ -332,12 +362,20 @@ class SearchEngine:
     # ------------------------------------------------------------------
     def _fit_boxes(self, model: str, xp: np.ndarray, xn: np.ndarray, *,
                    max_depth: int, n_models: int, seed: int,
+                   use_jax: Optional[bool] = None,
                    frange=None) -> List[BoxSet]:
-        """Fit an index-path model with the numpy trainers; query() and
-        query_batch() both come here, so batched and sequential answers
-        train identically. The engine's feature range is plumbed into the
-        trainers so box expansion sees the catalog's spread."""
+        """Fit an index-path model; query() and query_batch() both come
+        here (or to _fit_boxes_batched), so batched and sequential answers
+        train identically. The engine's feature range is plumbed into both
+        trainers so box expansion sees the catalog's spread. ``use_jax``
+        overrides the engine default; the device fit's BoxSets hold
+        tensors on the engine's device."""
+        use_jax = self.use_jax_fit if use_jax is None else use_jax
         frange = self.frange if frange is None else frange
+        if use_jax:
+            return self._fit_boxes_batched(
+                [(model, xp, xn, n_models, seed)], max_depth=max_depth,
+                frange=frange)[0]
         if model == "dbranch":
             return [fit_dbranch_best_subset(xp, xn, self.subsets,
                                             max_depth=max_depth,
@@ -346,10 +384,156 @@ class SearchEngine:
                          max_depth=max_depth, seed=seed,
                          feature_range=frange)
 
-    # capacity bucketing is shared policy (core/capacity.py)
+    def _fit_boxes_batched(self, specs: Sequence[Tuple], *,
+                           max_depth: int, return_device: bool = False,
+                           frange=None):
+        """Device-resident batched fit (DESIGN.md §10): train EVERY model
+        of a batch window — (candidate subsets x ensemble members x
+        requests) lanes — on the device (core/dbranch.fit_select: one
+        capped round over all lanes, one survivor round for deep trees),
+        select each model's winning subset there, and keep the winning
+        boxes there.
+
+        specs: [(model, xp, xn, n_models, seed)] with xp/xn the raw
+        full-width label features. With ``return_device`` the compacted
+        winner arrays come back — (lo [G, S, d'], hi, entries per spec of
+        (winner row, subset id, box count)) — and flow into
+        _make_jobs_flat with no host round trip; otherwise box-set lists
+        aligned with specs. Shapes are bucketed (P, Ng, lanes, groups) as
+        in the reference. The inputs go up without a host sync; the only
+        syncs are the round-1 survivor flags and the [2, G] meta."""
+        frange = self.frange if frange is None else frange
+        n_sub = len(self.subsets)
+        dsub = int(self.subsets.shape[1])
+        groups = []     # (spec_idx, cand ids, lane start, boot pos, boot neg)
+        lane0 = p_max = n_max = 0
+        for si, (model, xp, xn, n_models, seed) in enumerate(specs):
+            xp = np.asarray(xp, np.float32)
+            xn = np.asarray(xn, np.float32)
+            p_max, n_max = max(p_max, len(xp)), max(n_max, len(xn))
+            if model == "dbranch":
+                draws = [(None, None, np.arange(n_sub))]
+            else:       # dbens: same bootstrap draws as the numpy trainer
+                draws = dbens_draws(len(xp), len(xn), n_sub, n_models,
+                                    DBENS_SUBSET_CANDIDATES, seed)
+            for ip, ineg, cand in draws:
+                bp = xp if ip is None else xp[ip]
+                bn = xn if ineg is None else (xn[ineg] if len(xn) else xn)
+                groups.append((si, np.asarray(cand), lane0, bp, bn))
+                lane0 += len(cand)
+        t = lane0
+        g_real = len(groups)
+        # bucketing: pow2 for small values, then coarse linear quanta
+        p_pad = self._fit_bucket(p_max, 32)
+        n_pad = self._fit_bucket(n_max, 32)
+        t_pad = self._fit_bucket(t, 128)
+        # dummy lanes park in an extra dummy group so real winners are
+        # never contested by padding
+        g_pad = self._pow2ceil(g_real + (1 if t_pad > t else 0))
+        x_b = np.zeros((t_pad, p_pad + n_pad, dsub), np.float32)
+        m_b = np.zeros((t_pad, p_pad + n_pad), bool)
+        fr_b = np.zeros((t_pad, 2, dsub), np.float32)
+        gid_b = np.full(t_pad, g_real, np.int32)
+        for g, (si, cand, l0, bp, bn) in enumerate(groups):
+            c = len(cand)
+            dims = self.subsets[cand]                          # [C, d']
+            x_b[l0:l0 + c, :len(bp)] = bp[:, dims].transpose(1, 0, 2)
+            m_b[l0:l0 + c, :len(bp)] = True
+            if len(bn):
+                x_b[l0:l0 + c, p_pad:p_pad + len(bn)] = \
+                    bn[:, dims].transpose(1, 0, 2)
+                m_b[l0:l0 + c, p_pad:p_pad + len(bn)] = True
+            fr_b[l0:l0 + c, 0] = frange[0][dims]
+            fr_b[l0:l0 + c, 1] = frange[1][dims]
+            gid_b[l0:l0 + c] = g
+        # split-search tables on the host: numpy sorts the whole lane
+        # stack in one shot, the device program never sorts
+        si_b, re_b = split_tables(x_b)
+        # the worklist cap: trees that outgrow it emit early, diverging
+        # from the (uncapped) numpy oracle — scale headroom with the
+        # label-set size (a tree has at most one leaf per positive)
+        max_nodes = max(self.fit_max_nodes, 2 * p_pad)
+        dev = self.device
+        lo_c, hi_c, meta_dev = fit_select(
+            to_device_async(x_b, dev), to_device_async(m_b, dev),
+            to_device_async(fr_b, dev), to_device_async(gid_b, dev),
+            to_device_async(np.concatenate([si_b, re_b], axis=2), dev),
+            p_cnt=p_pad, n_groups=g_pad, max_nodes=max_nodes,
+            max_depth=max_depth)
+        meta = meta_dev.cpu().numpy()                  # the ONE result sync
+        # decode winners PER SPEC: a request whose label set produced no
+        # boxes fails alone — its exception rides in its slot and the
+        # rest of the window keeps its finished device fit
+        entries: List = [[] for _ in specs]
+        for g, (si, cand, start, _, _) in enumerate(groups):
+            if isinstance(entries[si], Exception):
+                continue
+            wl, nb = int(meta[0, g]), int(meta[1, g])
+            if wl >= t or nb <= 0:
+                entries[si] = RuntimeError("no subset produced boxes")
+                continue
+            sid = int(cand[wl - start])
+            entries[si].append((g, sid, nb))
+        if return_device:
+            return lo_c, hi_c, entries
+        out = []
+        for ent in entries:
+            if isinstance(ent, Exception):
+                raise ent
+            out.append([BoxSet(lo_c[g, :nb], hi_c[g, :nb],
+                               self.subsets[sid], sid)
+                        for g, sid, nb in ent])
+        return out
+
+    def _make_jobs_flat(self, parts, nq: int):
+        """The _make_jobs counterpart for device-resident fit output.
+
+        parts: [(lo_c, hi_c, g, sid, cnt, q)] — the [G, S, d'] compacted
+        winner arrays from _fit_boxes_batched(return_device=True), a
+        winner row g, its subset, real box count, and owning query.
+        Builds the same jobs with ONE device gather per (subset, fit
+        array) instead of per-model slices."""
+        by_subset: Dict[int, List] = {}
+        for part in parts:
+            by_subset.setdefault(part[3], []).append(part)
+        jobs = []
+        totals = np.zeros(nq, np.int64)
+        for sid, group in by_subset.items():
+            by_arr: Dict[int, Tuple] = {}
+            for lo_c, hi_c, g, _, cnt, q in group:
+                by_arr.setdefault(id(lo_c), (lo_c, hi_c, []))[2].append(
+                    (g, cnt, q))
+            los, his, owners = [], [], []
+            for lo_c, hi_c, ents in by_arr.values():
+                s, d = lo_c.shape[1], lo_c.shape[2]
+                idx = to_device_async(np.concatenate(
+                    [np.arange(cnt, dtype=np.int64) + g * s
+                     for g, cnt, _ in ents]), lo_c.device)
+                los.append(lo_c.reshape(-1, d).index_select(0, idx))
+                his.append(hi_c.reshape(-1, d).index_select(0, idx))
+                owners += [np.full(cnt, q, np.int32) for _, cnt, q in ents]
+            lo = los[0] if len(los) == 1 else torch.cat(los)
+            hi = his[0] if len(his) == 1 else torch.cat(his)
+            owner = np.concatenate(owners)
+            jobs.append((sid, BoxSet(lo, hi, self.subsets[sid], sid),
+                         owner))
+            totals += np.bincount(owner, minlength=nq)
+        return jobs, (int(totals.max()) if jobs else 0)
+
+    # capacity/shape bucketing is shared policy (core/capacity.py)
     @staticmethod
     def _pow2ceil(v: int) -> int:
         return _cap_pow2ceil(v)
+
+    @staticmethod
+    def _fit_bucket(v: int, quantum: int) -> int:
+        """Shape bucket for the batched trainer: pow2 below ``quantum``,
+        then quantum multiples (a 128-lane dbens window pads to 640 lanes,
+        not 1024)."""
+        v = max(int(v), 1)
+        if v <= quantum:
+            return _cap_pow2ceil(v)
+        return _cap_quantum(v, quantum)
 
     def _cap_key(self, sid: int, n_boxes: int, geom: int = 0):
         """Hints are keyed by (geometry generation, subset, pow2-bucketed
@@ -437,6 +621,87 @@ class SearchEngine:
 
     def _device_scores(self, jobs, nq: int, view: _EngineView,
                        deadline_s=None):
+        """Mode dispatch for the score accumulation: the survivor tiles
+        (score_mode="sparse") or the dense [N, Q] buffer ("dense"). Same
+        probes, capacities, sync cadence and retries; int32 vote addition
+        is exactly associative, so both are bitwise-identical end to
+        end."""
+        if self.score_mode == "dense":
+            return self._device_scores_dense(jobs, nq, view,
+                                             deadline_s=deadline_s)
+        return self._device_scores_sparse(jobs, nq, view,
+                                          deadline_s=deadline_s)
+
+    def _device_scores_dense(self, jobs, nq: int, view: _EngineView,
+                             deadline_s=None):
+        """Answer every subset's boxes and accumulate all counts into ONE
+        [n, nq] int32 device score buffer in ORIGINAL row order (the
+        reference's dense ``_device_scores_impl``, static single-device).
+
+        Per round: queue every pending subset's fused query, then ONE
+        batched device->host sync of the stacked n_hit values. Subsets
+        whose survivors exceeded capacity are re-queued with capacity >=
+        the observed count; the others gather their counts into the
+        buffer on the device (kops.accumulate_scores)."""
+        scores = torch.zeros((view.n, nq), dtype=torch.int32,
+                             device=self.device)
+        agg = self._new_agg()
+        pending = [(sid, merged, owner,
+                    self._initial_capacity(view.indexes[sid],
+                                           merged.n_boxes))
+                   for sid, merged, owner in jobs]
+        while pending:
+            self._round_checkpoint(deadline_s)
+            launched = []
+            for sid, merged, owner, cap in pending:
+                rows3, zlo, zhi = view.indexes[sid].device_arrays()
+                lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
+                counts, cand, n_hit = kops.fused_query(
+                    rows3, zlo, zhi, lo_d, hi_d, onehot, capacity=cap)
+                launched.append((sid, merged, owner, cap, counts, cand,
+                                 n_hit))
+            # ONE batched sync covers the whole round's overflow checks
+            n_hits = torch.stack([l[6] for l in launched]).cpu().numpy()
+            agg["n_host_syncs"] += 1
+            agg["host_bytes_transferred"] += int(n_hits.nbytes)
+            pending = []
+            for (sid, merged, owner, cap, counts, cand, _), nh in zip(
+                    launched, n_hits):
+                index = view.indexes[sid]
+                nh = int(nh)
+                self._cap_hints.observe(self._cap_key(sid, merged.n_boxes),
+                                        nh)
+                if nh > cap:
+                    # the failed attempt still gathered (and priced) cap
+                    # blocks of device traffic
+                    agg["blocks_gathered"] += cap
+                    agg["bytes_touched"] += int(
+                        cap * index.block * index.rows.shape[1] * 4)
+                    pending.append((sid, merged, owner,
+                                    min(self._pow2ceil(nh), index.n_blocks)))
+                    continue
+                scores = kops.accumulate_scores(scores, counts, cand,
+                                                index.device_inv_perm(),
+                                                nb=index.n_blocks)
+                self._accumulate_agg(
+                    agg, fused_stats(index, nh, cap, merged.n_boxes),
+                    merged.n_boxes)
+            agg["retried_subsets"] += len(pending)
+        self._note_dense_buffer(agg, scores, nq, view)
+        return scores, self._finalize_agg(agg, view)
+
+    def _note_dense_buffer(self, agg: Dict, scores, nq: int,
+                           view: _EngineView) -> None:
+        """Dense-path memory accounting, symmetric with the sparse form:
+        the peak device score footprint IS the full buffer."""
+        agg["score_buffer_bytes_peak"] = int(scores.nbytes)
+        agg["score_rows"] = int(scores.nbytes) // (4 * max(nq, 1))
+        agg["dense_score_bytes_equiv"] = int(view.n) * nq * 4
+        self._score_bytes_peak = max(self._score_bytes_peak,
+                                     int(scores.nbytes))
+
+    def _device_scores_sparse(self, jobs, nq: int, view: _EngineView,
+                              deadline_s=None):
         """The survivor-sparse accumulation (DESIGN.md §13).
 
         Per round: queue every pending subset's probe, then ONE batched
@@ -540,10 +805,12 @@ class SearchEngine:
         self._score_bytes_peak = max(self._score_bytes_peak, peak)
         return sp, self._finalize_agg(agg, view)
 
-    def _scores_to_host(self, scores_dev: SparseScores,
-                        view: _EngineView) -> np.ndarray:
-        """[N, Q] int32 host counts in GLOBAL row order: only the survivor
-        tiles cross, de-duplicated by scatter-add on the host."""
+    def _scores_to_host(self, scores_dev, view: _EngineView) -> np.ndarray:
+        """[N, Q] int32 host counts in GLOBAL row order: the dense buffer
+        as it is, or only the survivor tiles, de-duplicated by scatter-add
+        on the host (bitwise the dense transfer at O(survivors))."""
+        if not isinstance(scores_dev, SparseScores):
+            return scores_dev.cpu().numpy()
         keys = scores_dev.keys.cpu().numpy()
         vals = scores_dev.vals.cpu().numpy()
         out = np.zeros((scores_dev.n, vals.shape[1]), np.int32)
@@ -574,25 +841,34 @@ class SearchEngine:
                         view: _EngineView, deadline_s=None):
         """Single-query index inference + ranking: the fused engine scores
         on the device and, with ``mr`` set, ranks there too; the
-        use_fused=False engine runs the host oracle."""
+        use_fused=False engine runs the host oracle. ``boxsets`` is a
+        List[BoxSet], or the ("device", lo, hi, entries) form handed out
+        by the batched device fit — those boxes never touch the host."""
         if not self.use_fused:
             counts, stats = self._index_inference(boxsets, view)
             ids, scores = self._rank(counts, pos_ids, neg_ids,
                                      include_training)
             return ids, scores, stats    # query() applies the mr cut
-        jobs, bound = self._make_jobs([(bs, 0) for bs in boxsets], 1)
+        if isinstance(boxsets, tuple) and boxsets[0] == "device":
+            _, lo_c, hi_c, ent = boxsets
+            jobs, bound = self._make_jobs_flat(
+                [(lo_c, hi_c, g, sid, cnt, 0) for g, sid, cnt in ent], 1)
+        else:
+            jobs, bound = self._make_jobs([(bs, 0) for bs in boxsets], 1)
         scores_dev, stats = self._device_scores(jobs, 1, view,
                                                 deadline_s=deadline_s)
         if mr is None:
             counts = self._scores_to_host(scores_dev, view)[:, 0]
             # sparse buffers cross as tiles: price what actually moved
-            stats["host_bytes_transferred"] += scores_dev.nbytes
+            stats["host_bytes_transferred"] += (
+                scores_dev.nbytes if isinstance(scores_dev, SparseScores)
+                else int(counts.nbytes))
             ids, scores = self._rank(counts, pos_ids, neg_ids,
                                      include_training)
         else:
             ranked, hb = self._rank_device(
                 scores_dev, [(pos_ids, neg_ids, include_training)], mr,
-                view)
+                bound, view)
             stats["host_bytes_transferred"] += hb
             ids, scores = ranked[0]
         return ids, scores, stats
@@ -611,12 +887,14 @@ class SearchEngine:
         ids = found[order]
         return ids, counts[ids].astype(np.float64)
 
-    def _rank_device(self, scores_dev: SparseScores, masks, k: int,
+    def _rank_device(self, scores_dev, masks, k: int, score_bound: int,
                      view: _EngineView):
-        """Device ranking (kops.sparse_topk) of the survivor tiles; only
-        [Q, k] ids/scores plus [Q] valid counts cross to the host.
-        masks: per-query (pos, neg, include_training). Returns
-        ([(ids, scores)] aligned with masks, host bytes transferred)."""
+        """Device ranking: kops.sparse_topk of the survivor tiles, or
+        kops.rank_topk of the dense [N, Q] buffer (``score_bound``, the
+        largest per-query box count, bounds its scores); only [Q, k]
+        ids/scores plus [Q] valid counts cross to the host. masks:
+        per-query (pos, neg, include_training). Returns ([(ids, scores)]
+        aligned with masks, host bytes transferred)."""
         n, nq = view.n, len(masks)
         # k pow2-bucketed, as in the reference (a static jit arg there):
         # the [Q, k] transfer, and so host bytes, stay equal
@@ -629,9 +907,14 @@ class SearchEngine:
             if not inc:
                 tr = np.concatenate([pos, neg])
                 tids[q, :len(tr)] = tr
-        ids_k, scores_k, n_valid = kops.sparse_topk(
-            scores_dev.keys, scores_dev.vals,
-            torch.from_numpy(tids).to(self.device), k=kk)
+        tids_d = torch.from_numpy(tids).to(self.device)
+        if isinstance(scores_dev, SparseScores):
+            ids_k, scores_k, n_valid = kops.sparse_topk(
+                scores_dev.keys, scores_dev.vals, tids_d, k=kk)
+        else:
+            ids_k, scores_k, n_valid = kops.rank_topk(
+                scores_dev, tids_d, k=kk, score_bound=score_bound,
+                scores_transposed=True)
         ids_k = ids_k.cpu().numpy()
         scores_k = scores_k.cpu().numpy()
         n_valid = n_valid.cpu().numpy()
@@ -650,11 +933,13 @@ class SearchEngine:
 
         Each request is a dict with ``pos_ids``/``neg_ids`` plus the same
         optional keys query() accepts. dbranch/dbens requests are fitted
-        one by one (numpy), their boxes flattened with a per-box owner id
-        and grouped per subset; the ownership one-hot de-muxes counts per
-        query on the device. When every request sets ``max_results`` the
-        ranking runs on the device too. Other models, and every request
-        of a use_fused=False engine, go through query() one by one.
+        together on the device (one batched fit per distinct max_depth;
+        the numpy trainers one by one with use_jax_fit=False), their
+        boxes flattened with a per-box owner id and grouped per subset;
+        the ownership one-hot de-muxes counts per query on the device.
+        When every request sets ``max_results`` the ranking runs on the
+        device too. Other models, and every request of a use_fused=False
+        engine, go through query() one by one.
 
         Returns a list aligned with ``requests``: QueryResult on success,
         the raised Exception on per-request failure. Batch-wide stats are
@@ -688,30 +973,90 @@ class SearchEngine:
             return results
         check_deadline(deadline_s, "batch fit")
 
-        # ---- fit phase: per-request numpy trainers --------------------
+        # ---- fit phase: the WHOLE window trains on the device together
+        # (one batched fit per distinct max_depth); use_jax_fit=False
+        # keeps the per-request numpy oracle
         t0 = time.perf_counter()
         fitted = []   # (slot, model, boxsets, pos, neg, incl, mr, t_fit)
-        for it in to_fit:
-            t1 = time.perf_counter()
-            try:
-                boxsets = self._fit_boxes(
-                    it[1], view.x[it[2]], view.x[it[3]],
-                    max_depth=it[6], n_models=it[7], seed=it[8],
-                    frange=view.frange)
-            except Exception as e:  # noqa: BLE001
-                results[it[0]] = e
-                continue
-            fitted.append((it[0], it[1], boxsets, it[2], it[3], it[4],
-                           it[5], time.perf_counter() - t1))
-        fit_wall = time.perf_counter() - t0
+        if self.use_jax_fit:
+            # slot -> ("device", lo, hi, entries) or List[BoxSet] fallback
+            boxsets_by_slot: Dict[int, object] = {}
+            by_depth: Dict[int, List] = {}
+            for it in to_fit:
+                by_depth.setdefault(it[6], []).append(it)
+            for depth, items in by_depth.items():
+                try:
+                    lo_c, hi_c, entries = self._fit_boxes_batched(
+                        [(it[1], view.x[it[2]], view.x[it[3]], it[7], it[8])
+                         for it in items], max_depth=depth,
+                        return_device=True, frange=view.frange)
+                except (torch.AcceleratorError, torch.OutOfMemoryError):
+                    # a fault of the device itself: no per-request
+                    # fallback may hide it
+                    raise
+                except Exception:  # noqa: BLE001 — degrade, don't die
+                    entries = None  # batch-wide failure: per-request oracle
+                for j, it in enumerate(items):
+                    if entries is not None and not isinstance(
+                            entries[j], Exception):
+                        boxsets_by_slot[it[0]] = ("device", lo_c, hi_c,
+                                                  entries[j])
+                        continue
+                    # this request failed the device fit (or the whole
+                    # window did): retry it alone on the numpy oracle so
+                    # one bad label set never drags the batch down
+                    try:
+                        boxsets_by_slot[it[0]] = self._fit_boxes(
+                            it[1], view.x[it[2]], view.x[it[3]],
+                            max_depth=it[6], n_models=it[7], seed=it[8],
+                            use_jax=False, frange=view.frange)
+                    except Exception as e:  # noqa: BLE001
+                        results[it[0]] = e
+            fit_wall = time.perf_counter() - t0
+            # the fit is a shared device phase; bill it evenly
+            share = fit_wall / max(len(boxsets_by_slot), 1)
+            for it in to_fit:
+                if it[0] in boxsets_by_slot:
+                    fitted.append((it[0], it[1], boxsets_by_slot[it[0]],
+                                   it[2], it[3], it[4], it[5], share))
+        else:
+            for it in to_fit:
+                t1 = time.perf_counter()
+                try:
+                    boxsets = self._fit_boxes(
+                        it[1], view.x[it[2]], view.x[it[3]],
+                        max_depth=it[6], n_models=it[7], seed=it[8],
+                        frange=view.frange)
+                except Exception as e:  # noqa: BLE001
+                    results[it[0]] = e
+                    continue
+                fitted.append((it[0], it[1], boxsets, it[2], it[3], it[4],
+                               it[5], time.perf_counter() - t1))
+            fit_wall = time.perf_counter() - t0
         if not fitted:
             return results
 
         # ---- ONE fused device probe per subset, ONE sync per round -----
         t0 = time.perf_counter()
         nq = len(fitted)
-        jobs, _ = self._make_jobs(
-            [(bs, q) for q, f in enumerate(fitted) for bs in f[2]], nq)
+        # device-fit requests contribute (winner-array, row) parts and
+        # never touch the host; oracle-fit (or fallback) requests
+        # contribute classic BoxSets — both merge into the same jobs
+        flat_parts, box_pairs = [], []
+        for q, (_, _, boxes, *_r) in enumerate(fitted):
+            if isinstance(boxes, tuple) and boxes[0] == "device":
+                flat_parts += [(boxes[1], boxes[2], g, sid, cnt, q)
+                               for g, sid, cnt in boxes[3]]
+            else:
+                box_pairs += [(bs, q) for bs in boxes]
+        jobs, bound = [], 0
+        if flat_parts:
+            jobs, bound = self._make_jobs_flat(flat_parts, nq)
+        if box_pairs:
+            j2, b2 = self._make_jobs(box_pairs, nq)
+            # a request's boxes live entirely in one form, so per-query
+            # score bounds combine by max
+            jobs, bound = jobs + j2, max(bound, b2)
         scores_dev, agg = self._device_scores(jobs, nq, view,
                                               deadline_s=deadline_s)
 
@@ -720,15 +1065,19 @@ class SearchEngine:
         if all(m is not None for m in mrs):
             masks = [(pos, neg, incl)
                      for (_, _, _, pos, neg, incl, _, _) in fitted]
-            ranked, hb = self._rank_device(scores_dev, masks, max(mrs), view)
+            ranked, hb = self._rank_device(scores_dev, masks, max(mrs),
+                                           bound, view)
             agg["host_bytes_transferred"] += hb
             ranked = [(ids[:m], sc[:m]) for (ids, sc), m in zip(ranked, mrs)]
         else:
-            # any full-result request forces the tiles to the host ONCE;
+            # any full-result request forces the scores to the host ONCE;
             # truncated requests still see the device-ranking prefix
             counts = np.ascontiguousarray(
                 self._scores_to_host(scores_dev, view).T)
-            agg["host_bytes_transferred"] += scores_dev.nbytes
+            # sparse buffers cross as tiles: price what actually moved
+            agg["host_bytes_transferred"] += (
+                scores_dev.nbytes if isinstance(scores_dev, SparseScores)
+                else int(counts.nbytes))
             ranked = []
             for q, (_, _, _, pos, neg, incl, m, _) in enumerate(fitted):
                 ids, sc = self._rank(counts[q], pos, neg, incl)
@@ -742,11 +1091,15 @@ class SearchEngine:
         base["path"] = "index"
         base["batch_size"] = nq
         base["batch_fit_s"] = fit_wall
-        base["fit_path"] = "numpy"
+        base["fit_path"] = "jax" if self.use_jax_fit else "numpy"
         for q, (slot, model, boxes, pos, neg, incl, m, t_fit) in enumerate(
                 fitted):
             ids, sc = ranked[q]
-            stats = {**base, "n_boxes": int(sum(bs.n_boxes for bs in boxes))}
+            if isinstance(boxes, tuple) and boxes[0] == "device":
+                nb = int(sum(cnt for _, _, cnt in boxes[3]))
+            else:
+                nb = int(sum(bs.n_boxes for bs in boxes))
+            stats = {**base, "n_boxes": nb}
             results[slot] = QueryResult(model, ids, sc, t_fit, t_query,
                                         stats)
         return results

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.boxes import BoxSet, concat_box_arrays
+from repro_torch.core.boxes import BoxSet
 from repro_torch.core.capacity import quantum_bucket
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -78,6 +78,9 @@ class ZoneMapIndex:
     # lazily-populated device mirror: (rows3 [NB, block, d'], zlo, zhi)
     _dev: Optional[Tuple[torch.Tensor, ...]] = field(
         default=None, repr=False, compare=False)
+    # lazily-populated inverse-permutation mirror [n_rows] int32
+    _dev_inv_perm: Optional[torch.Tensor] = field(
+        default=None, repr=False, compare=False)
     # lazily-populated global-row-id mirror [NB, block] int32 (-1 padding)
     _dev_gids: Optional[torch.Tensor] = field(
         default=None, repr=False, compare=False)
@@ -100,6 +103,18 @@ class ZoneMapIndex:
                 zlo.to(self.device), zhi.to(self.device))
         return self._dev
 
+    def device_inv_perm(self) -> torch.Tensor:
+        """[n_rows] int32 inverse permutation (ORIGINAL row id -> Morton
+        position), uploaded once and cached: the dense accumulation
+        (kernels/ops.accumulate_scores) gathers through it. Padded Morton
+        slots never appear (only the n_rows real rows do)."""
+        if self._dev_inv_perm is None:
+            valid = self.perm >= 0
+            inv = np.empty(self.n_rows, np.int32)
+            inv[self.perm[valid]] = np.nonzero(valid)[0].astype(np.int32)
+            self._dev_inv_perm = torch.from_numpy(inv).to(self.device)
+        return self._dev_inv_perm
+
     def device_gids(self) -> torch.Tensor:
         """[NB, block] int32 GLOBAL row id per (block, slot) — the
         permutation reshaped to the block grid, -1 on padding slots;
@@ -113,13 +128,15 @@ class ZoneMapIndex:
     def device_bytes(self) -> dict:
         """Actual RESIDENT device-mirror bytes by kind (0 for mirrors not
         yet uploaded)."""
-        out = {"rows": 0, "zones": 0, "gids": 0}
+        out = {"rows": 0, "zones": 0, "gids": 0, "inv_perm": 0}
         if self._dev is not None:
             rows3, zlo, zhi = self._dev
             out["rows"] = int(rows3.nbytes)
             out["zones"] = int(zlo.nbytes) + int(zhi.nbytes)
         if self._dev_gids is not None:
             out["gids"] = int(self._dev_gids.nbytes)
+        if self._dev_inv_perm is not None:
+            out["inv_perm"] = int(self._dev_inv_perm.nbytes)
         return out
 
 
@@ -223,8 +240,13 @@ def pad_boxes(lo, hi, owner: Optional[np.ndarray]):
     if pad == 0:
         return lo, hi, owner
     d = lo.shape[1]
-    lo = concat_box_arrays([lo, np.full((pad, d), np.inf, np.float32)])
-    hi = concat_box_arrays([hi, np.full((pad, d), -np.inf, np.float32)])
+    if isinstance(lo, torch.Tensor):
+        # made on the boxes' device: an upload would be a blocking copy
+        lo = torch.cat([lo, lo.new_full((pad, d), float("inf"))])
+        hi = torch.cat([hi, hi.new_full((pad, d), float("-inf"))])
+    else:
+        lo = np.concatenate([lo, np.full((pad, d), np.inf, np.float32)])
+        hi = np.concatenate([hi, np.full((pad, d), -np.inf, np.float32)])
     if owner is not None:
         owner = np.concatenate([owner, np.zeros(pad, owner.dtype)])
     return lo, hi, owner

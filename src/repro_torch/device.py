@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,3 +22,14 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"repro_torch supports 'cuda' and 'cpu' devices, "
                          f"got {dev}")
     return dev
+
+
+def to_device_async(a, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device`` with no host sync: on CUDA
+    it is staged in pinned memory and copied with ``non_blocking`` (a
+    blocking copy from pageable memory waits for the stream to drain,
+    which is a host sync); on the CPU it is a view of the array."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)

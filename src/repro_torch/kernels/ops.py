@@ -170,6 +170,44 @@ def fused_query(rows3, zlo, zhi, blo, bhi, onehot, *, capacity: int):
     return counts.reshape(capacity, block, -1), cand, n_hit
 
 
+def batch_box_membership(x, lo, hi, valid) -> torch.Tensor:
+    """Per-set membership counts [T, N] int32: counts[t, i] = number of
+    valid boxes of set t containing row i of sample batch t.
+
+    x: [T, N, d']; lo/hi: [T, B, d'] half-open boxes; valid: [T, B] bool
+    (invalid slots never match). The same membership predicate as
+    box_scan, batched over T: the batched trainer's selection stage scores
+    every candidate model on its own training samples with it."""
+    inside = ((x[:, :, None, :] > lo[:, None, :, :])
+              & (x[:, :, None, :] <= hi[:, None, :, :]))   # [T, N, B, d']
+    return (inside.all(-1) & valid[:, None, :]).sum(-1, dtype=torch.int32)
+
+
+def accumulate_scores(scores, counts, cand, inv_perm, *, nb: int):
+    """Add one subset's fused counts into the dense [N, Q] int32 score
+    buffer, in ORIGINAL row order (the dense oracle's accumulation).
+
+    counts: [C, block, Q] from fused_query (overflow slots zeroed); cand:
+    [C] gathered block ids; inv_perm: [N] int32 original-row -> Morton
+    position (ZoneMapIndex.device_inv_perm); nb: the index's block count.
+    A gather, not a scatter: a [nb + 1] block->slot table (the lowest
+    slot holding each block: ``.at[cand].min`` as an "amin" scatter, so a
+    genuine survivor beats the zero-count fill slots that alias block 0)
+    lets every row pull its count through the inverse permutation. Rows
+    of blocks absent from ``cand`` index past the counts and take 0 (the
+    reference's ``mode="fill"``, here an explicit in-range mask)."""
+    c, block, q = counts.shape
+    dev = counts.device
+    slot = torch.full((nb + 1,), c, dtype=torch.int32, device=dev)
+    slot = slot.scatter_reduce(0, cand.long(), torch.arange(
+        c, dtype=torch.int32, device=dev), "amin")
+    idx = slot[(inv_perm // block).long()] * block + inv_perm % block
+    inside = idx < c * block
+    inc = counts.reshape(c * block, q)[
+        torch.where(inside, idx, 0).long()]
+    return scores + inc * inside[:, None].to(inc.dtype)
+
+
 # ----------------------------------------------------------------------
 # Survivor-sparse score tiles (see repro.kernels.ops for the design)
 # ----------------------------------------------------------------------
@@ -284,3 +322,168 @@ def sparse_topk(keys, vals, train_ids, *, k: int):
             (nq, k - kk), dtype=torch.int32, device=dev)], 1)
     return (out_ids, out_scores,
             (out_scores > 0).sum(1, dtype=torch.int32))
+
+
+# ----------------------------------------------------------------------
+# Dense device ranking (the dense oracle's rank stage)
+# ----------------------------------------------------------------------
+
+# rank_topk's method on CUDA tensors when the caller names none: the
+# fastest of the three on an H100 at the main path's [1,048,576, 8]
+# buffer, k = 128 (chip_smoke.py's dense phase, rank_topk; PERF.md);
+# "topk" falls back to "sort" where its composed key would overflow int32
+CUDA_RANK_METHOD = "topk"
+
+
+def rank_topk(scores, train_ids, *, k: int, score_bound=None,
+              method=None, scores_transposed: bool = False):
+    """Device ranking of a dense score buffer: mask training rows, take
+    the top-k scoring rows; only [Q, k] needs to reach the host.
+
+    scores: [Q, N] int32 ([N, Q] with ``scores_transposed``); train_ids:
+    [Q, T] int32 rows to exclude per query (padded with N, which is
+    dropped); score_bound: a host-known upper bound on any score (the
+    query's total box count). Order: descending score, ascending row id,
+    ties across the k boundary included — the host oracle's stable sort
+    of -score. Three methods give the same result:
+
+    * "topk": key = score * N + (N - 1 - id), unique per row, through one
+      ``torch.topk``; needs (score_bound + 1) * N < 2**31.
+    * "sort": a stable sort of -score over rows in id order (the
+      reference's two-key sort), the first k columns.
+    * "threshold": binary-search the k-th largest score in ``sbits``
+      count passes, extract the rows above and at it by a two-level
+      cumsum + searchsorted compaction (ascending id), then order the
+      <= 2k candidates.
+
+    The CPU default is "threshold" (the reference's off-TPU default), the
+    CUDA default ``CUDA_RANK_METHOD``. Rows with score <= 0 are invalid:
+    id -1, score 0, not counted in n_valid.
+
+    Returns (ids [Q, k] int32, scores [Q, k] int32, n_valid [Q] int32)."""
+    n = scores.shape[0] if scores_transposed else scores.shape[1]
+    k = min(int(k), n)
+    topk_ok = score_bound is not None and (score_bound + 1) * n < 2 ** 31
+    if method is None:
+        method = "threshold" if _on_cpu(scores) else CUDA_RANK_METHOD
+        if method == "topk" and not topk_ok:
+            method = "sort"
+    if scores_transposed:
+        scores = scores.T
+    if method == "threshold":
+        # 2**sbits must exceed any score; without a bound assume 30 bits
+        sbits = int(score_bound).bit_length() if score_bound else 30
+        return _rank_threshold(scores, train_ids, k=k,
+                               sbits=min(max(sbits, 1), 30))
+    if method == "topk":
+        if not topk_ok:
+            raise ValueError("rank_topk: 'topk' needs an int32-safe "
+                             "composed key; use 'sort' or 'threshold'")
+        return _rank_topk_compose(scores, train_ids, k=k)
+    if method != "sort":
+        raise ValueError(f"unknown rank method {method!r}")
+    return _rank_sort(scores, train_ids, k=k)
+
+
+def _mask_training(scores, train_ids):
+    """scores [Q, N] with each query's training rows set to 0; ids >= N
+    (the padding) go to a dump column that is cut off."""
+    nq, n = scores.shape
+    tid = train_ids.long()
+    tid = torch.where((tid >= 0) & (tid < n), tid, n)
+    out = torch.cat([scores, torch.zeros((nq, 1), dtype=scores.dtype,
+                                         device=scores.device)], 1)
+    out.scatter_(1, tid, 0)
+    return out[:, :n]
+
+
+def _rank_topk_compose(scores, train_ids, *, k: int):
+    n = scores.shape[1]
+    masked = _mask_training(scores, train_ids)
+    ids = torch.arange(n, dtype=torch.int32, device=scores.device)
+    # score > 0  <=>  key >= n, so zero rows never rank as valid
+    key = masked * n + (n - 1 - ids)[None, :]
+    top = torch.topk(key, k, dim=1, largest=True, sorted=True).values
+    valid = top >= n
+    out_scores = torch.where(valid, top // n, 0)
+    out_ids = torch.where(valid, (n - 1) - top % n, -1)
+    return (out_ids.to(torch.int32), out_scores.to(torch.int32),
+            valid.sum(1, dtype=torch.int32))
+
+
+def _rank_sort(scores, train_ids, *, k: int):
+    masked = _mask_training(scores, train_ids)
+    # rows arrive in id order, so a stable sort of -score is the two-key
+    # (-score, id) sort
+    sneg, sids = torch.sort(-masked, dim=1, stable=True)
+    out_scores, out_ids = -sneg[:, :k], sids[:, :k]
+    valid = out_scores > 0
+    out_ids = torch.where(valid, out_ids, -1)
+    return (out_ids.to(torch.int32), out_scores.to(torch.int32),
+            valid.sum(1, dtype=torch.int32))
+
+
+_RANK_CHUNK = 64     # rows per extraction chunk (see _first_k_set_rows)
+
+
+def _first_k_set_rows(mask, k: int):
+    """ids of the first k set rows of mask [Q, n], ascending; n where
+    exhausted. Per-chunk counts place each of the k targets in its chunk
+    by a binary search over their cumsum, then a short cumsum over only
+    the k gathered chunks finds the offset inside it."""
+    nq, n = mask.shape
+    ch = _RANK_CHUNK
+    g = -(-n // ch)
+    dev = mask.device
+    mp = torch.cat([mask, torch.zeros((nq, g * ch - n), dtype=mask.dtype,
+                                      device=dev)], 1)
+    mc = mp.reshape(nq, g, ch)
+    cnt = mc.sum(-1, dtype=torch.int32)                       # [Q, g]
+    cum = torch.cumsum(cnt, -1, dtype=torch.int32)            # [Q, g]
+    tgt = torch.arange(1, k + 1, dtype=torch.int32, device=dev)
+    cj = torch.searchsorted(cum, tgt[None].expand(nq, k).contiguous()
+                            ).to(torch.int32)                 # [Q, k]
+    prev = torch.where(cj > 0, torch.gather(
+        cum, 1, (cj - 1).clamp(min=0).long()), 0)
+    r = tgt[None] - prev                                      # rank in chunk
+    sel = torch.gather(mc, 1, cj.clamp(max=g - 1).long()[..., None]
+                       .expand(nq, k, ch))                    # [Q, k, ch]
+    hit = torch.cumsum(sel, -1, dtype=torch.int32) >= r[..., None]
+    loc = torch.argmax(hit.to(torch.uint8), -1).to(torch.int32)
+    return torch.where(cj < g, cj * ch + loc, n)
+
+
+def _rank_threshold(scores, train_ids, *, k: int, sbits: int):
+    nq, n = scores.shape
+    dev = scores.device
+    masked = _mask_training(scores, train_ids)
+    npos = (masked > 0).sum(1, dtype=torch.int32)
+    kq = npos.clamp(max=k)                     # results this query yields
+    # binary search the k-th largest positive score t:
+    # invariant count(masked >= lo) >= kq > count(masked >= hi)
+    lo = torch.ones(nq, dtype=torch.int32, device=dev)
+    hi = torch.full((nq,), 1 << sbits, dtype=torch.int32, device=dev)
+    for _ in range(sbits):
+        mid = (lo + hi) // 2
+        ok = (masked >= mid[:, None]).sum(1, dtype=torch.int32) >= kq
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    t = lo
+    gt = masked > t[:, None]
+    eq = masked == t[:, None]
+    i_gt = _first_k_set_rows(gt, k)            # all above-threshold rows
+    i_eq = _first_k_set_rows(eq, k)            # threshold ties, id order
+    m_cnt = gt.sum(1, dtype=torch.int32)       # < kq by threshold choice
+    keep_eq = (torch.arange(k, dtype=torch.int32, device=dev)[None, :]
+               < (kq - m_cnt)[:, None])
+    cand_ids = torch.cat([i_gt, torch.where(keep_eq, i_eq, n)], 1)
+    valid = cand_ids < n
+    cs = torch.where(valid, torch.gather(
+        masked, 1, cand_ids.clamp(max=n - 1).long()), -1)
+    # order the <= 2k candidates by (-score, id) as one int64 key
+    key = ((-cs).to(torch.int64) * (1 << 32)
+           + torch.where(valid, cand_ids, n))
+    sk = torch.sort(key, dim=1).values[:, :k]
+    out_scores = (-(sk >> 32)).clamp(min=0).to(torch.int32)
+    out_ids = torch.where(out_scores > 0, (sk & 0xFFFFFFFF).to(torch.int32),
+                          -1)
+    return out_ids, out_scores, kq

@@ -255,15 +255,34 @@ def test_no_silent_cpu_fallback():
         extraction_throughput(lambda t: t, imgs, batch=2)
 
 
+# ids as before the two ported options left this list
 @pytest.mark.parametrize("opt,item", [
-    ({"use_jax_fit": True}, "A5"), ({"score_mode": "dense"}, "A3/A4"),
-    ({"mirror": "quantized"}, "A10"), ({"n_shards": 2}, "A11"),
-    ({"live": True}, "A7/A8"), ({"data_dir": "somewhere"}, "A7/A8"),
-    ({"faults": object()}, "A9")])
+    pytest.param({"mirror": "quantized"}, "A10", id="opt2-A10"),
+    pytest.param({"n_shards": 2}, "A11", id="opt3-A11"),
+    pytest.param({"live": True}, "A7/A8", id="opt4-A7/A8"),
+    pytest.param({"data_dir": "somewhere"}, "A7/A8", id="opt5-A7/A8"),
+    pytest.param({"faults": object()}, "A9", id="opt6-A9")])
 def test_unported_options_raise(opt, item):
     x, _ = _clustered(n=300)
     with pytest.raises(NotImplementedError, match=item):
         SearchEngine(x, n_subsets=2, block=64, device="cpu", **opt)
+
+
+@pytest.mark.parametrize("opt", [{"use_jax_fit": True},
+                                 {"score_mode": "dense"}])
+def test_ported_options_work(opt):
+    """The two options that used to raise (A5, A3/A4) now build an engine
+    that answers as the reference's with the same options."""
+    x, y = _clustered(n=600)
+    kw = dict(n_subsets=4, block=64, seed=0, **opt)
+    te = SearchEngine(x, device="cpu", **kw)
+    je = JaxEngine(x, **kw)
+    pos, neg = np.nonzero(y == 1)[0][:8], np.nonzero(y == 0)[0][:30]
+    for mr in (None, 10):
+        got = te.query(pos, neg, max_results=mr)
+        _same(got, je.query(pos, neg, max_results=mr))
+        assert got.n_found > 0
+        assert got.stats["fit_path"] == "jax"
 
 
 @pytest.mark.parametrize("model", ["dtree", "rforest", "knn"])

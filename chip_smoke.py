@@ -10,11 +10,15 @@ and device ranking; beside it the same batch with the numpy fit and with
 engine and the numpy trainers), the dtree/rforest full scan and the knn
 search
 (``SearchEngine.query``), the use_fused=False host oracle
-(``query_batch`` through ``query_index``), and the feature-extraction
-path: 16,384 synthetic patches through the full-width ViT-T
-(``extract_catalog``, flash attention in every layer) into a
-``SearchEngine`` and a query batch, GPU against CPU, and 512 patches at
-the paper's 400x400 (626 tokens). The flash library's SASS must hold
+(``query_batch`` through ``query_index``), the live catalog (a
+``live=True`` engine over the same rows: three appends, bitwise the
+static engine; 1 % tombstoned, bitwise a static engine over the
+survivors; a background compaction under load; and the same schedule at
+65,536 rows GPU against CPU), and the feature-extraction path: 16,384
+synthetic patches through the full-width ViT-T (``extract_catalog``,
+flash attention in every layer) into a ``SearchEngine`` and a query
+batch, GPU against CPU, and 512 patches at the paper's 400x400 (626
+tokens). The flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
@@ -27,6 +31,8 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only zone_prune  # the probe's front end
     python3 chip_smoke.py --only l2dist      # l2dist's times, every way
     python3 chip_smoke.py --only fit         # the batched device fit
+    python3 chip_smoke.py --only live        # the live catalog
+    python3 chip_smoke.py --only main_wall   # the main path's warm wall
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -1073,6 +1079,7 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
                 and a.scores.tolist() == list(C1_KNN_SCORES)):
             raise AssertionError(f"C1 catalog, max_results={mr}: knn ids "
                                  f"!= the reference's")
+    live = live_gpu_vs_cpu(device, n, d)
     emit({"phase": "gpu_vs_cpu", "rows": n, "dims": d, "requests": 8,
           "engine_modes": list(ENGINE_MODES),
           "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
@@ -1080,6 +1087,7 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
           "c1_inf_catalog_knn": {"rows": int(xc.shape[0]),
                                  "ids": len(C1_KNN_IDS),
                                  "gpu_equals_cpu_equals_reference": True},
+          "live": live,
           "bitwise_equal": True, "seconds": time.perf_counter() - t0})
 
 
@@ -1254,36 +1262,39 @@ def fit_recorder():
         engine.fit_select, dbranch._grow_round = fit_select, grow_round
 
 
-def host_syncs(fn):
-    """(fn's result, its host syncs: {"file:line": warnings}): torch's
-    sync debug mode warns "called a synchronizing CUDA operation" at each
-    synchronising call (a blocking copy, .item(), nonzero, a stream
-    sync), put to the line of Python that made the call. The syncs are
-    the call sites, and every site must warn as often as one
-    device->host copy does (counted first on one .cpu(): once in torch
-    2.11); a site that warns more syncs more than once."""
+def sync_warnings(fn):
+    """(fn's result, {"file:line": warnings}): torch's sync debug mode
+    warns "called a synchronizing CUDA operation" at each synchronising
+    call (a blocking copy, .item(), nonzero, a stream sync), put to the
+    line of Python that made the call."""
     import os
     import warnings
     import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in caught:
+        if "called a synchronizing" in str(w.message):
+            k = f"{os.path.basename(w.filename)}:{w.lineno}"
+            where[k] = where.get(k, 0) + 1
+    return out, where
 
-    def sites(f):
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                out = f()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-        where = {}
-        for w in caught:
-            if "called a synchronizing" in str(w.message):
-                k = f"{os.path.basename(w.filename)}:{w.lineno}"
-                where[k] = where.get(k, 0) + 1
-        return out, where
-    _, one = sites(lambda: torch.zeros(1, device="cuda").cpu())
+
+def host_syncs(fn):
+    """(fn's result, its host syncs: {"file:line": warnings}) by
+    sync_warnings. The syncs are the call sites, and every site must warn
+    as often as one device->host copy does (counted first on one .cpu():
+    once in torch 2.11); a site that warns more syncs more than once."""
+    import torch
+    _, one = sync_warnings(lambda: torch.zeros(1, device="cuda").cpu())
     per_copy = sum(one.values())
-    out, where = sites(fn)
+    out, where = sync_warnings(fn)
     if per_copy < 1 or any(n != per_copy for n in where.values()):
         raise AssertionError(f"sync warnings by call site {where}: not "
                              f"{per_copy} a site, as one device->host "
@@ -1330,8 +1341,9 @@ def probe_inputs(eng, reqs) -> list:
     fits = request_fits(eng, reqs)
     jobs, _ = eng._make_jobs(
         [(bs, q) for q, f in enumerate(fits) for bs in f], len(reqs))
+    geom = eng._view().geom
     return [(eng.indexes[sid], *eng._probe_inputs(m, o, len(reqs)),
-             eng._initial_capacity(eng.indexes[sid], m.n_boxes))
+             eng._initial_capacity(eng.indexes[sid], m.n_boxes, geom=geom))
             for sid, m, o in jobs]
 
 
@@ -1722,6 +1734,553 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
     knn_in = (rows3.reshape(-1, rows3.shape[-1])[:ix0.n_rows], q0)
     return ({**launches, "host_oracle": uf_launches}, scan_in, knn_in,
             largest_query_index(eng, reqs))
+
+
+# ----------------------------------------------------------------------
+# the live catalog (append / delete / compact)
+# ----------------------------------------------------------------------
+
+# the reference's benchmarks/query_time.py run_live at full_size's
+# catalog: a base of 75 % (a delta fraction of 25 %), the rest appended
+# in 3 passes, 1 % of the rows tombstoned from a seed outside the
+# training ids plus each request's top 3 hits
+LIVE_BASE_FRAC = 0.75
+LIVE_PASSES = 3
+LIVE_DELETE_FRAC = 0.01
+LIVE_TOP_DELETES = 3
+LIVE_DELETE_SEED = 11
+# full_size's live catalog: 768 base blocks + 3 x 86 delta blocks
+LIVE_FULL_ZONES = 1026
+# warm batches each of the live and the static engine, in turns
+LIVE_WALL_ROUNDS = 11
+# seconds between the batches issued while a background compaction runs
+LIVE_COMPACT_PACE_S = 0.1
+# the kernel entry points whose calling thread a background compaction
+# is checked on
+KERNEL_ENTRIES = (("zone_prune", "zone_candidates"),
+                  ("zone_prune", "zone_prune"), ("zone_prune", "zone_hits"),
+                  ("box_scan", "box_scan"), ("box_scan", "box_scan_seg"),
+                  ("box_scan", "box_scan_seg_gather"), ("l2dist", "l2dist"))
+
+
+def live_split(n: int):
+    """(base rows, [the append passes' row ranges])."""
+    base = int(n * LIVE_BASE_FRAC)
+    return base, [(int(c[0]), int(c[-1]) + 1) for c in np.array_split(
+        np.arange(base, n), LIVE_PASSES)]
+
+
+def live_deletes(n: int, reqs, outs) -> np.ndarray:
+    """1 % of the rows drawn outside every request's training ids, plus
+    each request's top LIVE_TOP_DELETES hits outside them (a request's
+    hits may hold another's training rows, which a static engine over the
+    survivors could not be given)."""
+    train = np.unique(np.concatenate(
+        [np.concatenate([r["pos_ids"], r["neg_ids"]]) for r in reqs]))
+    cand = np.setdiff1d(np.arange(n), train)
+    rng = np.random.default_rng(LIVE_DELETE_SEED)
+    drawn = rng.choice(cand, int(round(n * LIVE_DELETE_FRAC)), replace=False)
+    top = [o.ids[~np.isin(o.ids, train)][:LIVE_TOP_DELETES] for o in outs]
+    return np.unique(np.concatenate([drawn, *top]).astype(np.int64))
+
+
+def first_query(eng, reqs):
+    """The first batch after a mutation, in two parts: the snapshot's
+    device mirrors (uploads, concatenations, the validity mask), synced;
+    then the batch. Returns (mirror s, batch s, results)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    view = eng._view()
+    for ix in view.indexes:
+        ix.device_arrays()
+        ix.device_gids()
+        ix.device_seg_blocks()
+    torch.cuda.synchronize()
+    mirror_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    outs = eng.query_batch(reqs)
+    torch.cuda.synchronize()
+    for o in outs:
+        if isinstance(o, Exception):
+            raise o
+    return mirror_s, time.perf_counter() - t0, outs
+
+
+@contextlib.contextmanager
+def kernel_threads():
+    """Record the thread of every call of a kernel entry point made
+    inside: [(entry, thread ident)]."""
+    import threading
+    from repro_torch import kernels
+    calls, saved = [], []
+    for mod_name, fn_name in KERNEL_ENTRIES:
+        mod = getattr(kernels, mod_name)
+        fn = getattr(mod, fn_name)
+
+        def rec(*a, _fn=fn, _name=fn_name, **kw):
+            calls.append((_name, threading.get_ident()))
+            return _fn(*a, **kw)
+        saved.append((mod, fn_name, fn))
+        setattr(mod, fn_name, rec)
+    try:
+        yield calls
+    finally:
+        for mod, fn_name, fn in saved:
+            setattr(mod, fn_name, fn)
+
+
+def paired_walls(live, static, reqs, rounds: int = None) -> dict:
+    """Per-query wall of a warm query_batch on the live and the static
+    engine, timed in turns (live, static, static, live, ...): the median
+    of ``rounds`` batches each."""
+    import torch
+    walls = {"live": [], "static": []}
+    for i in range(rounds or LIVE_WALL_ROUNDS):
+        order = (("live", live), ("static", static))
+        for name, eng in (order if i % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.query_batch(reqs)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) / len(reqs))
+    return {f"{k}_per_query_wall_s": float(np.median(v))
+            for k, v in walls.items()}
+
+
+def mapped_requests(reqs, live_ids) -> list:
+    """The requests with their training ids mapped into a catalog of the
+    rows ``live_ids`` only."""
+    return [{**r, "pos_ids": np.searchsorted(live_ids, r["pos_ids"]),
+             "neg_ids": np.searchsorted(live_ids, r["neg_ids"])}
+            for r in reqs]
+
+
+def same_as_mapped(outs, outs_m, live_ids, what: str) -> None:
+    """A live engine's results equal a monolithic engine's over the
+    survivors, ids mapped through the live-id list."""
+    for i, (a, b) in enumerate(zip(outs, outs_m)):
+        for r in (a, b):
+            if isinstance(r, Exception):
+                raise r
+        if not (np.array_equal(a.ids, live_ids[b.ids])
+                and np.array_equal(a.scores, b.scores)):
+            raise AssertionError(f"{what}, request {i}: ids/scores differ")
+
+
+def measure_live_probe(rows3, zlo, zhi, lo, hi, onehot, capacity: int
+                       ) -> dict:
+    """zone_candidates and box_scan_seg at the live batch's largest probe
+    (NZ = the virtual block count): bitwise against their plain versions,
+    event ms, device ms warm (a CUDA graph of 30 calls) and cold (the L2
+    flushed before each launch), and bounds."""
+    import torch
+    from repro_torch.kernels import box_scan, ref, zone_prune
+    nz, block, d = rows3.shape
+    nb, nq = lo.shape[0], onehot.shape[1]
+    kz = lambda: zone_prune.zone_candidates(zlo, zhi, lo, hi, capacity)
+    pz = lambda: ref.zone_candidates_ref(zlo, zhi, lo, hi, capacity)
+    (cand, n_hit), (wc, wn) = kz(), pz()
+    torch.cuda.synchronize()
+    if not (torch.equal(cand, wc) and torch.equal(n_hit, wn)):
+        raise AssertionError(f"zone_candidates NZ={nz}: kernel != plain")
+    ks = lambda: box_scan.box_scan_seg_gather(rows3, cand, n_hit, lo, hi,
+                                              onehot)
+    ps = lambda: ref.box_scan_seg_gather_ref(rows3, cand, n_hit, lo, hi,
+                                             onehot)
+    seg = compare(ks, ps, f"box_scan_seg NZ={nz}")
+    nh = int(n_hit)
+    shape = {"nz": nz, "d": d, "boxes": nb, "queries": nq,
+             "capacity": capacity, "block": block, "n_hit": nh,
+             "ctas": "one" if nz <= ONE_CTA_ZONES else "several"}
+    tested = rows3[cand[:min(nh, capacity)].long()].reshape(-1, d)
+    bounds = {"zone_candidates": zone_candidates_bound(nz, nb, d, capacity),
+              "box_scan_seg": box_scan_bound(
+                  tested.shape[0], capacity * block, nb, d, nq,
+                  scan_compares(tested, lo, hi)[0])}
+    out = {}
+    for name, kern, plain, err in (
+            ("zone_candidates", kz, pz, 0.0),
+            ("box_scan_seg", ks, ps, seg["max_abs_err"])):
+        cold, cold_by = cold_device_ms(kern, f"{name}_kernel",
+                                       use_profiler=False)
+        out[name] = {"exact": True, "max_abs_err": err, "shape": shape,
+                     "ms": time_ms(kern), "plain_ms": time_ms(plain),
+                     "device_ms": graph_ms(kern), "device_ms_by": "graph",
+                     "device_ms_cold": cold, "device_ms_cold_by": cold_by,
+                     "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1]}
+    return out
+
+
+def live_knn_inputs(live, pos) -> dict:
+    """l2dist's inputs on the live knn path (core/knn._knn_segmented):
+    subset 0's queries (the request's positives on its dims) and the live
+    rows of its largest segment and of its last delta, gathered from each
+    segment's rows3 mirror by the positions the host picks from
+    ``valid_host`` and ``perm``."""
+    import torch
+    view = live._view()
+    ix = view.indexes[0]
+    q = torch.from_numpy(np.ascontiguousarray(
+        view.x[pos][:, ix.dims])).to(live.device)
+    sizes = [seg.n_rows for seg in ix.segs]
+    out = {}
+    for name, j in (("largest_segment", int(np.argmax(sizes))),
+                    ("last_delta", len(ix.segs) - 1)):
+        seg, off = ix.segs[j], int(ix.offsets[j])
+        rows3, _, _ = seg.device_arrays()
+        rows = rows3.reshape(-1, rows3.shape[-1])[:seg.n_rows]
+        keep = view.valid_host[seg.perm[:seg.n_rows] + off]
+        pos_live = torch.from_numpy(np.nonzero(keep)[0]).to(live.device)
+        out[name] = (rows.index_select(0, pos_live), q)
+    return out
+
+
+def live_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> dict:
+    """The live schedule at ``n`` rows on a GPU engine and the port's CPU
+    engine: after the appends, the deletes and the compaction, query
+    batches in the default, numpy-fit and dense modes and with
+    use_fused=False, and the dtree / rforest / knn queries, bitwise
+    (stats included)."""
+    from repro_torch.core import SearchEngine
+    t0 = time.perf_counter()
+    x, assign = clustered(n, d, seed=5)
+    reqs = make_requests(assign, 8, 100, seed=6)
+    base, passes = live_split(n)
+    eg = SearchEngine(x[:base], device=device, live=True)
+    ec = SearchEngine(x[:base], device="cpu", live=True)
+
+    def check(dead=()):
+        for mode in ENGINE_MODES:
+            set_mode((eg, ec), mode)
+            for mr in (100, None):
+                rq = [{**r, "max_results": mr} for r in reqs]
+                a = eg.query_batch(rq)
+                same_results(a, ec.query_batch(rq))
+                if any(np.isin(o.ids, dead).any() for o in a):
+                    raise AssertionError(f"{mode}: a tombstoned id came "
+                                         f"back")
+        set_mode((eg, ec), "default")
+        for e in (eg, ec):
+            e.use_fused = False
+        try:
+            rq = [{**r, "max_results": None} for r in reqs]
+            same_all(eg.query_batch(rq), ec.query_batch(rq))
+        finally:
+            for e in (eg, ec):
+                e.use_fused = True
+        for model in ("dtree", "rforest", "knn"):
+            kw = dict(model=model, max_results=None, k_neighbors=1000)
+            a = eg.query(reqs[0]["pos_ids"], reqs[0]["neg_ids"], **kw)
+            same_all([a], [ec.query(reqs[0]["pos_ids"], reqs[0]["neg_ids"],
+                                    **kw)])
+            if np.isin(a.ids, dead).any():
+                raise AssertionError(f"{model}: a tombstoned id came back")
+    for r0, r1 in passes:
+        if not np.array_equal(eg.append(x[r0:r1]), ec.append(x[r0:r1])):
+            raise AssertionError("append ids differ")
+    check()
+    dead = live_deletes(n, reqs, eg.query_batch(reqs))
+    if eg.delete(dead) != ec.delete(dead):
+        raise AssertionError("delete counts differ")
+    check(dead)
+    for e in (eg, ec):
+        e.compact()
+    check(dead)
+    stg, stc = eg.index_stats(), ec.index_stats()
+    for k in ("epoch", "geom", "n_segments", "rows_live", "rows_tombstoned",
+              "segments"):
+        if stg[k] != stc[k]:
+            raise AssertionError(f"live index_stats {k} differ")
+    return {"rows": n, "base_rows": base, "appends": len(passes),
+            "deleted": int(len(dead)), "epoch": stg["epoch"],
+            "checked_after": ["appends", "deletes", "compaction"],
+            "engine_modes": list(ENGINE_MODES), "use_fused_false": True,
+            "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
+            "bitwise_equal": True, "seconds": time.perf_counter() - t0}
+
+
+def phase_live(device, eng, reqs, k: int = 100):
+    """The live catalog at full width (the reference's
+    benchmarks/query_time.py run_live): full_size's rows, the first 75 %
+    as the base of a live=True engine and the rest appended in 3 passes,
+    then held bitwise to the static engine ``eng`` over the same rows;
+    1 % tombstoned plus each request's top 3, held to a static engine
+    over the survivors, and the scan / knn / use_fused=False paths over
+    the tombstones; a background compaction with batches on the old
+    snapshot meanwhile, held again. Returns the live path's launch counts
+    and the kernels measured at its largest probe."""
+    import torch
+    from repro_torch.core import SearchEngine
+    from repro_torch.kernels import box_scan, l2dist, zone_prune
+    t_phase = time.perf_counter()
+    x = eng.x
+    n, d = x.shape
+    base, passes = live_split(n)
+    t0 = time.perf_counter()
+    live = SearchEngine(x[:base], device=device, live=True)
+    base_build_s = time.perf_counter() - t0
+    cat = live._catalog
+    seg_build = []
+    build_segment = cat._build_segment
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        out = build_segment(*a, **kw)
+        seg_build.append(time.perf_counter() - t)
+        return out
+    cat._build_segment = timed_build
+    # the first batch after each append asks with the base's rows only
+    # (the others are not in the catalog yet)
+    reqs_base = [{**r, "pos_ids": r["pos_ids"][r["pos_ids"] < base],
+                  "neg_ids": r["neg_ids"][r["neg_ids"] < base]}
+                 for r in reqs]
+    mirror_s, q_s, _ = first_query(live, reqs_base)
+    appends = [{"pass": 0, "rows": base, "build_s": base_build_s,
+                "first_query_mirrors_s": mirror_s,
+                "first_query_batch_s": q_s}]
+    for i, (r0, r1) in enumerate(passes, 1):
+        t0 = time.perf_counter()
+        ids = live.append(x[r0:r1])
+        append_s = time.perf_counter() - t0
+        if not np.array_equal(ids, np.arange(r0, r1)):
+            raise AssertionError("append ids are not the tail range")
+        mirror_s, q_s, _ = first_query(live, reqs_base)
+        appends.append({"pass": i, "rows": r1 - r0, "append_s": append_s,
+                        "build_index_s": seg_build[-1],
+                        "first_query_mirrors_s": mirror_s,
+                        "first_query_batch_s": q_s})
+    nz = live.indexes[0].n_blocks
+    if n == FULL_N and nz != LIVE_FULL_ZONES:
+        raise AssertionError(f"{nz} virtual zones, not {LIVE_FULL_ZONES}")
+    # 1. after the appends: bitwise the static engine over the same rows
+    outs_a, _, peak_a = timed_batch(live, reqs)
+    outs_s, _, peak_s = timed_batch(eng, reqs)
+    same_ranked(outs_a, outs_s, "live after the appends != static")
+    walls_a = paired_walls(live, eng, reqs)
+    _, syncs_live = host_syncs(lambda: live.query_batch(reqs))
+    _, syncs_static = host_syncs(lambda: eng.query_batch(reqs))
+    if syncs_live != syncs_static:
+        raise AssertionError(f"host syncs of a warm batch: live "
+                             f"{syncs_live} != static {syncs_static}")
+    # the live path's launches: counts set to 0 just before the batch
+    torch.cuda.synchronize()
+    zone_prune.launches = zone_prune.candidates_launches = 0
+    box_scan.seg_launches = 0
+    live.query_batch(reqs)
+    torch.cuda.synchronize()
+    launches = {"zone_candidates": zone_prune.candidates_launches,
+                "box_scan_seg": box_scan.seg_launches}
+    if min(launches.values()) <= 0 or \
+            zone_prune.launches != zone_prune.candidates_launches:
+        raise AssertionError(f"live batch launches {launches}")
+    prof = profile_batch(lambda: live.query_batch(reqs), {
+        "zone_candidates_kernel": lambda: zone_prune.candidates_launches,
+        "box_scan_seg_kernel": lambda: box_scan.seg_launches})
+    bytes_appended = live.index_stats()["device_bytes"]
+    probe = measure_live_probe(*largest_probe(probe_inputs(live, reqs)))
+    # 2. the deletes: bitwise a static engine over the survivors
+    dead = live_deletes(n, reqs, outs_a)
+    t0 = time.perf_counter()
+    n_dead = live.delete(dead)
+    delete_s = time.perf_counter() - t0
+    mirror_s, q_s, _ = first_query(live, reqs)
+    after_delete = {"first_query_mirrors_s": mirror_s,
+                    "first_query_batch_s": q_s}
+    outs_d, _, peak_d = timed_batch(live, reqs)
+    walls_d = paired_walls(live, eng, reqs)
+    full_d = live.query_batch([{**r, "max_results": None} for r in reqs])
+    for o in outs_d + full_d:
+        if np.isin(o.ids, dead).any():
+            raise AssertionError("a tombstoned id came back")
+    live_ids = np.nonzero(live._catalog.snapshot().valid_host)[0]
+    t0 = time.perf_counter()
+    mono = SearchEngine(x[live_ids], device=device)
+    mono_build_s = time.perf_counter() - t0
+    mreqs = mapped_requests(reqs, live_ids)
+    same_as_mapped(outs_d, mono.query_batch(mreqs), live_ids,
+                   "live after the deletes != static over the survivors")
+    same_as_mapped(full_d, mono.query_batch(
+        [{**r, "max_results": None} for r in mreqs]), live_ids,
+        "live after the deletes != static over the survivors, "
+        "max_results=None")
+    # the scan and knn models over the tombstones, held to the survivor
+    # engine too, and use_fused=False
+    pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
+    kw = dict(max_results=k, n_models=25, k_neighbors=1000)
+    box_scan.scan_launches = l2dist.launches = 0
+    scan_knn, scan_res = {}, []
+    for m in ("dtree", "rforest", "knn"):
+        t0 = time.perf_counter()
+        r = live.query(pos, neg, model=m, **kw)
+        torch.cuda.synchronize()
+        if r.n_found == 0 or np.isin(r.ids, dead).any():
+            raise AssertionError(f"{m}: empty, or a tombstoned id")
+        scan_knn[m] = {"wall_s": time.perf_counter() - t0,
+                       "n_found": r.n_found}
+        scan_res.append(r)
+    scan_launches = {"box_scan": box_scan.scan_launches,
+                     "l2dist": l2dist.launches}
+    if min(scan_launches.values()) <= 0:
+        raise AssertionError(f"live scan/knn launches {scan_launches}")
+    for m, r in zip(("dtree", "rforest", "knn"), scan_res):
+        same_as_mapped([r], [mono.query(mreqs[0]["pos_ids"],
+                                        mreqs[0]["neg_ids"], model=m, **kw)],
+                       live_ids, f"live {m} != static over the survivors")
+    del mono
+    # l2dist bitwise against its plain version at the live knn's shapes
+    probe["l2dist"] = {name: measure_l2dist(*inp, plain_device=False,
+                                            profile=False)
+                       for name, inp in live_knn_inputs(live, pos).items()}
+    live.use_fused = False
+    box_scan.scan_launches = zone_prune.launches = 0
+    zone_prune.candidates_launches = 0
+    try:
+        t0 = time.perf_counter()
+        oracle = live.query_batch([{**r, "max_results": None}
+                                   for r in reqs])
+        oracle_s = time.perf_counter() - t0
+    finally:
+        live.use_fused = True
+    oracle_launches = {"zone_prune": zone_prune.launches
+                       - zone_prune.candidates_launches,
+                       "box_scan": box_scan.scan_launches}
+    if min(oracle_launches.values()) <= 0:
+        raise AssertionError(f"live oracle launches {oracle_launches}")
+    same_ranked(oracle, full_d, "live use_fused=False != fused")
+    # 3. a background compaction, batches on the old snapshot meanwhile
+    during, epochs, merged = [], [], []
+    compact = cat.compact
+    cat.compact = lambda: merged.append(compact()) or merged[-1]
+    with kernel_threads() as calls:
+        import threading
+        main_thread = threading.get_ident()
+        epoch0 = cat.epoch
+        t0 = time.perf_counter()
+        th = live.compact(background=True)
+        while th.is_alive():
+            epochs.append(cat.epoch)
+            during.append(live.query_batch(reqs))
+            time.sleep(LIVE_COMPACT_PACE_S)
+        th.join(timeout=600)
+        compact_wall_s = time.perf_counter() - t0
+    if th.is_alive():
+        raise AssertionError("the compaction did not finish")
+    if {t for _, t in calls} - {main_thread}:
+        raise AssertionError("the merge thread launched a kernel")
+    if not epochs or epochs[0] != epoch0:
+        raise AssertionError("no batch ran on the old snapshot")
+    for outs in during:
+        same_ranked(outs, outs_d, "a batch during the compaction")
+    # hints observed under generation 0 after the swap's prune come from
+    # a batch bound to the old snapshot that ended after it; the table
+    # keeps them until the next prune, as the reference's does
+    late = {key for key in live._cap_hints if key[0] != 1}
+    mirror_s, q_s, _ = first_query(live, reqs)
+    after_compact = {"first_query_mirrors_s": mirror_s,
+                     "first_query_batch_s": q_s}
+    hints = set(live._cap_hints)
+    if {key[0] for key in late} - {0} or not hints - late or \
+            any(key[0] != 1 for key in hints - late):
+        raise AssertionError(f"compaction: hint generations "
+                             f"{sorted({k[0] for k in hints})}, late "
+                             f"{sorted(late)}")
+    outs_c, _, peak_c = timed_batch(live, reqs)
+    walls_c = paired_walls(live, eng, reqs)
+    same_ranked(outs_c, outs_d, "live after the compaction")
+    st = live.index_stats()
+    if st["n_segments"] != 1 or st["geom"] != 1:
+        raise AssertionError(f"compaction: {st['n_segments']} segments, "
+                             f"generation {st['geom']}")
+    emit({"phase": "live", "rows": n, "dims": d, "base_rows": base,
+          "virtual_zones": nz, "batch": len(reqs),
+          "appends": appends,
+          "wall_by": f"median of {LIVE_WALL_ROUNDS} warm batches, live "
+                     f"and static in turns",
+          "after_appends": {
+              **walls_a,
+              "max_memory_allocated": peak_a,
+              "static_max_memory_allocated": peak_s,
+              "device_bytes": bytes_appended,
+              "n_host_syncs": outs_a[0].stats["batch_n_host_syncs"],
+              "host_syncs_by_site": syncs_live,
+              "static_host_syncs_by_site": syncs_static,
+              "launches": launches, "profile": prof,
+              "bitwise_equal_static": True},
+          "deletes": {"rows": n_dead, "delete_s": delete_s,
+                      **after_delete, **walls_d,
+                      "max_memory_allocated": peak_d,
+                      "survivor_engine_build_s": mono_build_s,
+                      "bitwise_equal_static_over_survivors": True,
+                      "scan_knn": scan_knn, "scan_knn_launches":
+                          scan_launches,
+                      "use_fused_false": {
+                          "per_query_wall_s": oracle_s / len(reqs),
+                          "launches": oracle_launches,
+                          "ids_equal_fused": True}},
+          "compaction": {"wall_s": compact_wall_s,
+                         "compact_s": merged[0]["compact_s"],
+                         "batches_during": len(during),
+                         "on_old_snapshot": sum(e == epoch0
+                                                for e in epochs),
+                         "kernel_calls_during": len(calls),
+                         "late_generation_0_hints": len(late),
+                         "merge_thread_kernel_calls": 0,
+                         **after_compact, **walls_c,
+                         "max_memory_allocated": peak_c,
+                         "device_bytes": st["device_bytes"],
+                         "bitwise_equal_before": True},
+          "seconds": time.perf_counter() - t_phase})
+    return ({**launches, "box_scan": scan_launches["box_scan"],
+             "l2dist": scan_launches["l2dist"],
+             "zone_prune": oracle_launches["zone_prune"],
+             "box_scan_oracle": oracle_launches["box_scan"]}, probe)
+
+
+MAIN_WALL_BATCHES = 21
+
+
+def phase_main_wall(device) -> None:
+    """``--only main_wall``: full_size's static engine and batch of 8,
+    three warm-up batches, then the per-query wall of MAIN_WALL_BATCHES
+    warm batches one after another (median, quartiles, all) and the sync
+    warnings of one more by call site. It uses only the engine's static
+    query API, so an older tree runs it too: run parent, change, change,
+    parent in one call to compare the main path's wall."""
+    import torch
+    eng, reqs, _, build_s = full_engine(device, FULL_N, FULL_D, 100)
+    for _ in range(3):
+        eng.query_batch(reqs)
+    walls = []
+    for _ in range(MAIN_WALL_BATCHES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = eng.query_batch(reqs)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / len(reqs))
+    for o in outs:
+        if isinstance(o, Exception):
+            raise o
+    # a site may warn more than once here (an older tree's pageable
+    # uploads)
+    _, syncs = sync_warnings(lambda: eng.query_batch(reqs))
+    q1, med, q3 = np.percentile(walls, [25, 50, 75])
+    emit({"phase": "main_wall", "tree": str(ROOT), "build_s": build_s,
+          "batches": len(walls), "per_query_wall_s_median": float(med),
+          "per_query_wall_s_q1": float(q1), "per_query_wall_s_q3": float(q3),
+          "per_query_wall_s": walls, "sync_warnings_by_site": syncs,
+          "ids_digest": int(sum(int(o.ids[:10].sum()) for o in outs))})
+
+
+def phase_live_only(device) -> None:
+    """``--only live``: full_size's static engine (one warm batch), the
+    live phase against it, and the live GPU-vs-CPU schedule."""
+    eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    eng.query_batch(reqs)
+    launches, probe = phase_live(device, eng, reqs)
+    emit({"phase": "live_kernels", "launches": launches, "probe": probe})
+    emit({"phase": "gpu_vs_cpu_live", **live_gpu_vs_cpu(device)})
 
 
 def phase_fit(device, eng=None, reqs=None, main_fit=None) -> None:
@@ -2130,17 +2689,21 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "box_scan": phase_box_scan,
         "zone_prune": phase_zone_prune,
         "l2dist": phase_l2dist,
-        "fit": phase_fit}
+        "fit": phase_fit,
+        "live": phase_live_only,
+        "main_wall": phase_main_wall}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
-    box_scan, zone_prune, l2dist and fit, the kernels are built and only
-    those phases run: the FLASH_CASES rows, the 400x400 extraction, the
-    box scans at the main path's inputs, zone_candidates on synthetic zone
-    maps, l2dist at the knn path's inputs, the batched device fit at full
-    size; for comparing two trees on one card."""
+    box_scan, zone_prune, l2dist, fit, live and main_wall, the kernels
+    are built and only those phases run: the FLASH_CASES rows, the
+    400x400 extraction, the box scans at the main path's inputs,
+    zone_candidates on synthetic zone maps, l2dist at the knn path's
+    inputs, the batched device fit at full size, the live catalog at full
+    size (and its GPU-vs-CPU schedule), the main path's warm wall; for
+    comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -2185,6 +2748,7 @@ def main(argv) -> int:
     launches, probe, ctx, main_fit = phase_full(dev)
     phase_fit(dev, ctx[0], ctx[1], main_fit)
     scan_launches, scan_in, knn_in, qi_in = phase_full_scan_knn(*ctx)
+    live_launches, live_probe = phase_live(dev, ctx[0], ctx[1])
     feats, labels, flash_launches, flash_in = phase_extraction(dev)
     phase_search_vit(dev, feats, labels)
     ext400 = phase_extraction_400(dev)
@@ -2209,11 +2773,22 @@ def main(argv) -> int:
                 "l2dist": scan_launches["l2dist"],
                 "flash_attention": flash_launches}
     by_path = {"zone_candidates": {"fused_batch":
-                                       launches["zone_candidates"]},
-               "zone_prune": {"host_oracle_batch": launches["zone_prune"]},
+                                       launches["zone_candidates"],
+                                   "live_batch":
+                                       live_launches["zone_candidates"]},
+               "box_scan_seg": {"fused_batch": launches["box_scan_seg"],
+                                "live_batch": live_launches["box_scan_seg"]},
+               "zone_prune": {"host_oracle_batch": launches["zone_prune"],
+                              "live_host_oracle_batch":
+                                  live_launches["zone_prune"]},
                "box_scan": {"scan_knn_set": scan_launches["box_scan"],
                             "host_oracle_batch":
-                                scan_launches["host_oracle"]["box_scan"]},
+                                scan_launches["host_oracle"]["box_scan"],
+                            "live_scan_knn_set": live_launches["box_scan"],
+                            "live_host_oracle_batch":
+                                live_launches["box_scan_oracle"]},
+               "l2dist": {"knn_query": scan_launches["l2dist"],
+                          "live_knn_query": live_launches["l2dist"]},
                "flash_attention": {
                    "extract_catalog": flash_launches,
                    "per_batch": flash_launches
@@ -2245,8 +2820,15 @@ def main(argv) -> int:
                                "device_ms_graph", "device_ms_cold_graph",
                                "earlier", "device_work", "ctas")})
     by_name["zone_candidates"]["floor"] = empty_launch_ms()
+    # the live batch's largest probe: NZ = the virtual block count
+    for name in ("zone_candidates", "box_scan_seg"):
+        by_name[name]["live"] = {**live_probe[name],
+                                 "launches": live_launches[name]}
     by_name["l2dist"].update({k: res["l2dist"][k] for k in (
         "device_ms_graph",)})
+    # the live knn's per-segment calls: its largest segment and last delta
+    by_name["l2dist"]["live"] = {**live_probe["l2dist"],
+                                 "launches": live_launches["l2dist"]}
     scan = res["box_scan"]
     by_name["box_scan"].update(
         {k: scan[k] for k in ("compares_needed", "compares_upper",

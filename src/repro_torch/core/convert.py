@@ -3,8 +3,11 @@
 ``index_from_arrays`` wraps the fields of a zone-map index, given as numpy
 arrays (for instance read off the reference engine's indexes), in the
 port's ``ZoneMapIndex`` on a chosen device; ``SearchEngine.from_arrays``
-assembles a whole engine from such state. An engine built this way
-answers exactly as one that built the same state itself.
+assembles a whole engine from such state. ``catalog_from_arrays`` does
+the same for a live catalog (its sealed segments, validity mask, live
+feature range and epoch counters), and ``SearchEngine.from_catalog``
+serves it. An engine built this way answers exactly as one that built
+the same state itself.
 
 ``vit_from_numpy`` turns a reference ViT parameter tree (``init_vit`` of
 ``repro.features.vit``, or trained weights, with numpy leaves) into the
@@ -16,6 +19,7 @@ import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.index import ZoneMapIndex
+from repro_torch.core.segments import SegmentedCatalog
 from repro_torch.device import resolve_device
 from repro_torch.features.vit import ViT, load_arrays
 
@@ -37,6 +41,40 @@ def index_from_arrays(dims, perm, rows, zlo, zhi, block: int, n_rows: int,
     return ZoneMapIndex(np.asarray(dims), perm, rows, zlo, zhi, block,
                         int(n_rows), int(subset_id),
                         device=resolve_device(device))
+
+
+def catalog_from_arrays(x, subsets, segments, valid, frange, *, block: int,
+                        epoch: int = 0, geom: int = 0, n_shards: int = 1,
+                        next_shard: int = 0,
+                        device=None) -> SegmentedCatalog:
+    """A live SegmentedCatalog over the given state: ``x`` the [n, D]
+    features of every physical row, ``subsets`` [K, d'], ``segments`` one
+    dict a sealed segment — ``offset``, ``rows`` (its row count),
+    ``shard`` and ``indexes``, one dict of ``perm``, ``rows``, ``zlo``,
+    ``zhi`` a subset — ``valid`` the [n] bool validity mask, ``frange``
+    the live rows' (lo [D], hi [D]), ``epoch`` / ``geom`` the mutation
+    and compaction counters, ``next_shard`` the shard the next append
+    lands on. The mirrors upload to ``device`` (default CUDA) at first
+    use."""
+    device = resolve_device(device)
+    subsets = np.asarray(subsets)
+    segs = []
+    for sg in sorted(segments, key=lambda e: int(e["offset"])):
+        m = int(sg["rows"])
+        if len(sg["indexes"]) != len(subsets):
+            raise ValueError("a segment needs one index a subset")
+        ixs = [index_from_arrays(subsets[k], ix["perm"], ix["rows"],
+                                 ix["zlo"], ix["zhi"], block, m, k,
+                                 device=device)
+               for k, ix in enumerate(sg["indexes"])]
+        segs.append((int(sg["offset"]), m, int(sg["shard"]), ixs))
+    ends = [o + m for o, m, _, _ in segs]
+    if [o for o, _, _, _ in segs] != [0] + ends[:-1] \
+            or ends[-1] != len(x) or len(valid) != len(x):
+        raise ValueError("segments must cover the rows contiguously")
+    return SegmentedCatalog._from_state(
+        x, subsets, segs, valid, frange, block=block, epoch=epoch,
+        geom=geom, n_shards=n_shards, next_shard=next_shard, device=device)
 
 
 def vit_from_numpy(params, cfg: ModelConfig, *, image_size: int,

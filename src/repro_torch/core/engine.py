@@ -1,5 +1,6 @@
-"""The RapidEarth search engine on PyTorch — the static single-device
-paths of ``repro.core.engine`` for all five models.
+"""The RapidEarth search engine on PyTorch — the single-device paths of
+``repro.core.engine`` for all five models, over a static catalog or a
+live one (``live=True``: append / delete / compact, core/segments.py).
 
   offline:  features [N, D]  ->  K feature subsets  ->  K zone-map indexes
   online :  (pos ids, neg ids, model)  ->  batched device fit  ->
@@ -25,12 +26,18 @@ surviving rows into exactly-sized tiles keyed by global row id. With
 ``max_results`` set the ranking runs on the device too (``sparse_topk``)
 and only [Q, k] ids and scores cross to the host.
 
+A live engine runs the same stages over the segmented catalog's virtual
+block space (every segment's blocks concatenated), with tombstoned rows
+masked at tile labelling (or accumulation, dense); each query or batch
+window binds one catalog snapshot and keeps it.
+
 Ids, scores and the integer stats are bitwise those of the reference
 engine in the same configuration. What this port does not implement yet
 raises ``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -47,10 +54,15 @@ from repro_torch.core.capacity import quantum_bucket as _cap_quantum
 from repro_torch.core.dbranch import (DBENS_SUBSET_CANDIDATES, dbens_draws,
                                       fit_dbens, fit_dbranch_best_subset,
                                       fit_select, split_tables)
-from repro_torch.core.errors import check_deadline
-from repro_torch.core.index import (ZoneMapIndex, build_index, full_scan,
-                                    fused_stats, pad_boxes, query_index,
-                                    sparse_probe, to_device_f32)
+from repro_torch.core.errors import check_deadline, unported
+from repro_torch.core.index import (build_indexes, full_scan, fused_stats,
+                                    pad_boxes, query_index, sparse_probe,
+                                    to_device_f32)
+from repro_torch.core.segments import (SegmentedCatalog,
+                                       SegmentedZoneMapIndex,
+                                       segmented_fused_stats,
+                                       segmented_query_accumulate,
+                                       segmented_sparse_probe)
 from repro_torch.core.subsets import make_subsets
 from repro_torch.core.trees import fit_decision_tree, fit_random_forest
 from repro_torch.device import resolve_device, to_device_async
@@ -86,12 +98,20 @@ class QueryResult:
 
 @dataclass
 class _EngineView:
-    """The catalog state one query (or batch window) runs against. A
-    static engine hands out a trivial view over its own fields."""
+    """The catalog state one query (or batch window) runs against: the
+    index set, features, feature range and validity mask of ONE catalog
+    state. A static engine hands out a trivial view over its own fields,
+    a live one the catalog snapshot of the moment."""
     indexes: Sequence
     n: int
     x: np.ndarray
     frange: Tuple[np.ndarray, np.ndarray]
+    epoch: int = 0
+    geom: int = 0        # compaction generation — capacity-hint key tag
+    live: bool = False
+    valid: Optional[torch.Tensor] = None       # [n] int32 device mask
+    valid_host: Optional[np.ndarray] = None    # [n] bool host mirror
+    live_rows: int = -1                        # -1 -> all n rows live
 
 
 @dataclass
@@ -107,11 +127,6 @@ class SparseScores:
     @property
     def nbytes(self) -> int:
         return int(self.keys.nbytes) + int(self.vals.nbytes)
-
-
-def _unported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 class SearchEngine:
@@ -131,13 +146,15 @@ class SearchEngine:
     so one set of keyword arguments builds both engines: True, the
     default, trains on the engine's device; False, the numpy trainers),
     ``fit_max_nodes`` (the device fit's worklist floor), ``score_mode``
-    ("sparse" survivor tiles or the "dense" oracle), and the reference's
-    ``mirror``, ``n_shards``, ``live``, ``data_dir`` and ``faults``, which
-    take only the values of the static single-device path.
+    ("sparse" survivor tiles or the "dense" oracle), ``live`` (a mutable
+    catalog: ``append``, ``delete``, ``compact``), and the reference's
+    ``mirror``, ``n_shards``, ``data_dir`` and ``faults``, which take
+    only the values of the single-device, non-durable path.
 
     The scan models read the whole [N, D] feature matrix. The reference
-    uploads it on every scan; this engine keeps one device copy,
-    uploaded at the first scan query (``feature_mirror_bytes``).
+    uploads it on every scan; this engine keeps one device copy, uploaded
+    at the first scan query and extended by appended rows only
+    (``feature_mirror_bytes``).
     """
 
     def __init__(self, features: np.ndarray, *, n_subsets: int = 32,
@@ -146,11 +163,13 @@ class SearchEngine:
         self._configure(features, **options)
         t0 = time.perf_counter()
         self.subsets = make_subsets(self.d, n_subsets, subset_dim, seed=seed)
-        self.indexes = [
-            build_index(self.x, dims, block=block, subset_id=k,
-                        device=self.device)
-            for k, dims in enumerate(self.subsets)
-        ]
+        if self.live:
+            self._catalog = SegmentedCatalog(self.x, self.subsets,
+                                             block=block, device=self.device)
+            self.indexes = list(self._catalog.snapshot().indexes)
+        else:
+            self.indexes = build_indexes(self.x, self.subsets, block=block,
+                                         device=self.device)
         self.build_time_s = time.perf_counter() - t0
         self.frange = (self.x.min(0), self.x.max(0))
 
@@ -169,17 +188,22 @@ class SearchEngine:
             raise ValueError(f"score_mode must be 'sparse' or 'dense', "
                              f"got {score_mode!r}")
         if mirror == "quantized":
-            raise _unported("mirror='quantized'", "A10")
+            raise unported("mirror='quantized'", "A10")
         if mirror != "f32":
             raise ValueError(f"mirror must be 'f32' or 'quantized', "
                              f"got {mirror!r}")
         if int(n_shards) > 1:
-            raise _unported("n_shards > 1", "A11")
-        if live or data_dir is not None:
-            raise _unported("live=True / data_dir (live, durable catalogs)",
-                            "A7/A8")
+            raise unported("n_shards > 1 (sharded, and live sharded, "
+                            "catalogs)", "A11")
+        if data_dir is not None:
+            raise unported("data_dir (durable live catalogs)", "A8")
         if faults is not None:
-            raise _unported("faults (fault-injection seams)", "A9")
+            raise unported("faults (fault-injection seams)", "A9")
+        self.n_shards = 1
+        self.mirror = mirror
+        self.live = bool(live)
+        self._catalog: Optional[SegmentedCatalog] = None
+        self._sync_lock = threading.Lock()
         self.x = np.ascontiguousarray(np.asarray(features, np.float32))
         self.n, self.d = self.x.shape
         self.capacity_frac = capacity_frac
@@ -221,9 +245,37 @@ class SearchEngine:
                       np.asarray(frange[1], np.float32))
         return eng
 
+    @classmethod
+    def from_catalog(cls, catalog: SegmentedCatalog,
+                     **options) -> "SearchEngine":
+        """A live engine over an existing catalog (for instance one that
+        core/convert.catalog_from_arrays carried over), on the catalog's
+        device; it adopts the catalog's subsets and geometry, as the
+        reference's engine adopts a recovered one."""
+        dev = options.pop("device", catalog.device)
+        if resolve_device(dev) != catalog.device:
+            raise ValueError(f"the catalog's mirrors live on "
+                             f"{catalog.device}, not {dev}")
+        eng = cls.__new__(cls)
+        eng._configure(catalog.snapshot().x, device=catalog.device,
+                       live=True, **options)
+        eng.subsets = np.asarray(catalog.subsets)
+        eng._catalog = catalog
+        eng.build_time_s = 0.0
+        eng._sync_live()
+        return eng
+
     # ------------------------------------------------------------------
     def _view(self) -> _EngineView:
-        return _EngineView(self.indexes, self.n, self.x, self.frange)
+        """Bind the catalog state one query (or batch window) runs
+        against: a live engine reads its catalog's snapshot ONCE here, and
+        every later stage takes the view."""
+        if self._catalog is None:
+            return _EngineView(self.indexes, self.n, self.x, self.frange)
+        s = self._catalog.snapshot()
+        return _EngineView(s.indexes, s.n, s.x, s.frange, epoch=s.epoch,
+                           geom=s.geom, live=True, valid=s.valid_device(),
+                           valid_host=s.valid_host, live_rows=s.live_rows)
 
     def _round_checkpoint(self, deadline_s) -> None:
         """Once per device launch round: the between-rounds deadline
@@ -231,21 +283,99 @@ class SearchEngine:
         burning another round of device time."""
         check_deadline(deadline_s, "device query round")
 
+    def invalidate_capacity_hints(self) -> int:
+        """Drop every capacity hint (cold-start sizing resumes); returns
+        the number of entries dropped."""
+        return self._cap_hints.invalidate()
+
     @staticmethod
     def _index_nbytes(ix) -> int:
-        return int(ix.rows.nbytes)
+        return (ix.rows_nbytes if isinstance(ix, SegmentedZoneMapIndex)
+                else int(ix.rows.nbytes))
 
-    def _device_features(self) -> torch.Tensor:
-        """The [N, D] features on the engine's device, uploaded ONCE (a
-        view of the host array on the CPU)."""
-        if self._x_dev is None:
-            self._x_dev = torch.from_numpy(self.x).to(self.device)
-        return self._x_dev
+    def _device_features(self, view: Optional[_EngineView] = None
+                         ) -> torch.Tensor:
+        """The view's [n, D] features on the engine's device (a view of
+        the host array on the CPU). Uploaded once, then extended by the
+        appended rows only: a catalog's rows never change, and every
+        snapshot's features are a prefix of the newest."""
+        x = self.x if view is None else view.x
+        n = x.shape[0]
+        have = 0 if self._x_dev is None else int(self._x_dev.shape[0])
+        if have < n:
+            delta = torch.from_numpy(x[have:n]).to(self.device)
+            self._x_dev = delta if have == 0 else torch.cat([self._x_dev,
+                                                             delta])
+        return self._x_dev[:n]
 
     def feature_mirror_bytes(self) -> int:
         """Bytes of the scan models' device feature copy (0 until the
         first scan query uploads it)."""
         return 0 if self._x_dev is None else int(self._x_dev.nbytes)
+
+    # ------------------------------------------------------------------
+    # live-catalog lifecycle
+    # ------------------------------------------------------------------
+    def _require_live(self) -> SegmentedCatalog:
+        if self._catalog is None:
+            raise RuntimeError(
+                "this engine is static — construct SearchEngine(..., "
+                "live=True) to append/delete/compact")
+        return self._catalog
+
+    def _sync_live(self) -> None:
+        """Refresh the engine-level mirrors of the catalog head (what
+        index_stats and callers read; queries bind a snapshot instead) and
+        drop the capacity hints of dead geometry generations. Serialised:
+        a background compaction finishes on its own thread."""
+        with self._sync_lock:
+            s = self._catalog.snapshot()
+            self.indexes = list(s.indexes)
+            self.x = s.x
+            self.n = s.n
+            self.frange = s.frange
+            self._cap_hints.prune_generation(s.geom)
+
+    def append(self, features: np.ndarray) -> np.ndarray:
+        """Seal new rows into a delta segment; returns their global ids
+        (append-ordered, stable forever). O(new rows): no rebuild, and
+        no existing segment's mirrors are uploaded again."""
+        ids = self._require_live().append(features)
+        self._sync_live()
+        return ids
+
+    def delete(self, ids) -> int:
+        """Tombstone global ids; returns how many rows went live -> dead.
+        Ranked queries never surface tombstoned rows again."""
+        nd = self._require_live().delete(ids)
+        self._sync_live()
+        return nd
+
+    def compact(self, background: bool = False):
+        """Merge all sealed segments into one re-sorted segment and swap
+        it in under a new epoch. ``background=True`` runs the merge (host
+        work only: the new mirrors are built by the next query) off the
+        calling thread and returns the started Thread; queries go on over
+        the old snapshot until the swap. Otherwise returns the compaction
+        stats."""
+        self._require_live()
+        if background:
+            t = threading.Thread(target=self._compact_now, daemon=True)
+            t.start()
+            return t
+        return self._compact_now()
+
+    def _compact_now(self) -> Dict:
+        st = self._catalog.compact()
+        self._sync_live()
+        return st
+
+    def checkpoint(self) -> Dict:
+        self._require_live()
+        raise unported("checkpoint (durable live catalogs)", "A8")
+
+    def close(self) -> None:
+        """Nothing to flush: no catalog of this engine is durable."""
 
     def index_stats(self) -> Dict:
         st = {
@@ -253,17 +383,32 @@ class SearchEngine:
             "dims": self.d,
             "n_subsets": len(self.indexes),
             "subset_dim": int(self.subsets.shape[1]),
+            "n_shards": self.n_shards,
             "build_time_s": self.build_time_s,
-            "index_bytes": int(sum(ix.rows.nbytes for ix in self.indexes)),
+            "index_bytes": int(sum(self._index_nbytes(ix)
+                                   for ix in self.indexes)),
             "feature_bytes": int(self.x.nbytes),
+            "score_mode": self.score_mode,
+            "mirror": self.mirror,
             "device": str(self.device),
         }
+        # resident device-mirror bytes, by kind and per index (lazy
+        # mirrors count 0 until their first use)
         dev: Dict[str, int] = {}
+        per_index = []
         for ix in self.indexes:
-            for k, v in ix.device_bytes().items():
+            db = ix.device_bytes()
+            per_index.append({"subset_id": int(ix.subset_id),
+                              **{k: int(v) for k, v in db.items()},
+                              "total": int(sum(db.values()))})
+            for k, v in db.items():
                 dev[k] = dev.get(k, 0) + int(v)
         st["device_bytes"] = {**dev, "total": int(sum(dev.values()))}
+        st["device_bytes_per_index"] = per_index
         st["score_buffer_bytes_peak"] = int(self._score_bytes_peak)
+        if self._catalog is not None:
+            st["live"] = True
+            st.update(self._catalog.stats())
         return st
 
     # ------------------------------------------------------------------
@@ -337,8 +482,10 @@ class SearchEngine:
             stats["fit_path"] = ("jax" if self.use_jax_fit and self.use_fused
                                  else "numpy")
         elif model == "knn":
-            k = min(k_neighbors, view.n)
-            ids_k, _ = knn_mod.knn_subset(view.indexes[0], xp, k=k)
+            n_live = view.live_rows if view.live else view.n
+            k = min(k_neighbors, n_live)
+            ids_k, _ = knn_mod.knn_subset(view.indexes[0], xp, k=k,
+                                          live=view.valid_host)
             counts = knn_mod.knn_vote(ids_k, view.n)
             stats = {"path": "index",
                      "bytes_touched": self._index_nbytes(view.indexes[0])}
@@ -349,7 +496,11 @@ class SearchEngine:
             if len(lo) == 0:
                 counts = np.zeros(view.n, np.int32)
             else:
-                counts = full_scan(self._device_features(), lo, hi)
+                counts = full_scan(self._device_features(view), lo, hi)
+            if view.valid_host is not None:
+                # the scan sees every physical row: tombstoned rows must
+                # not surface from this path either
+                counts = np.where(view.valid_host, counts, 0)
             stats = {"path": "scan", "bytes_touched": int(view.x.nbytes),
                      "n_boxes": int(len(lo))}
             ids, scores = self._rank(counts, pos_ids, neg_ids,
@@ -545,14 +696,14 @@ class SearchEngine:
         """Capacity bucket: pow2-rounded, capped at the block count."""
         return min(_cap_pow2ceil(max(int(v), 1)), n_blocks)
 
-    def _initial_capacity(self, index: ZoneMapIndex,
-                          n_boxes: Optional[int] = None,
+    def _initial_capacity(self, index, n_boxes: Optional[int] = None,
                           geom: int = 0) -> int:
         """Gather capacity for a subset's probe: the last observed
-        survivor count for a like-sized boxset when one is known,
-        otherwise the capacity_frac cold-start policy. Results stay exact
-        either way: an under-sized guess is caught by the batched
-        overflow check and retried."""
+        survivor count for a like-sized boxset of the same geometry
+        generation when one is known, otherwise the capacity_frac
+        cold-start policy (over a segmented index's whole virtual block
+        space). Results stay exact either way: an under-sized guess is
+        caught by the batched overflow check and retried."""
         nbk = index.n_blocks
         if n_boxes is not None:
             hint = self._cap_hints.get(self._cap_key(index.subset_id,
@@ -610,7 +761,11 @@ class SearchEngine:
         return jobs, (int(totals.max()) if jobs else 0)
 
     def _upload(self, a) -> torch.Tensor:
-        return to_device_f32(a, self.device)
+        """A probe input as f32 on the engine's device: host arrays go up
+        pinned and non-blocking (a pageable copy is a host sync)."""
+        if isinstance(a, torch.Tensor):
+            return to_device_f32(a, self.device)
+        return to_device_async(np.asarray(a, np.float32), self.device)
 
     def _probe_inputs(self, merged: BoxSet, owner: np.ndarray, nq: int):
         """Padded boxes and the [B, Q] f32 ownership one-hot, on the
@@ -632,61 +787,96 @@ class SearchEngine:
         return self._device_scores_sparse(jobs, nq, view,
                                           deadline_s=deadline_s)
 
+    @staticmethod
+    def _live_agg(agg: Dict, view: _EngineView) -> np.ndarray:
+        """A live view's catalog stats in ``agg``; returns the zeroed
+        per-segment refined-block counter."""
+        n_segs = view.indexes[0].n_segments
+        agg["n_segments"] = n_segs
+        agg["rows_live"] = view.live_rows
+        agg["rows_tombstoned"] = view.n - view.live_rows
+        return np.zeros(n_segs, np.int64)
+
     def _device_scores_dense(self, jobs, nq: int, view: _EngineView,
                              deadline_s=None):
         """Answer every subset's boxes and accumulate all counts into ONE
         [n, nq] int32 device score buffer in ORIGINAL row order (the
-        reference's dense ``_device_scores_impl``, static single-device).
+        reference's dense ``_device_scores_impl``).
 
         Per round: queue every pending subset's fused query, then ONE
-        batched device->host sync of the stacked n_hit values. Subsets
+        batched device->host sync of the stacked stat vectors. Subsets
         whose survivors exceeded capacity are re-queued with capacity >=
         the observed count; the others gather their counts into the
-        buffer on the device (kops.accumulate_scores)."""
+        buffer on the device (kops.accumulate_scores). A live view probes
+        the virtual block space of base + every delta in one call a
+        subset (segmented_query_accumulate): the buffer's row index is the
+        global id, tombstoned rows are masked to 0 inside the
+        accumulation, and the stat vector carries the refined blocks per
+        segment after the survivor total."""
         scores = torch.zeros((view.n, nq), dtype=torch.int32,
                              device=self.device)
         agg = self._new_agg()
+        live = view.live
+        per_seg_agg = self._live_agg(agg, view) if live else None
         pending = [(sid, merged, owner,
                     self._initial_capacity(view.indexes[sid],
-                                           merged.n_boxes))
+                                           merged.n_boxes, geom=view.geom))
                    for sid, merged, owner in jobs]
         while pending:
             self._round_checkpoint(deadline_s)
             launched = []
             for sid, merged, owner, cap in pending:
-                rows3, zlo, zhi = view.indexes[sid].device_arrays()
+                index = view.indexes[sid]
                 lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
+                if live:
+                    # accumulated already: an overflowed attempt leaves
+                    # the buffer as it was
+                    scores, stvec = segmented_query_accumulate(
+                        index, scores, lo_d, hi_d, onehot, view.valid,
+                        capacity=cap)
+                    launched.append((sid, merged, owner, cap, None, None,
+                                     stvec))
+                    continue
+                rows3, zlo, zhi = index.device_arrays()
                 counts, cand, n_hit = kops.fused_query(
                     rows3, zlo, zhi, lo_d, hi_d, onehot, capacity=cap)
                 launched.append((sid, merged, owner, cap, counts, cand,
-                                 n_hit))
+                                 n_hit.reshape(1)))
             # ONE batched sync covers the whole round's overflow checks
-            n_hits = torch.stack([l[6] for l in launched]).cpu().numpy()
+            stvecs = torch.stack([l[6] for l in launched]).cpu().numpy()
             agg["n_host_syncs"] += 1
-            agg["host_bytes_transferred"] += int(n_hits.nbytes)
+            agg["host_bytes_transferred"] += int(stvecs.nbytes)
             pending = []
-            for (sid, merged, owner, cap, counts, cand, _), nh in zip(
-                    launched, n_hits):
+            for (sid, merged, owner, cap, counts, cand, _), st in zip(
+                    launched, stvecs):
                 index = view.indexes[sid]
-                nh = int(nh)
-                self._cap_hints.observe(self._cap_key(sid, merged.n_boxes),
-                                        nh)
+                nh = int(st[0])
+                self._cap_hints.observe(
+                    self._cap_key(sid, merged.n_boxes, view.geom), nh)
                 if nh > cap:
                     # the failed attempt still gathered (and priced) cap
                     # blocks of device traffic
                     agg["blocks_gathered"] += cap
                     agg["bytes_touched"] += int(
-                        cap * index.block * index.rows.shape[1] * 4)
+                        cap * index.block * len(index.dims) * 4)
                     pending.append((sid, merged, owner,
                                     min(self._pow2ceil(nh), index.n_blocks)))
                     continue
-                scores = kops.accumulate_scores(scores, counts, cand,
-                                                index.device_inv_perm(),
-                                                nb=index.n_blocks)
-                self._accumulate_agg(
-                    agg, fused_stats(index, nh, cap, merged.n_boxes),
-                    merged.n_boxes)
+                if live:
+                    st_d = segmented_fused_stats(index, nh, st[1:], cap,
+                                                 merged.n_boxes,
+                                                 view.live_rows)
+                    per_seg_agg += np.asarray(
+                        st_d["per_segment_blocks_touched"], np.int64)
+                else:
+                    scores = kops.accumulate_scores(
+                        scores, counts, cand, index.device_inv_perm(),
+                        nb=index.n_blocks)
+                    st_d = fused_stats(index, nh, cap, merged.n_boxes)
+                self._accumulate_agg(agg, st_d, merged.n_boxes)
             agg["retried_subsets"] += len(pending)
+        if live:
+            agg["per_segment_blocks_touched"] = per_seg_agg.tolist()
         self._note_dense_buffer(agg, scores, nq, view)
         return scores, self._finalize_agg(agg, view)
 
@@ -710,8 +900,12 @@ class SearchEngine:
         min(pow2ceil(n_hit), n_blocks); the others compact their surviving
         rows into one packed, exactly-sized tile per round. The zone prune
         is conservative and int32 vote addition is associative, so the
-        tiles are bitwise the dense accumulation."""
+        tiles are bitwise the dense accumulation. A live view probes the
+        virtual block space with its validity mask, and its stat vectors
+        carry the refined blocks per segment as well."""
         agg = self._new_agg()
+        live = view.live
+        per_seg_agg = self._live_agg(agg, view) if live else None
         tile_parts, tile_bytes, score_rows = [], 0, 0
         # every per-row, per-query count is bounded by its round's merged
         # box count, so below 2**15 boxes the tile values fit int16
@@ -722,15 +916,20 @@ class SearchEngine:
         transient = 0
         pending = [(sid, merged, owner,
                     self._initial_capacity(view.indexes[sid],
-                                           merged.n_boxes))
+                                           merged.n_boxes, geom=view.geom))
                    for sid, merged, owner in jobs]
         while pending:
             self._round_checkpoint(deadline_s)
             launched, round_parts, round_rcaps = [], [], []
             for sid, merged, owner, cap in pending:
                 lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
-                probe = sparse_probe(view.indexes[sid], lo_d, hi_d, onehot,
-                                     capacity=cap)
+                if live:
+                    probe = segmented_sparse_probe(
+                        view.indexes[sid], lo_d, hi_d, onehot, view.valid,
+                        capacity=cap)
+                else:
+                    probe = sparse_probe(view.indexes[sid], lo_d, hi_d,
+                                         onehot, capacity=cap)
                 launched.append((sid, merged, owner, cap) + probe)
             # ONE batched sync: a fixed-width int vector per subset
             stvecs = torch.stack([l[7] for l in launched]).cpu().numpy()
@@ -741,8 +940,8 @@ class SearchEngine:
                     launched, stvecs):
                 index = view.indexes[sid]
                 nh = int(st[0])
-                self._cap_hints.observe(self._cap_key(sid, merged.n_boxes),
-                                        nh)
+                self._cap_hints.observe(
+                    self._cap_key(sid, merged.n_boxes, view.geom), nh)
                 if nh > cap:
                     # the failed attempt still gathered (and priced) cap
                     # blocks of device traffic
@@ -754,9 +953,15 @@ class SearchEngine:
                     continue
                 nm = int(st[1])
                 score_rows += nm
-                self._accumulate_agg(
-                    agg, fused_stats(index, nh, cap, merged.n_boxes),
-                    merged.n_boxes)
+                if live:
+                    st_d = segmented_fused_stats(index, nh, st[2:], cap,
+                                                 merged.n_boxes,
+                                                 view.live_rows)
+                    per_seg_agg += np.asarray(
+                        st_d["per_segment_blocks_touched"], np.int64)
+                else:
+                    st_d = fused_stats(index, nh, cap, merged.n_boxes)
+                self._accumulate_agg(agg, st_d, merged.n_boxes)
                 round_parts.append((counts, gids, ok))
                 round_rcaps.append(_cap_hybrid(max(nm, 1), quantum=512))
             if len(round_parts) == 1:
@@ -775,6 +980,8 @@ class SearchEngine:
                                 max(rc * (4 + nq * val_sz)
                                     for rc in round_rcaps))
             agg["retried_subsets"] += len(pending)
+        if live:
+            agg["per_segment_blocks_touched"] = per_seg_agg.tolist()
         return self._finish_sparse(tile_parts, tile_bytes, score_rows,
                                    agg, nq, view, transient_bytes=transient)
 
@@ -821,9 +1028,12 @@ class SearchEngine:
     def _index_inference(self, boxsets: List[BoxSet], view: _EngineView):
         """Host/oracle range-query path (use_fused=False): per-subset
         query_index, the boxes of one subset merged into one call. Kept
-        as the correctness oracle for the device-resident path."""
+        as the correctness oracle for the device-resident path. A live
+        view runs it per segment (counts land at each segment's global
+        offset), then zeroes the tombstoned rows."""
         counts = np.zeros(view.n, np.int64)
         agg = self._new_agg()
+        qfn = self._query_segments if view.live else query_index
         by_subset: Dict[int, List[BoxSet]] = {}
         for bs in boxsets:
             by_subset.setdefault(bs.subset_id, []).append(bs)
@@ -831,10 +1041,25 @@ class SearchEngine:
             merged = group[0]
             for g in group[1:]:
                 merged = merged.concatenate(g)
-            c, st = query_index(view.indexes[sid], merged)
+            c, st = qfn(view.indexes[sid], merged)
             counts += c
             self._accumulate_agg(agg, st, merged.n_boxes)
+        if view.valid_host is not None:
+            counts = np.where(view.valid_host, counts, 0)
         return counts, self._finalize_agg(agg, view)
+
+    @staticmethod
+    def _query_segments(segx: SegmentedZoneMapIndex, merged: BoxSet):
+        """query_index over each segment of a live subset view: [n] counts
+        in global order and the segments' stats summed."""
+        c = np.zeros(segx.n_rows, np.int64)
+        st_sum: Dict = {}
+        for seg, off in zip(segx.segs, segx.offsets[:-1]):
+            cs, st = query_index(seg, merged)
+            c[off:off + seg.n_rows] = cs
+            for k, v in st.items():
+                st_sum[k] = st_sum.get(k, 0) + v
+        return c, st_sum
 
     def _run_index_path(self, boxsets, pos_ids, neg_ids,
                         include_training: bool, mr: Optional[int],
@@ -907,7 +1132,7 @@ class SearchEngine:
             if not inc:
                 tr = np.concatenate([pos, neg])
                 tids[q, :len(tr)] = tr
-        tids_d = torch.from_numpy(tids).to(self.device)
+        tids_d = to_device_async(tids, self.device)
         if isinstance(scores_dev, SparseScores):
             ids_k, scores_k, n_valid = kops.sparse_topk(
                 scores_dev.keys, scores_dev.vals, tids_d, k=kk)
@@ -915,9 +1140,13 @@ class SearchEngine:
             ids_k, scores_k, n_valid = kops.rank_topk(
                 scores_dev, tids_d, k=kk, score_bound=score_bound,
                 scores_transposed=True)
-        ids_k = ids_k.cpu().numpy()
-        scores_k = scores_k.cpu().numpy()
-        n_valid = n_valid.cpu().numpy()
+        # the three int32 results cross in ONE device->host copy
+        m = ids_k.numel()
+        host = torch.cat([ids_k.reshape(-1), scores_k.reshape(-1),
+                          n_valid]).cpu().numpy()
+        ids_k = host[:m].reshape(nq, -1)
+        scores_k = host[m:2 * m].reshape(nq, -1)
+        n_valid = host[2 * m:]
         hb = int(ids_k.nbytes + scores_k.nbytes + n_valid.nbytes)
         out = []
         for q in range(nq):

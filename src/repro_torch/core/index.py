@@ -17,6 +17,8 @@ uploaded once to the index's device.
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -25,7 +27,7 @@ import torch
 
 from repro_torch.core.boxes import BoxSet
 from repro_torch.core.capacity import quantum_bucket
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device_async
 from repro_torch.kernels import ops as kops
 
 
@@ -93,14 +95,14 @@ class ZoneMapIndex:
                                      torch.Tensor]:
         """(rows3 [NB, block, d'], zlo [NB, d'], zhi [NB, d']) on the
         index's device, uploaded ONCE and cached — no index bytes cross
-        host<->device on the online path (only the tiny boxes do)."""
+        host<->device on the online path (only the tiny boxes do). The
+        uploads are pinned and non-blocking: no host sync."""
         if self._dev is None:
             rows3, zlo, zhi = (
-                torch.from_numpy(np.ascontiguousarray(a, np.float32))
+                to_device_async(np.asarray(a, np.float32), self.device)
                 for a in (self.rows, self.zlo, self.zhi))
-            self._dev = (
-                rows3.reshape(self.n_blocks, self.block, -1).to(self.device),
-                zlo.to(self.device), zhi.to(self.device))
+            self._dev = (rows3.reshape(self.n_blocks, self.block, -1),
+                         zlo, zhi)
         return self._dev
 
     def device_inv_perm(self) -> torch.Tensor:
@@ -112,7 +114,7 @@ class ZoneMapIndex:
             valid = self.perm >= 0
             inv = np.empty(self.n_rows, np.int32)
             inv[self.perm[valid]] = np.nonzero(valid)[0].astype(np.int32)
-            self._dev_inv_perm = torch.from_numpy(inv).to(self.device)
+            self._dev_inv_perm = to_device_async(inv, self.device)
         return self._dev_inv_perm
 
     def device_gids(self) -> torch.Tensor:
@@ -122,7 +124,7 @@ class ZoneMapIndex:
         if self._dev_gids is None:
             g = np.ascontiguousarray(self.perm.astype(np.int32).reshape(
                 self.n_blocks, self.block))
-            self._dev_gids = torch.from_numpy(g).to(self.device)
+            self._dev_gids = to_device_async(g, self.device)
         return self._dev_gids
 
     def device_bytes(self) -> dict:
@@ -164,6 +166,21 @@ def build_index(x: np.ndarray, dims: np.ndarray, block: int = 1024,
     zhi = np.where(real, blocks, -np.inf).max(1)
     return ZoneMapIndex(np.asarray(dims), perm, rows, zlo, zhi, block, n,
                         subset_id, device=device)
+
+
+def build_indexes(x: np.ndarray, subsets, block: int = 1024,
+                  device=None) -> list:
+    """build_index for every subset (subset_id = its row), the subsets
+    built at once on a thread pool: numpy's sorts, gathers and bit ops
+    release the interpreter lock, and each index is the same as when
+    built alone."""
+    device = resolve_device(device)
+    subsets = list(subsets)
+    workers = max(1, min(len(subsets), os.cpu_count() or 1))
+    with ThreadPoolExecutor(workers) as pool:
+        return list(pool.map(
+            lambda kd: build_index(x, kd[1], block=block, subset_id=kd[0],
+                                   device=device), enumerate(subsets)))
 
 
 def to_device_f32(a, device: torch.device) -> torch.Tensor:

@@ -183,13 +183,16 @@ def batch_box_membership(x, lo, hi, valid) -> torch.Tensor:
     return (inside.all(-1) & valid[:, None, :]).sum(-1, dtype=torch.int32)
 
 
-def accumulate_scores(scores, counts, cand, inv_perm, *, nb: int):
+def accumulate_scores(scores, counts, cand, inv_perm, valid=None, *,
+                      nb: int):
     """Add one subset's fused counts into the dense [N, Q] int32 score
     buffer, in ORIGINAL row order (the dense oracle's accumulation).
 
     counts: [C, block, Q] from fused_query (overflow slots zeroed); cand:
     [C] gathered block ids; inv_perm: [N] int32 original-row -> Morton
-    position (ZoneMapIndex.device_inv_perm); nb: the index's block count.
+    position (ZoneMapIndex.device_inv_perm); nb: the index's block count;
+    valid: optional [N] int32/bool row-liveness mask — a tombstoned row's
+    increment is zeroed here, so it carries score 0 into every later stage.
     A gather, not a scatter: a [nb + 1] block->slot table (the lowest
     slot holding each block: ``.at[cand].min`` as an "amin" scatter, so a
     genuine survivor beats the zero-count fill slots that alias block 0)
@@ -205,23 +208,32 @@ def accumulate_scores(scores, counts, cand, inv_perm, *, nb: int):
     inside = idx < c * block
     inc = counts.reshape(c * block, q)[
         torch.where(inside, idx, 0).long()]
-    return scores + inc * inside[:, None].to(inc.dtype)
+    inc = inc * inside[:, None].to(inc.dtype)
+    if valid is not None:
+        inc = inc * valid[:, None].to(inc.dtype)
+    return scores + inc
 
 
 # ----------------------------------------------------------------------
 # Survivor-sparse score tiles (see repro.kernels.ops for the design)
 # ----------------------------------------------------------------------
 
-def tile_candidates(counts, cand, gids_blocks):
+def tile_candidates(counts, cand, gids_blocks, valid=None):
     """Label fused_query's gathered tiles with global row ids.
 
     counts: [C, block, Q]; cand: [C] gathered block ids (always in range:
     fused_query 0-fills); gids_blocks: [NB, block] int32 global row id per
-    (block, slot), -1 on padding slots. Returns (gids [C, block] int32,
-    ok [C, block] bool) — ok marks real rows with a nonzero count in at
-    least one query."""
+    (block, slot), -1 on padding slots; valid: optional [N] row-liveness
+    mask in global id space (tombstoned rows are dropped here, the sparse
+    form of accumulate_scores' masked increment). Returns (gids [C, block]
+    int32, ok [C, block] bool) — ok marks real, live rows with a nonzero
+    count in at least one query."""
     gids = gids_blocks.index_select(0, cand.long())
-    ok = (counts != 0).any(-1) & (gids >= 0)
+    real = gids >= 0
+    ok = (counts != 0).any(-1) & real
+    if valid is not None:
+        # padding slots (-1) read row 0 and are already dropped by ``real``
+        ok &= valid[torch.where(real, gids, 0).long()].to(torch.bool)
     return gids, ok
 
 

@@ -255,12 +255,14 @@ def test_no_silent_cpu_fallback():
         extraction_throughput(lambda t: t, imgs, batch=2)
 
 
-# ids as before the two ported options left this list
+# ids kept as they were before ported options left or changed this list
+# (live=True alone is ported: its case now asks for a live sharded
+# catalog, and data_dir names durability alone)
 @pytest.mark.parametrize("opt,item", [
     pytest.param({"mirror": "quantized"}, "A10", id="opt2-A10"),
     pytest.param({"n_shards": 2}, "A11", id="opt3-A11"),
-    pytest.param({"live": True}, "A7/A8", id="opt4-A7/A8"),
-    pytest.param({"data_dir": "somewhere"}, "A7/A8", id="opt5-A7/A8"),
+    pytest.param({"live": True, "n_shards": 2}, "A11", id="opt4-A7/A8"),
+    pytest.param({"data_dir": "somewhere"}, "A8", id="opt5-A7/A8"),
     pytest.param({"faults": object()}, "A9", id="opt6-A9")])
 def test_unported_options_raise(opt, item):
     x, _ = _clustered(n=300)

@@ -14,7 +14,12 @@ search
 ``live=True`` engine over the same rows: three appends, bitwise the
 static engine; 1 % tombstoned, bitwise a static engine over the
 survivors; a background compaction under load; and the same schedule at
-65,536 rows GPU against CPU), and the feature-extraction path: 16,384
+65,536 rows GPU against CPU), the durable live catalog (a ``live=True,
+data_dir=...`` engine under build/: a wal_commit crash mid-ingest and its
+recovery, a checkpoint, a background compaction's two-phase commit,
+close() and recovery onto the card bitwise the engine before it, a
+SIGKILLed child process's directory recovered to a consistent prefix,
+and the three WAL sync modes timed), and the feature-extraction path: 16,384
 synthetic patches through the full-width ViT-T (``extract_catalog``,
 flash attention in every layer) into a ``SearchEngine`` and a query
 batch, GPU against CPU, and 512 patches at the paper's 400x400 (626
@@ -32,6 +37,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only l2dist      # l2dist's times, every way
     python3 chip_smoke.py --only fit         # the batched device fit
     python3 chip_smoke.py --only live        # the live catalog
+    python3 chip_smoke.py --only durable     # the durable live catalog
     python3 chip_smoke.py --only main_wall   # the main path's warm wall
 
 Phases print one JSON line each. The line before the last two is
@@ -1784,6 +1790,43 @@ def live_deletes(n: int, reqs, outs) -> np.ndarray:
     return np.unique(np.concatenate([drawn, *top]).astype(np.int64))
 
 
+def base_requests(reqs, base: int) -> list:
+    """The requests with only their training ids below ``base``: the
+    first batch after each append asks with the base's rows only (the
+    others are not in the catalog yet)."""
+    return [{**r, "pos_ids": r["pos_ids"][r["pos_ids"] < base],
+             "neg_ids": r["neg_ids"][r["neg_ids"] < base]} for r in reqs]
+
+
+def append_pass(live, rows, reqs_base) -> tuple:
+    """One append to a live engine: its wall, the host build_index within
+    it, and the first batch after it (its mirrors apart). Returns (that
+    record, the first batch's results)."""
+    cat = live._catalog
+    builds = []
+    build_segment = cat._build_segment
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        out = build_segment(*a, **kw)
+        builds.append(time.perf_counter() - t)
+        return out
+    cat._build_segment = timed_build
+    n0 = live.n
+    try:
+        t0 = time.perf_counter()
+        ids = live.append(rows)
+        append_s = time.perf_counter() - t0
+    finally:
+        del cat._build_segment
+    if not np.array_equal(ids, np.arange(n0, n0 + len(rows))):
+        raise AssertionError("append ids are not the tail range")
+    mirror_s, q_s, outs = first_query(live, reqs_base)
+    return ({"rows": int(len(rows)), "append_s": append_s,
+             "build_index_s": builds[-1], "first_query_mirrors_s": mirror_s,
+             "first_query_batch_s": q_s}, outs)
+
+
 def first_query(eng, reqs):
     """The first batch after a mutation, in two parts: the snapshot's
     device mirrors (uploads, concatenations, the validity mask), synced;
@@ -2022,35 +2065,16 @@ def phase_live(device, eng, reqs, k: int = 100):
     live = SearchEngine(x[:base], device=device, live=True)
     base_build_s = time.perf_counter() - t0
     cat = live._catalog
-    seg_build = []
-    build_segment = cat._build_segment
-
-    def timed_build(*a, **kw):
-        t = time.perf_counter()
-        out = build_segment(*a, **kw)
-        seg_build.append(time.perf_counter() - t)
-        return out
-    cat._build_segment = timed_build
-    # the first batch after each append asks with the base's rows only
-    # (the others are not in the catalog yet)
-    reqs_base = [{**r, "pos_ids": r["pos_ids"][r["pos_ids"] < base],
-                  "neg_ids": r["neg_ids"][r["neg_ids"] < base]}
-                 for r in reqs]
+    reqs_base = base_requests(reqs, base)
     mirror_s, q_s, _ = first_query(live, reqs_base)
     appends = [{"pass": 0, "rows": base, "build_s": base_build_s,
                 "first_query_mirrors_s": mirror_s,
                 "first_query_batch_s": q_s}]
+    outs_after = []
     for i, (r0, r1) in enumerate(passes, 1):
-        t0 = time.perf_counter()
-        ids = live.append(x[r0:r1])
-        append_s = time.perf_counter() - t0
-        if not np.array_equal(ids, np.arange(r0, r1)):
-            raise AssertionError("append ids are not the tail range")
-        mirror_s, q_s, _ = first_query(live, reqs_base)
-        appends.append({"pass": i, "rows": r1 - r0, "append_s": append_s,
-                        "build_index_s": seg_build[-1],
-                        "first_query_mirrors_s": mirror_s,
-                        "first_query_batch_s": q_s})
+        rec, outs = append_pass(live, x[r0:r1], reqs_base)
+        appends.append({"pass": i, **rec})
+        outs_after.append(outs)
     nz = live.indexes[0].n_blocks
     if n == FULL_N and nz != LIVE_FULL_ZONES:
         raise AssertionError(f"{nz} virtual zones, not {LIVE_FULL_ZONES}")
@@ -2235,7 +2259,520 @@ def phase_live(device, eng, reqs, k: int = 100):
     return ({**launches, "box_scan": scan_launches["box_scan"],
              "l2dist": scan_launches["l2dist"],
              "zone_prune": oracle_launches["zone_prune"],
-             "box_scan_oracle": oracle_launches["box_scan"]}, probe)
+             "box_scan_oracle": oracle_launches["box_scan"]}, probe,
+            {"appends": appends[1:], "outs_after": outs_after})
+
+
+# the durable live catalog: its data_dir under build/ (listed in
+# .gitignore); the wal_commit crash fires at the second record, so pass
+# 2's record lands and its snapshot swap does not
+DURABLE_DIR = ROOT / "build" / "durable_catalog"
+DURABLE_SYNC = "batch"
+DURABLE_CRASH_CALL = 2
+# the SIGKILL child: MID_N rows (base and rounds as live_split's), each
+# round appends DURABLE_ROUND_ROWS rows, deletes one and queries; killed
+# once DURABLE_CHILD_ROUNDS rounds have printed, after DURABLE_GRACE_S
+DURABLE_ROUND_ROWS = 512
+DURABLE_CHILD_ROUNDS = 4
+DURABLE_GRACE_S = 0.05
+DURABLE_CHILD_TIMEOUT_S = 300
+# the sync modes at MID_N rows: live_split's tail in this many appends,
+# each mode (and the memory-only catalog, first and last) timed in turn
+SYNC_APPENDS = 8
+SYNC_MODES = ("none", "batch", "always")
+
+
+def dir_bytes(path) -> int:
+    """Bytes of every file under ``path`` (a file removed while it is
+    walked counts 0)."""
+    total = 0
+    for p in Path(path).rglob("*"):
+        try:
+            if p.is_file():
+                total += p.stat().st_size
+        except OSError:
+            pass
+    return total
+
+
+@contextlib.contextmanager
+def recorded_checkpoints():
+    """Record every SegmentedCatalog.checkpoint() made inside: its result
+    (``checkpoint_s`` among it) and its thread."""
+    import threading
+    from repro_torch.core.segments import SegmentedCatalog
+    calls = []
+    orig = SegmentedCatalog.checkpoint
+
+    def rec(self):
+        out = orig(self)
+        calls.append({**out, "thread": threading.get_ident()})
+        return out
+    SegmentedCatalog.checkpoint = rec
+    try:
+        yield calls
+    finally:
+        SegmentedCatalog.checkpoint = orig
+
+
+@contextlib.contextmanager
+def replay_timer():
+    """Time every SegmentedCatalog.append / delete made inside (the WAL
+    tail's replay during a recovery): yields [seconds]."""
+    from repro_torch.core.segments import SegmentedCatalog
+    walls, saved = [], {}
+    for name in ("append", "delete"):
+        orig = saved[name] = getattr(SegmentedCatalog, name)
+
+        def timed(self, arg, _orig=orig):
+            t = time.perf_counter()
+            try:
+                return _orig(self, arg)
+            finally:
+                walls.append(time.perf_counter() - t)
+        setattr(SegmentedCatalog, name, timed)
+    try:
+        yield walls
+    finally:
+        for name, orig in saved.items():
+            setattr(SegmentedCatalog, name, orig)
+
+
+def memory_appends(device, x, reqs_base) -> dict:
+    """The memory-only live engine's appends of live_split's passes (what
+    phase_live reports), for ``--only durable``: each pass's record and
+    the first batch after it."""
+    from repro_torch.core import SearchEngine
+    base, passes = live_split(len(x))
+    live = SearchEngine(x[:base], device=device, live=True)
+    first_query(live, reqs_base)
+    appends, outs_after = [], []
+    for i, (r0, r1) in enumerate(passes, 1):
+        rec, outs = append_pass(live, x[r0:r1], reqs_base)
+        appends.append({"pass": i, **rec})
+        outs_after.append(outs)
+    return {"appends": appends, "outs_after": outs_after}
+
+
+def small_catalog():
+    """The SIGKILL child's and the sync modes' catalog: MID_N x FULL_D
+    clustered rows (seed 5) and a batch of 8 over the base's rows."""
+    x, assign = clustered(MID_N, FULL_D, seed=5)
+    base, _ = live_split(MID_N)
+    return x, base_requests(make_requests(assign, 8, 100, seed=6), base)
+
+
+def child_round(x, base: int, i: int):
+    """Round i of the SIGKILL child: DURABLE_ROUND_ROWS new rows (base
+    rows drawn with replacement plus the clusters' noise) and one base id
+    to delete, from seed 100 + i."""
+    rng = np.random.default_rng(100 + i)
+    rows = x[rng.integers(0, base, DURABLE_ROUND_ROWS)] + rng.standard_normal(
+        (DURABLE_ROUND_ROWS, x.shape[1]), dtype=np.float32) * np.float32(0.3)
+    return rows.astype(np.float32), [int(rng.integers(0, base))]
+
+
+def durable_child(data_dir: str, device: str) -> None:
+    """The SIGKILL target, run in a child process: a durable engine on
+    ``device`` (the card) over the small catalog's base, then rounds of
+    (append, delete, query batch) until killed. Prints READY, then ROUND
+    i."""
+    from repro_torch.core import SearchEngine
+    x, reqs = small_catalog()
+    base, _ = live_split(MID_N)
+    eng = SearchEngine(x[:base], device=device, live=True,
+                       data_dir=data_dir, wal_sync=DURABLE_SYNC)
+    print("READY", flush=True)
+    i = 0
+    while True:
+        rows, dead = child_round(x, base, i)
+        eng.append(rows)
+        eng.delete(dead)
+        for o in eng.query_batch(reqs):
+            if isinstance(o, Exception):
+                raise o
+        i += 1
+        print("ROUND", i, flush=True)
+
+
+def sigkill_recovery(device) -> dict:
+    """A child process ingests into a durable engine on the card and is
+    SIGKILLed mid-loop; the card recovers a consistent prefix (clean, or
+    typed-torn with salvage), whose batch is bitwise (ids, scores, integer
+    stats, cold against cold) a CPU engine rebuilt from that prefix."""
+    import shutil
+    import signal
+    import threading
+    from repro_torch.core import SearchEngine
+    d = DURABLE_DIR.parent / "durable_sigkill"
+    shutil.rmtree(d, ignore_errors=True)
+    err_path = DURABLE_DIR.parent / "durable_child.err"
+    code = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke; "
+            "chip_smoke.durable_child(sys.argv[1], sys.argv[2])")
+    t0 = time.perf_counter()
+    with open(err_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, str(d), str(device), str(ROOT)],
+            stdout=subprocess.PIPE, stderr=err, cwd=ROOT)
+    watchdog = threading.Timer(DURABLE_CHILD_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    rounds_seen = 0
+    try:
+        while rounds_seen < DURABLE_CHILD_ROUNDS:
+            line = proc.stdout.readline()
+            if not line:
+                raise AssertionError("the durable child died: " + err_path
+                                     .read_text(errors="replace")[-2000:])
+            if line.startswith(b"ROUND"):
+                rounds_seen = int(line.split()[1])
+        time.sleep(DURABLE_GRACE_S)
+    finally:
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+        watchdog.cancel()
+        proc.stdout.close()
+    child_s = time.perf_counter() - t0
+    if proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the child exited {proc.returncode}, not by "
+                             f"SIGKILL")
+    t0 = time.perf_counter()
+    rec = SearchEngine(None, live=True, data_dir=d, device=device)
+    open_s = time.perf_counter() - t0
+    rep = rec.recovery
+    if not (rep.clean or (rep.torn_tail and rep.quarantined)):
+        raise AssertionError(f"SIGKILL recovery: {rep.errors}")
+    x, reqs = small_catalog()
+    base, _ = live_split(MID_N)
+    k, rem = divmod(rec.n - base, DURABLE_ROUND_ROWS)
+    if rem or k < 0 or rep.replayed_appends != k or \
+            rep.replayed_deletes > k or \
+            rep.last_lsn != k + rep.replayed_deletes:
+        raise AssertionError(f"SIGKILL recovery is not a prefix: {rec.n} "
+                             f"rows, {rep}")
+    # the same prefix rebuilt on the CPU: the script's rounds up to the
+    # recovered LSN (a delete of a dead row takes none)
+    cpu = SearchEngine(x[:base], device="cpu", live=True)
+    target, i = rec._catalog._lsn, 0
+    while cpu._catalog._lsn < target:
+        rows, dead = child_round(x, base, i)
+        cpu.append(rows)
+        if cpu._catalog._lsn < target:
+            cpu.delete(dead)
+        i += 1
+    sg, sc = rec._catalog.snapshot(), cpu._catalog.snapshot()
+    if not (sg.n == sc.n and sg.live_rows == sc.live_rows
+            and np.array_equal(sg.valid_host, sc.valid_host)
+            and np.array_equal(sg.x, sc.x)):
+        raise AssertionError("SIGKILL recovery != the rebuilt prefix")
+    t0 = time.perf_counter()
+    same_results(rec.query_batch(reqs), cpu.query_batch(reqs))
+    batch_s = time.perf_counter() - t0
+    rec.close()
+    err_path.unlink(missing_ok=True)
+    out = {"rows": MID_N, "base_rows": base, "child_rounds_seen": rounds_seen,
+           "rounds_recovered": k, "recovered_rows": int(rec.n),
+           "clean": rep.clean, "torn_tail": rep.torn_tail,
+           "quarantined": rep.quarantined,
+           "replayed_appends": rep.replayed_appends,
+           "replayed_deletes": rep.replayed_deletes,
+           "last_lsn": rep.last_lsn, "child_s": child_s,
+           "open_s": open_s, "gpu_and_cpu_batch_s": batch_s,
+           "bitwise_equal_cpu_rebuild": True}
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def sync_modes(device) -> dict:
+    """The three WAL sync modes at MID_N rows: the genesis checkpoint,
+    SYNC_APPENDS appends of live_split's tail, a delete, a checkpoint and
+    close, each mode beside the memory-only catalog (timed first and last)
+    in one process; each mode's median append over the mean of the two
+    memory-only medians (the reference's benchmarks/recovery_time.py
+    prices the median append)."""
+    import shutil
+    import torch
+    from repro_torch.core import SearchEngine
+    x, _ = clustered(MID_N, FULL_D, seed=5)
+    base, _ = live_split(MID_N)
+    chunks = np.array_split(np.arange(base, MID_N), SYNC_APPENDS)
+    runs = []
+    for mode in (None,) + SYNC_MODES + (None,):
+        d = DURABLE_DIR.parent / f"durable_sync_{mode}"
+        shutil.rmtree(d, ignore_errors=True)
+        kw = {} if mode is None else {"data_dir": d, "wal_sync": mode}
+        with recorded_checkpoints() as ckpts:
+            t0 = time.perf_counter()
+            e = SearchEngine(x[:base], device=device, live=True, **kw)
+            build_s = time.perf_counter() - t0
+        walls = []
+        for c in chunks:
+            t0 = time.perf_counter()
+            e.append(x[c])
+            walls.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        e.delete(np.arange(0, base, 97))
+        delete_s = time.perf_counter() - t0
+        run = {"mode": mode or "memory", "build_s": build_s,
+               "append_s": walls, "append_s_median": float(np.median(walls)),
+               "delete_s": delete_s}
+        if mode is not None:
+            run["genesis_checkpoint_s"] = ckpts[0]["checkpoint_s"]
+            run["checkpoint_s"] = e.checkpoint()["checkpoint_s"]
+            t0 = time.perf_counter()
+            e.close()
+            run["close_s"] = time.perf_counter() - t0
+            run["durable"] = e.index_stats()["durable"]
+            shutil.rmtree(d, ignore_errors=True)
+        runs.append(run)
+        del e
+        torch.cuda.synchronize()
+    mem = (runs[0]["append_s_median"] + runs[-1]["append_s_median"]) / 2
+    return {"rows": MID_N, "base_rows": base, "appends": SYNC_APPENDS,
+            "append_rows": int(len(chunks[0])), "runs": runs,
+            "append_ratio_to_memory": {r["mode"]: r["append_s_median"] / mem
+                                       for r in runs[1:-1]}}
+
+
+def phase_durable(device, eng, reqs, memory, k: int = 100) -> dict:
+    """The durable live catalog at full width: full_size's rows, the
+    first 75 % as the base of a ``live=True, data_dir=...`` engine on the
+    card (``wal_sync="batch"``, the genesis checkpoint timed) with a
+    wal_commit crash armed; pass 1 appended, pass 2 crashing between its
+    durable WAL record and the snapshot swap. Recovery replays both
+    appends, bitwise (ids, scores) the memory-only live engine after two
+    appends (``memory``, from phase_live or memory_appends). Then pass 3,
+    bitwise the static engine ``eng``; a checkpoint(); a background
+    compaction with batches served meanwhile (its checkpoint written on
+    the merge thread); the live phase's deletes; close(). Recovery again
+    (the deletes replay from the WAL): its open() wall beside the static
+    build, the first batch's mirrors and wall, the zone_candidates /
+    box_scan_seg counters moving during it, then a warm batch bitwise
+    (ids, scores, integer stats) the engine's before close(), and dtree /
+    rforest / knn bitwise. Then the SIGKILL child and the sync modes at
+    MID_N rows. Returns the recovered batch's launch counts."""
+    import shutil
+    import threading
+    import torch
+    from repro_torch.core import SearchEngine
+    from repro_torch.core.errors import InjectedCrash
+    from repro_torch.kernels import box_scan, zone_prune
+    from repro_torch.serve import FaultInjector, FaultSpec
+    t_phase = time.perf_counter()
+    x = eng.x
+    n, d = x.shape
+    base, passes = live_split(n)
+    reqs_base = base_requests(reqs, base)
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    DURABLE_DIR.mkdir(parents=True)
+    emit({"phase": "durable_disk", "dir": str(DURABLE_DIR.relative_to(ROOT)),
+          "free_bytes": shutil.disk_usage(DURABLE_DIR).free})
+    disk = {}
+    # 1. genesis, with the crash armed
+    inj = FaultInjector(specs=[FaultSpec("wal_commit", "crash",
+                                         at_calls=(DURABLE_CRASH_CALL,))])
+    with recorded_checkpoints() as ckpts:
+        t0 = time.perf_counter()
+        dur = SearchEngine(x[:base], device=device, live=True,
+                           data_dir=DURABLE_DIR, wal_sync=DURABLE_SYNC,
+                           faults=inj)
+        build_s = time.perf_counter() - t0
+    genesis_s = ckpts[0]["checkpoint_s"]
+    disk["genesis"] = dir_bytes(DURABLE_DIR)
+    first_query(dur, reqs_base)
+    # 2. pass 1; pass 2 crashes after its record is durable
+    rec1, _ = append_pass(dur, x[slice(*passes[0])], reqs_base)
+    t0 = time.perf_counter()
+    try:
+        dur.append(x[slice(*passes[1])])
+    except InjectedCrash:
+        crash_s = time.perf_counter() - t0
+    else:
+        raise AssertionError("the wal_commit crash did not fire")
+    if dur._catalog.snapshot().n != passes[0][1]:
+        raise AssertionError("the crashed append swapped its snapshot in")
+    disk["after_crash"] = dir_bytes(DURABLE_DIR)
+    del dur
+    # 3. recovery: the WAL tail replays both appends
+    with replay_timer() as replay1:
+        t0 = time.perf_counter()
+        live = SearchEngine(None, live=True, data_dir=DURABLE_DIR,
+                            device=device, wal_sync=DURABLE_SYNC)
+        open1_s = time.perf_counter() - t0
+    rep1 = live.recovery
+    if not rep1.clean or rep1.replayed_appends != 2 or \
+            live.n != passes[1][1]:
+        raise AssertionError(f"crash recovery: {live.n} rows, {rep1}")
+    mirror1_s, q1_s, outs = first_query(live, reqs_base)
+    same_ranked(outs, memory["outs_after"][1],
+                "recovered after the crash != the live engine after two "
+                "appends")
+    # 4. pass 3 on the recovered engine; bitwise the static engine
+    rec3, _ = append_pass(live, x[slice(*passes[2])], reqs_base)
+    outs_a, _, _ = timed_batch(live, reqs)
+    same_ranked(outs_a, eng.query_batch(reqs),
+                "recovered + pass 3 != static")
+    disk["after_appends"] = dir_bytes(DURABLE_DIR)
+    # 5. a checkpoint of the four segments
+    ck = live.checkpoint()
+    disk["checkpoint"] = dir_bytes(DURABLE_DIR)
+    # 6. a background compaction, batches served meanwhile; its checkpoint
+    # is written on the merge thread (file I/O only)
+    cat = live._catalog
+    during, peak_disk = [], disk["checkpoint"]
+    with recorded_checkpoints() as ckpts, kernel_threads() as calls:
+        main_thread = threading.get_ident()
+        epoch0 = cat.epoch
+        t0 = time.perf_counter()
+        th = live.compact(background=True)
+        while th.is_alive():
+            epoch = cat.epoch
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            o = live.query_batch(reqs)
+            torch.cuda.synchronize()
+            during.append((epoch, time.perf_counter() - tb, o))
+            peak_disk = max(peak_disk, dir_bytes(DURABLE_DIR))
+            time.sleep(LIVE_COMPACT_PACE_S)
+        th.join(timeout=600)
+        compact_wall_s = time.perf_counter() - t0
+    if th.is_alive():
+        raise AssertionError("the compaction did not finish")
+    if {t for _, t in calls} - {main_thread}:
+        raise AssertionError("the merge thread launched a kernel")
+    if len(ckpts) != 1 or ckpts[0]["thread"] == main_thread:
+        raise AssertionError("the compaction's checkpoint was not written "
+                             "once on the merge thread")
+    for _, _, o in during:
+        same_ranked(o, outs_a, "a batch during the durable compaction")
+    disk["compaction"] = dir_bytes(DURABLE_DIR)
+    # 7. the live phase's deletes, into the WAL only
+    dead = live_deletes(n, reqs, outs_a)
+    t0 = time.perf_counter()
+    n_dead = live.delete(dead)
+    delete_s = time.perf_counter() - t0
+    # 8. the engine before close(): a warm batch, the scan / knn models
+    live.query_batch(reqs)
+    before = live.query_batch(reqs)
+    pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
+    kw = dict(max_results=k, n_models=25, k_neighbors=1000)
+    models_before = [live.query(pos, neg, model=m, **kw)
+                     for m in ("dtree", "rforest", "knn")]
+    ledger = cat.durability_snapshot()
+    t0 = time.perf_counter()
+    live.close()
+    close_s = time.perf_counter() - t0
+    disk["closed"] = dir_bytes(DURABLE_DIR)
+    del live, cat
+    # 9. recovery onto the card, the deletes replayed from the WAL
+    torch.cuda.synchronize()
+    with replay_timer() as replay:
+        t0 = time.perf_counter()
+        rec = SearchEngine(None, live=True, data_dir=DURABLE_DIR,
+                           device=device)
+        open_s = time.perf_counter() - t0
+    rep = rec.recovery
+    if not rep.clean or rep.replayed_deletes != 1 or rep.replayed_appends:
+        raise AssertionError(f"recovery after close(): {rep}")
+    if rec.index_stats()["device_bytes"]["total"]:
+        raise AssertionError("recovery uploaded mirrors before a query")
+    torch.cuda.synchronize()
+    zone_prune.launches = zone_prune.candidates_launches = 0
+    box_scan.seg_launches = 0
+    mirror_s, q_s, first = first_query(rec, reqs)
+    torch.cuda.synchronize()
+    launches = {"zone_candidates": zone_prune.candidates_launches,
+                "box_scan_seg": box_scan.seg_launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the recovered batch launched {launches}")
+    same_ranked(first, before, "recovered cold batch != before close()")
+    warm, _, peak = timed_batch(rec, reqs)
+    same_results(warm, before)
+    walls = paired_walls(rec, eng, reqs)
+    same_all([rec.query(pos, neg, model=m, **kw)
+              for m in ("dtree", "rforest", "knn")], models_before)
+    for o in warm:
+        if np.isin(o.ids, dead).any():
+            raise AssertionError("a tombstoned id came back")
+    rec.close()
+    del rec
+    shutil.rmtree(DURABLE_DIR, ignore_errors=True)
+    mem = {r["pass"]: r for r in memory["appends"]}
+    append_rows = [
+        {"pass": 1, "durable": rec1, "memory": mem[1],
+         "ratio": rec1["append_s"] / mem[1]["append_s"]},
+        {"pass": 2, "durable": {"crashed_s": crash_s,
+                                "replayed_by_recovery": True},
+         "memory": mem[2]},
+        {"pass": 3, "durable": rec3, "memory": mem[3],
+         "ratio": rec3["append_s"] / mem[3]["append_s"]}]
+    out = {"phase": "durable", "rows": n, "dims": d, "base_rows": base,
+           "sync": DURABLE_SYNC, "build_s": build_s,
+           "genesis_checkpoint_s": genesis_s,
+           "static_build_s": eng.build_time_s, "appends": append_rows,
+           "crash": {"site": "wal_commit", "call": DURABLE_CRASH_CALL,
+                     "open_s": open1_s, "report": _report_json(rep1),
+                     "replay_s": sum(replay1),
+                     "replay_rows_per_s": rep1.replayed_rows
+                     / max(sum(replay1), 1e-9),
+                     "first_query_mirrors_s": mirror1_s,
+                     "first_query_batch_s": q1_s,
+                     "bitwise_equal_live_after_2_appends": True},
+           "checkpoint": ck,
+           "compaction": {
+               "wall_s": compact_wall_s, "batches_during": len(during),
+               "on_old_snapshot": sum(e == epoch0 for e, _, _ in during),
+               "batch_walls_before_swap_s": [w for e, w, _ in during
+                                             if e == epoch0],
+               "batch_walls_after_swap_s": [w for e, w, _ in during
+                                            if e != epoch0],
+               "checkpoint_s": ckpts[0]["checkpoint_s"],
+               "checkpoint_on_merge_thread": True,
+               "merge_thread_kernel_calls": 0,
+               "bitwise_equal_before": True},
+           "deletes": {"rows": n_dead, "delete_s": delete_s},
+           "ledger_before_close": ledger, "close_s": close_s,
+           "disk_bytes": disk, "disk_bytes_peak_sampled": peak_disk,
+           "recovery": {"open_s": open_s, "report": _report_json(rep),
+                        "replay_s": sum(replay),
+                        "replay_deleted_rows_per_s":
+                            n_dead / max(sum(replay), 1e-9),
+                        "open_over_static_build": open_s / eng.build_time_s,
+                        "first_query_mirrors_s": mirror_s,
+                        "first_query_batch_s": q_s,
+                        "warm_per_query_wall_s":
+                            walls["live_per_query_wall_s"],
+                        "static_per_query_wall_s":
+                            walls["static_per_query_wall_s"],
+                        "wall_by": f"median of {LIVE_WALL_ROUNDS} warm "
+                                   f"batches, recovered and static in "
+                                   f"turns",
+                        "max_memory_allocated": peak,
+                        "launches": launches,
+                        "bitwise_equal_before_close": True,
+                        "models_bitwise": ["dtree", "rforest", "knn"]}}
+    out["sigkill"] = sigkill_recovery(device)
+    out["sync_modes"] = sync_modes(device)
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
+def _report_json(rep) -> dict:
+    """A RecoveryReport as plain JSON."""
+    import dataclasses
+    return dataclasses.asdict(rep)
+
+
+def phase_durable_only(device) -> None:
+    """``--only durable``: full_size's static engine (one warm batch), the
+    memory-only live engine's appends (what phase_live reports), then the
+    durable phase."""
+    eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    eng.query_batch(reqs)
+    base, _ = live_split(FULL_N)
+    memory = memory_appends(device, eng.x, base_requests(reqs, base))
+    launches = phase_durable(device, eng, reqs, memory)
+    emit({"phase": "durable_kernels", "launches": launches})
 
 
 MAIN_WALL_BATCHES = 21
@@ -2278,7 +2815,7 @@ def phase_live_only(device) -> None:
     live phase against it, and the live GPU-vs-CPU schedule."""
     eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
     eng.query_batch(reqs)
-    launches, probe = phase_live(device, eng, reqs)
+    launches, probe, _ = phase_live(device, eng, reqs)
     emit({"phase": "live_kernels", "launches": launches, "probe": probe})
     emit({"phase": "gpu_vs_cpu_live", **live_gpu_vs_cpu(device)})
 
@@ -2691,19 +3228,21 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "l2dist": phase_l2dist,
         "fit": phase_fit,
         "live": phase_live_only,
+        "durable": phase_durable_only,
         "main_wall": phase_main_wall}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
-    box_scan, zone_prune, l2dist, fit, live and main_wall, the kernels
-    are built and only those phases run: the FLASH_CASES rows, the
-    400x400 extraction, the box scans at the main path's inputs,
+    box_scan, zone_prune, l2dist, fit, live, durable and main_wall, the
+    kernels are built and only those phases run: the FLASH_CASES rows,
+    the 400x400 extraction, the box scans at the main path's inputs,
     zone_candidates on synthetic zone maps, l2dist at the knn path's
     inputs, the batched device fit at full size, the live catalog at full
-    size (and its GPU-vs-CPU schedule), the main path's warm wall; for
-    comparing two trees on one card."""
+    size (and its GPU-vs-CPU schedule), the durable live catalog at full
+    size (about 3.5 GB on disk under build/ at its peak), the main path's
+    warm wall; for comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -2748,7 +3287,8 @@ def main(argv) -> int:
     launches, probe, ctx, main_fit = phase_full(dev)
     phase_fit(dev, ctx[0], ctx[1], main_fit)
     scan_launches, scan_in, knn_in, qi_in = phase_full_scan_knn(*ctx)
-    live_launches, live_probe = phase_live(dev, ctx[0], ctx[1])
+    live_launches, live_probe, memory = phase_live(dev, ctx[0], ctx[1])
+    durable_launches = phase_durable(dev, ctx[0], ctx[1], memory)
     feats, labels, flash_launches, flash_in = phase_extraction(dev)
     phase_search_vit(dev, feats, labels)
     ext400 = phase_extraction_400(dev)
@@ -2775,9 +3315,13 @@ def main(argv) -> int:
     by_path = {"zone_candidates": {"fused_batch":
                                        launches["zone_candidates"],
                                    "live_batch":
-                                       live_launches["zone_candidates"]},
+                                       live_launches["zone_candidates"],
+                                   "durable_recovered_batch":
+                                       durable_launches["zone_candidates"]},
                "box_scan_seg": {"fused_batch": launches["box_scan_seg"],
-                                "live_batch": live_launches["box_scan_seg"]},
+                                "live_batch": live_launches["box_scan_seg"],
+                                "durable_recovered_batch":
+                                    durable_launches["box_scan_seg"]},
                "zone_prune": {"host_oracle_batch": launches["zone_prune"],
                               "live_host_oracle_batch":
                                   live_launches["zone_prune"]},

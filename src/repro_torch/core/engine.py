@@ -29,7 +29,10 @@ and only [Q, k] ids and scores cross to the host.
 A live engine runs the same stages over the segmented catalog's virtual
 block space (every segment's blocks concatenated), with tombstoned rows
 masked at tile labelling (or accumulation, dense); each query or batch
-window binds one catalog snapshot and keeps it.
+window binds one catalog snapshot and keeps it. With ``data_dir`` the
+live catalog is durable (core/persist.py): a directory that holds one is
+recovered — disk wins over the constructor's features and geometry — and
+served through the same probe.
 
 Ids, scores and the integer stats are bitwise those of the reference
 engine in the same configuration. What this port does not implement yet
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import knn as knn_mod
+from repro_torch.core import persist as persistmod
 from repro_torch.core.boxes import BoxSet, concat_box_arrays
 from repro_torch.core.capacity import HintTable
 from repro_torch.core.capacity import hybrid_bucket as _cap_hybrid
@@ -54,7 +58,7 @@ from repro_torch.core.capacity import quantum_bucket as _cap_quantum
 from repro_torch.core.dbranch import (DBENS_SUBSET_CANDIDATES, dbens_draws,
                                       fit_dbens, fit_dbranch_best_subset,
                                       fit_select, split_tables)
-from repro_torch.core.errors import check_deadline, unported
+from repro_torch.core.errors import RecoveryError, check_deadline, unported
 from repro_torch.core.index import (build_indexes, full_scan, fused_stats,
                                     pad_boxes, query_index, sparse_probe,
                                     to_device_f32)
@@ -147,9 +151,15 @@ class SearchEngine:
     default, trains on the engine's device; False, the numpy trainers),
     ``fit_max_nodes`` (the device fit's worklist floor), ``score_mode``
     ("sparse" survivor tiles or the "dense" oracle), ``live`` (a mutable
-    catalog: ``append``, ``delete``, ``compact``), and the reference's
-    ``mirror``, ``n_shards``, ``data_dir`` and ``faults``, which take
-    only the values of the single-device, non-durable path.
+    catalog: ``append``, ``delete``, ``compact``), ``data_dir`` (a
+    durable live catalog: ``checkpoint``, ``close``; a directory that
+    already holds one is recovered, and ``features`` may then be None),
+    ``wal_sync`` ("always", "batch" or "none"), ``faults`` (a fault
+    injector, serve/faults.py, whose seams the engine and the catalog
+    fire), and the reference's ``mirror`` and ``n_shards``, which take
+    only the values of the single-device path. ``recovery`` holds the
+    report of a recovery (None otherwise); a damaged directory serves
+    its salvaged catalog.
 
     The scan models read the whole [N, D] feature matrix. The reference
     uploads it on every scan; this engine keeps one device copy, uploaded
@@ -157,21 +167,35 @@ class SearchEngine:
     (``feature_mirror_bytes``).
     """
 
-    def __init__(self, features: np.ndarray, *, n_subsets: int = 32,
-                 subset_dim: int = 6, block: int = 1024, seed: int = 0,
+    def __init__(self, features: Optional[np.ndarray] = None, *,
+                 n_subsets: int = 32, subset_dim: int = 6, block: int = 1024,
+                 seed: int = 0, data_dir=None, wal_sync: str = "batch",
                  **options):
-        self._configure(features, **options)
+        recovered = self._configure(features, data_dir=data_dir,
+                                    wal_sync=wal_sync, **options)
         t0 = time.perf_counter()
-        self.subsets = make_subsets(self.d, n_subsets, subset_dim, seed=seed)
-        if self.live:
-            self._catalog = SegmentedCatalog(self.x, self.subsets,
-                                             block=block, device=self.device)
-            self.indexes = list(self._catalog.snapshot().indexes)
+        if recovered is not None:
+            # disk wins: subsets and geometry come from the manifest, not
+            # the constructor's arguments
+            self.subsets = np.asarray(recovered.subsets)
+            self._catalog = recovered
+            self.indexes = list(recovered.snapshot().indexes)
         else:
-            self.indexes = build_indexes(self.x, self.subsets, block=block,
-                                         device=self.device)
+            self.subsets = make_subsets(self.d, n_subsets, subset_dim,
+                                        seed=seed)
+            if self.live:
+                self._catalog = SegmentedCatalog(
+                    self.x, self.subsets, block=block, faults=self.faults,
+                    persist_dir=data_dir, sync=wal_sync, device=self.device)
+                self.indexes = list(self._catalog.snapshot().indexes)
+            else:
+                self.indexes = build_indexes(self.x, self.subsets,
+                                             block=block, device=self.device)
         self.build_time_s = time.perf_counter() - t0
-        self.frange = (self.x.min(0), self.x.max(0))
+        # a recovered catalog's physical rows include tombstones: its live
+        # range comes from the snapshot, never a rescan
+        self.frange = (recovered.snapshot().frange if recovered is not None
+                       else (self.x.min(0), self.x.max(0)))
 
     def _configure(self, features, *, device=None,
                    capacity_frac: float = 0.25,
@@ -180,9 +204,11 @@ class SearchEngine:
                    use_fused: bool = True, score_mode: str = "sparse",
                    mirror: str = "f32", n_shards: int = 1,
                    live: bool = False, data_dir=None,
-                   faults=None) -> None:
+                   wal_sync: str = "batch",
+                   faults=None) -> Optional[SegmentedCatalog]:
         """The options every constructor takes; each one the port does not
-        implement yet raises NotImplementedError naming its ROADMAP item."""
+        implement yet raises NotImplementedError naming its ROADMAP item.
+        Returns the catalog recovered from ``data_dir``, or None."""
         self.device = resolve_device(device)
         if score_mode not in ("sparse", "dense"):
             raise ValueError(f"score_mode must be 'sparse' or 'dense', "
@@ -195,16 +221,43 @@ class SearchEngine:
         if int(n_shards) > 1:
             raise unported("n_shards > 1 (sharded, and live sharded, "
                             "catalogs)", "A11")
+        # fault-injection seams: an object with a check(site) method, or
+        # None; the engine never imports the injector
+        self.faults = faults
+        self.recovery = None
+        recovered = None
         if data_dir is not None:
-            raise unported("data_dir (durable live catalogs)", "A8")
-        if faults is not None:
-            raise unported("faults (fault-injection seams)", "A9")
+            if not live:
+                raise ValueError("data_dir requires live=True")
+            # one writing process a directory: open() and the genesis
+            # Persistence both take its lock
+            if persistmod.has_state(data_dir):
+                try:
+                    recovered = SegmentedCatalog.open(
+                        data_dir, faults=faults, sync=wal_sync,
+                        device=self.device)
+                except RecoveryError as e:
+                    if e.catalog is None:
+                        raise
+                    recovered = e.catalog
+                self.recovery = recovered.recovery
+                if recovered.n_shards > 1:
+                    recovered.close()
+                    raise unported("n_shards > 1 (a recovered sharded "
+                                   "live catalog)", "A11")
         self.n_shards = 1
         self.mirror = mirror
         self.live = bool(live)
         self._catalog: Optional[SegmentedCatalog] = None
         self._sync_lock = threading.Lock()
-        self.x = np.ascontiguousarray(np.asarray(features, np.float32))
+        if recovered is not None:
+            self.x = np.asarray(recovered.snapshot().x)
+        elif features is None:
+            raise ValueError(
+                "features is required unless data_dir holds a "
+                "recoverable durable catalog")
+        else:
+            self.x = np.ascontiguousarray(np.asarray(features, np.float32))
         self.n, self.d = self.x.shape
         self.capacity_frac = capacity_frac
         self.max_results = max_results
@@ -224,6 +277,7 @@ class SearchEngine:
         self._cap_hints = HintTable()
         # high-water mark of device score-buffer bytes across queries
         self._score_bytes_peak = 0
+        return recovered
 
     @classmethod
     def from_arrays(cls, x: np.ndarray, subsets: np.ndarray,
@@ -251,7 +305,12 @@ class SearchEngine:
         """A live engine over an existing catalog (for instance one that
         core/convert.catalog_from_arrays carried over), on the catalog's
         device; it adopts the catalog's subsets and geometry, as the
-        reference's engine adopts a recovered one."""
+        reference's engine adopts a recovered one. A durable catalog
+        (``SegmentedCatalog(persist_dir=...)`` or ``SegmentedCatalog.open``)
+        keeps its own persistence, so ``data_dir`` is refused here."""
+        if options.get("data_dir") is not None:
+            raise ValueError("from_catalog serves the catalog it is given; "
+                             "its persistence is the catalog's own")
         dev = options.pop("device", catalog.device)
         if resolve_device(dev) != catalog.device:
             raise ValueError(f"the catalog's mirrors live on "
@@ -277,10 +336,18 @@ class SearchEngine:
                            geom=s.geom, live=True, valid=s.valid_device(),
                            valid_host=s.valid_host, live_rows=s.live_rows)
 
+    def _fault(self, site: str) -> None:
+        """Fault-injection checkpoint: a no-op unless an injector was
+        given at construction."""
+        if self.faults is not None:
+            self.faults.check(site)
+
     def _round_checkpoint(self, deadline_s) -> None:
-        """Once per device launch round: the between-rounds deadline
-        check — a request whose budget is gone stops HERE instead of
-        burning another round of device time."""
+        """Once per device launch round: the fused-query fault seam, then
+        the between-rounds deadline check — a request whose budget is
+        gone stops HERE instead of burning another round of device
+        time."""
+        self._fault("fused_query")
         check_deadline(deadline_s, "device query round")
 
     def invalidate_capacity_hints(self) -> int:
@@ -371,11 +438,16 @@ class SearchEngine:
         return st
 
     def checkpoint(self) -> Dict:
-        self._require_live()
-        raise unported("checkpoint (durable live catalogs)", "A8")
+        """Durably checkpoint the live catalog (segment column files +
+        manifest); requires ``data_dir``. Shortens the WAL replay of a
+        later recovery."""
+        return self._require_live().checkpoint()
 
     def close(self) -> None:
-        """Nothing to flush: no catalog of this engine is durable."""
+        """Flush and fsync the durable catalog's WAL and release its
+        directory; a no-op for static or non-durable engines."""
+        if self._catalog is not None:
+            self._catalog.close()
 
     def index_stats(self) -> Dict:
         st = {
@@ -843,6 +915,7 @@ class SearchEngine:
                 launched.append((sid, merged, owner, cap, counts, cand,
                                  n_hit.reshape(1)))
             # ONE batched sync covers the whole round's overflow checks
+            self._fault("device_sync")
             stvecs = torch.stack([l[6] for l in launched]).cpu().numpy()
             agg["n_host_syncs"] += 1
             agg["host_bytes_transferred"] += int(stvecs.nbytes)
@@ -932,6 +1005,7 @@ class SearchEngine:
                                          onehot, capacity=cap)
                 launched.append((sid, merged, owner, cap) + probe)
             # ONE batched sync: a fixed-width int vector per subset
+            self._fault("device_sync")
             stvecs = torch.stack([l[7] for l in launched]).cpu().numpy()
             agg["n_host_syncs"] += 1
             agg["host_bytes_transferred"] += int(stvecs.nbytes)

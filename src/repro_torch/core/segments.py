@@ -1,6 +1,6 @@
-"""Live catalog ingestion — the non-durable, single-shard part of
-``repro.core.segments``: a segmented, LSM-style index with an
-append / delete / compact lifecycle.
+"""Live catalog ingestion — ``repro.core.segments`` on the port: a
+segmented, LSM-style index with an append / delete / compact lifecycle,
+durable when given a ``persist_dir``.
 
   append   Morton-orders ONLY the new rows into a sealed delta segment
            (per feature subset). Global ids are append-ordered and
@@ -34,21 +34,37 @@ The device mirrors are lazy, built on the query path's device: an append
 uploads only the new segment's mirrors (pinned, ``non_blocking``: no host
 sync), a delete uploads only the mask, and the concatenation is a
 device-to-device copy. Nothing here launches on the card outside a
-query, so a background compaction does host work only. Durability
-(``persist_dir``, ``checkpoint``, ``open``) is ROADMAP A8 and raises.
+query, so a background compaction does host work only (its durable
+checkpoint is file I/O).
+
+Durability (DESIGN.md §15): with ``persist_dir`` set, every effective
+mutation is write-ahead-logged (checksummed, fsync policy per ``sync``)
+BEFORE the snapshot swap, ``checkpoint()`` commits the sealed segment
+set through a two-phase manifest flip, and ``SegmentedCatalog.open()``
+recovers crash-consistently: the WAL tail replays through the real
+append / delete paths, so the recovered catalog keeps the bitwise
+contract. The machinery is ``core/persist.py``, whose file format is the
+reference's, so a directory written by either package recovers in the
+other. The fault seams (``faults``: ``append``, ``delete``, ``compact``,
+``wal_commit``, and the durability layer's) fire before any state
+changes, as in the reference.
 """
 from __future__ import annotations
 
+import copy
 import functools
+import os
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.errors import unported
+from repro_torch.core import persist as persistmod
+from repro_torch.core.errors import PersistenceError, RecoveryError
 from repro_torch.core.index import ZoneMapIndex, build_indexes
 from repro_torch.device import resolve_device, to_device_async
 from repro_torch.kernels import ops as kops
@@ -295,6 +311,18 @@ def segmented_fused_stats(segx: SegmentedZoneMapIndex, n_hit: int,
     }
 
 
+def _rows_from_perm(feats: np.ndarray, dims: np.ndarray,
+                    perm: np.ndarray) -> np.ndarray:
+    """One subset's Morton-ordered rows rebuilt from a segment's features
+    and the subset's permutation, bitwise build_index's ``sub[perm]``
+    with +inf on the padding slots (perm -1)."""
+    real = perm >= 0
+    rows = np.ascontiguousarray(feats[:, dims]).take(
+        np.where(real, perm, 0), axis=0)
+    rows[~real] = np.inf
+    return rows
+
+
 # ----------------------------------------------------------------------
 # the catalog: snapshots + the append/delete/compact lifecycle
 # ----------------------------------------------------------------------
@@ -345,7 +373,9 @@ class SegmentedCatalog:
     """The mutable handle: owns the current Snapshot and the mutation
     lifecycle. Mutations serialise on one lock and swap the snapshot
     reference; readers never lock. ``device`` is where the segments'
-    mirrors go (default CUDA)."""
+    mirrors go (default CUDA). ``persist_dir`` makes the catalog durable
+    (``sync``: "always", "batch" or "none", core/persist.py); ``faults``
+    is a fault injector (serve/faults.py) or None."""
 
     # spare buffer rows beyond the catalog size, as a fraction (plus a
     # floor): steady appends write into the tail without a regrow copy
@@ -354,13 +384,20 @@ class SegmentedCatalog:
 
     def __init__(self, features: np.ndarray, subsets: np.ndarray, *,
                  block: int = 1024, n_shards: int = 1, faults=None,
-                 persist_dir=None, device=None):
-        if persist_dir is not None:
-            raise unported("persist_dir (durable catalogs)", "A8")
-        if faults is not None:
-            raise unported("faults (fault-injection seams)", "A9")
+                 persist_dir=None, sync: str = "batch", device=None):
         x = np.ascontiguousarray(np.asarray(features, np.float32))
         self._init_state(subsets, block, n_shards, device, geom=0)
+        # duck-typed fault injector: the seams fire BEFORE any state
+        # change, so a fired fault leaves the catalog bitwise untouched
+        self.faults = faults
+        if persist_dir is not None:
+            if persistmod.has_state(persist_dir):
+                raise PersistenceError(
+                    f"{persist_dir} already holds a durable catalog — "
+                    "use SegmentedCatalog.open() to recover it instead "
+                    "of silently overwriting")
+            self.persist = persistmod.Persistence(persist_dir, sync=sync,
+                                                  faults=faults)
         n = x.shape[0]
         self._alloc(n, x.shape[1])
         self._xbuf[:n] = x
@@ -375,6 +412,11 @@ class SegmentedCatalog:
         frange = (x.min(0), x.max(0))
         self._make_snapshot(0, self._xbuf[:n], frange, tuple(segments),
                             self._vbuf[:n], n)
+        # genesis checkpoint: the manifest carries the config recovery
+        # needs (subsets, block, shards), so a durable catalog is
+        # reopenable from its very first mutation onward
+        if self.persist is not None:
+            self.checkpoint()
 
     def _init_state(self, subsets, block, n_shards, device, geom) -> None:
         self.subsets = np.asarray(subsets)
@@ -383,9 +425,12 @@ class SegmentedCatalog:
         self.device = resolve_device(device)
         self.faults = None
         self.persist = None
+        self.recovery = None                   # RecoveryReport after open()
         self._lock = threading.Lock()          # mutation serialisation
         self._compact_lock = threading.Lock()  # one compaction at a time
+        self._ckpt_lock = threading.Lock()     # one checkpoint at a time
         self._geom = int(geom)                 # compaction generation
+        self._lsn = 0                          # last assigned WAL lsn
 
     def _alloc(self, n: int, d: int) -> None:
         cap = n + max(n // self._HEADROOM_FRAC, self._HEADROOM_MIN)
@@ -397,8 +442,9 @@ class SegmentedCatalog:
                     epoch: int, geom: int, n_shards: int, next_shard: int,
                     device=None) -> "SegmentedCatalog":
         """A catalog over sealed segments built elsewhere (core/convert.
-        catalog_from_arrays): ``segments`` are (offset, n_rows, shard,
-        [ZoneMapIndex per subset]) in offset order."""
+        catalog_from_arrays, or recovery from disk): ``segments`` are
+        (offset, n_rows, shard, [ZoneMapIndex per subset]) in offset
+        order."""
         self = cls.__new__(cls)
         self._init_state(subsets, block, n_shards, device, geom)
         self._next_shard = int(next_shard)
@@ -459,6 +505,10 @@ class SegmentedCatalog:
         return snap
 
     # ------------------------------------------------------------------
+    def _fault(self, site: str) -> None:
+        if self.faults is not None:
+            self.faults.check(site)
+
     def snapshot(self) -> Snapshot:
         return self._snap
 
@@ -466,8 +516,35 @@ class SegmentedCatalog:
     def epoch(self) -> int:
         return self._snap.epoch
 
-    def durability_snapshot(self):
-        raise unported("durability_snapshot (durable catalogs)", "A8")
+    def durability_snapshot(self) -> Optional[dict]:
+        """Consistent durability ledger: (lsn, WAL/checkpoint stats)
+        read under the mutation lock, where appends and deletes assign
+        the LSN and write the WAL record, so the pair is never torn. None
+        for a non-durable catalog. The caller owns the copy."""
+        with self._lock:
+            if self.persist is None:
+                return None
+            return {"sync": self.persist.sync, "lsn": self._lsn,
+                    **copy.deepcopy(self.persist.stats)}
+
+    def _log(self, op: str, payload) -> None:
+        """Assign the next LSN and write its WAL record (under the
+        mutation lock) BEFORE any in-memory state changes: one record is
+        one epoch, the invariant recovery's epoch arithmetic rests on. A
+        rolled-back record releases its LSN (no gap for recovery to
+        refuse); the ``wal_commit`` seam is the crash point between the
+        durable record and the snapshot swap."""
+        self._lsn += 1
+        if self.persist is None:
+            return
+        write = (self.persist.log_append if op == "append"
+                 else self.persist.log_delete)
+        try:
+            write(self._lsn, payload)
+        except Exception:
+            self._lsn -= 1
+            raise
+        self._fault("wal_commit")
 
     def append(self, features: np.ndarray) -> np.ndarray:
         """Seal ``features`` into a new delta segment; returns the new
@@ -476,6 +553,7 @@ class SegmentedCatalog:
         xnew = np.ascontiguousarray(np.asarray(features, np.float32))
         if xnew.ndim != 2:
             raise ValueError("append expects [m, D] features")
+        self._fault("append")   # before any state change: atomic failure
         with self._lock:
             snap = self._snap
             if xnew.shape[1] != snap.x.shape[1]:
@@ -486,6 +564,8 @@ class SegmentedCatalog:
             if m == 0:
                 return np.empty(0, np.int64)
             n = snap.n
+            # durability first; the m == 0 no-op above takes no LSN
+            self._log("append", xnew)
             seg = self._build_segment(xnew, n, shard=self._next_shard)
             self._next_shard = (self._next_shard + 1) % self.n_shards
             self._reserve(n + m)
@@ -506,6 +586,7 @@ class SegmentedCatalog:
         dead (re-deletes are idempotent). Geometry and device mirrors are
         untouched — only the validity mask changes."""
         ids = np.unique(np.asarray(list(ids), np.int64))
+        self._fault("delete")   # before any state change: atomic failure
         with self._lock:
             snap = self._snap
             if len(ids) and (ids[0] < 0 or ids[-1] >= snap.n):
@@ -513,6 +594,9 @@ class SegmentedCatalog:
             newly = ids[snap.valid_host[ids]] if len(ids) else ids
             if len(newly) == 0:
                 return 0
+            # log only the effective deletions: replay re-applies exactly
+            # the live -> dead transitions, and re-deletes take no LSN
+            self._log("delete", newly)
             # a new validity buffer: older snapshots keep viewing theirs
             vb = self._vbuf.copy()
             vb[newly] = False
@@ -541,7 +625,8 @@ class SegmentedCatalog:
         merged segment replaces the segments it covered; any delta
         appended during the build survives as the new tail. Only one
         compaction runs at a time; a concurrent call returns
-        ``{"skipped": True}``."""
+        ``{"skipped": True}``. A durable catalog then checkpoints the new
+        segment set (file I/O only, on the calling thread)."""
         if not self._compact_lock.acquire(blocking=False):
             return {"skipped": True, "reason": "compaction in progress"}
         try:
@@ -551,6 +636,9 @@ class SegmentedCatalog:
                 return {"skipped": True, "reason": "single segment",
                         "epoch": snap0.epoch}
             n0 = snap0.n
+            # fault seam BEFORE the merge build: a fired fault aborts the
+            # attempt with the old snapshot serving and ``_geom`` as it was
+            self._fault("compact")
             merged = self._build_segment(snap0.x[:n0], 0, shard=0)
             with self._lock:
                 cur = self._snap
@@ -560,6 +648,14 @@ class SegmentedCatalog:
                     cur.epoch + 1, cur.x, cur.frange, (merged,) + tail,
                     cur.valid_host, cur.live_rows,
                     valid_base=cur._valid_dev)
+            if self.persist is not None:
+                # the two-phase commit: phase 1 lands the merged and tail
+                # segments' column files, phase 2 flips the manifest. A
+                # crash at either phase recovers the pre-compaction state
+                # from the previous manifest and the whole WAL tail —
+                # query-identical, results do not depend on segmentation
+                # — and phase-1 orphans are removed on reopen
+                self.checkpoint()
             return {"skipped": False, "epoch": snap.epoch,
                     "merged_segments": len(snap0.segments),
                     "merged_rows": n0, "tail_segments": len(tail),
@@ -568,17 +664,128 @@ class SegmentedCatalog:
             self._compact_lock.release()
 
     # ------------------------------------------------------------------
-    # durability is ROADMAP A8
+    # durability: checkpoint / close / open
     # ------------------------------------------------------------------
     def checkpoint(self) -> dict:
-        raise unported("checkpoint (durable catalogs)", "A8")
+        """Write the current snapshot as a durable checkpoint: every
+        sealed segment's column files (phase 1), then the manifest naming
+        that segment set, epoch and WAL horizon (phase 2, the atomic
+        commit point). It runs against a (snapshot, lsn) pair read under
+        the mutation lock, so mutations meanwhile land in the WAL past the
+        horizon and replay on recovery."""
+        if self.persist is None:
+            raise PersistenceError(
+                "catalog has no persist_dir — nothing to checkpoint to")
+        with self._ckpt_lock:
+            t0 = time.perf_counter()
+            with self._lock:
+                snap = self._snap
+                lsn = self._lsn
+                next_shard = self._next_shard
+            entries = [self.persist.write_segment(
+                snap.x[s.offset:s.offset + s.n_rows], s.indexes,
+                offset=s.offset, rows=s.n_rows, shard=s.shard,
+                block=self.block) for s in snap.segments]
+            config = {"d": int(self._xbuf.shape[1]),
+                      "block": self.block, "n_shards": self.n_shards,
+                      "subsets": np.asarray(self.subsets).tolist()}
+            mid = self.persist.commit_manifest(
+                epoch=snap.epoch, geom=snap.geom, lsn=lsn,
+                next_shard=next_shard, n_rows=snap.n,
+                live_rows=snap.live_rows, frange=snap.frange,
+                valid=snap.valid_host, config=config, segments=entries)
+            self.persist.stats["checkpoints"] += 1
+            return {"manifest_id": mid, "epoch": snap.epoch, "lsn": lsn,
+                    "segments": len(entries),
+                    "checkpoint_s": time.perf_counter() - t0}
 
     def close(self) -> None:
-        """Nothing to flush: the catalog is not durable."""
+        """Flush and fsync the WAL and release the directory: a
+        ``sync="none"`` catalog becomes durable here, the other modes
+        already were. Nothing to do for a catalog without persist_dir."""
+        if self.persist is not None:
+            self.persist.close()
 
     @classmethod
-    def open(cls, path, **kw):
-        raise unported("SegmentedCatalog.open (recovery)", "A8")
+    def open(cls, path, *, faults=None, sync: str = "batch",
+             strict: bool = True, device=None) -> "SegmentedCatalog":
+        """Crash-consistent recovery onto ``device`` (default CUDA): load
+        the newest valid manifest, rebuild its segments bitwise from the
+        column files, replay the WAL tail through the real append /
+        delete paths, then re-arm durability and the fault seams. The
+        device mirrors stay lazy: the first query uploads them.
+
+        Damage (torn or corrupt bytes) is quarantined and the salvaged
+        prefix recovered; with ``strict=True`` it raises ``RecoveryError``
+        carrying the salvaged catalog (``err.catalog``) and the report
+        (``err.report``), never folding corruption silently into
+        results."""
+        # hold the single-writer lock across recover -> replay -> re-arm
+        # (reentrant in-process: recover() and the new Persistence share
+        # this hold)
+        with persistmod.DirLock(path):
+            state = persistmod.recover(path, faults=faults)
+            cat = cls._from_recovered(path, state, sync=sync, faults=faults,
+                                      device=device)
+        if strict and not state.report.clean:
+            raise RecoveryError(
+                f"recovered {path} with damage: "
+                + "; ".join(state.report.errors),
+                report=state.report, catalog=cat)
+        return cat
+
+    @classmethod
+    def _from_recovered(cls, path, state, *, sync: str, faults=None,
+                        device=None) -> "SegmentedCatalog":
+        cfg = state.config
+        subsets = np.asarray(cfg["subsets"])
+        block = int(cfg["block"])
+        device = resolve_device(device)
+        x = np.empty((int(state.n_rows), int(cfg["d"])), np.float32)
+        segments = []
+        workers = max(1, min(len(subsets), os.cpu_count() or 1))
+        with ThreadPoolExecutor(workers) as pool:
+            for entry, feats, cols in sorted(state.segments,
+                                             key=lambda t: t[0]["offset"]):
+                o, m = int(entry["offset"]), int(entry["rows"])
+                x[o:o + m] = feats
+
+                def rebuild(k, feats=feats, cols=cols, m=m):
+                    perm, zlo, zhi = cols[k]
+                    dims = np.asarray(subsets[k])
+                    return ZoneMapIndex(
+                        dims, np.asarray(perm),
+                        _rows_from_perm(feats, dims, perm),
+                        np.asarray(zlo, np.float32),
+                        np.asarray(zhi, np.float32), block, m, k,
+                        device=device)
+                # the subsets at once, as build_indexes builds them: the
+                # gathers release the interpreter lock
+                idxs = list(pool.map(rebuild, range(len(cols))))
+                segments.append((o, m, int(entry["shard"]), idxs))
+        self = cls._from_state(
+            x, subsets, segments, state.valid,
+            (state.frange_lo, state.frange_hi), block=block,
+            epoch=int(state.epoch), geom=int(state.geom),
+            n_shards=int(cfg["n_shards"]),
+            next_shard=int(state.next_shard), device=device)
+        self.recovery = state.report
+        self._lsn = int(state.lsn)
+        # replay the WAL tail through the real mutation paths, with
+        # durability and the seams off (the records are durable already,
+        # and replay must be deterministic): each record bumps the epoch
+        # and moves frange / validity exactly as the original did
+        for rec in state.tail:
+            if rec.op == "append":
+                self.append(rec.features)
+            else:
+                self.delete(rec.ids)
+        # re-arm for live operation: new records continue at the next
+        # LSN in a fresh file
+        self.persist = persistmod.Persistence(path, sync=sync,
+                                              faults=faults)
+        self.faults = faults
+        return self
 
     # ------------------------------------------------------------------
     def stats(self) -> dict:
@@ -595,5 +802,7 @@ class SegmentedCatalog:
                 sum(1 for s in snap.segments if s.shard == sh)
                 for sh in range(self.n_shards)],
             "segments": [s.stats(snap.valid_host) for s in snap.segments],
-            "durable": None,
+            "durable": (None if self.persist is None else
+                        {"sync": self.persist.sync, "lsn": self._lsn,
+                         **self.persist.stats}),
         }

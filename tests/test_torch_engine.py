@@ -255,19 +255,35 @@ def test_no_silent_cpu_fallback():
         extraction_throughput(lambda t: t, imgs, batch=2)
 
 
+def _unknown_fault_site():
+    from repro_torch.serve import FaultInjector, FaultSpec
+    return {"faults": FaultInjector(specs=[FaultSpec("no_such_site")])}
+
+
 # ids kept as they were before ported options left or changed this list
 # (live=True alone is ported: its case now asks for a live sharded
-# catalog, and data_dir names durability alone)
-@pytest.mark.parametrize("opt,item", [
-    pytest.param({"mirror": "quantized"}, "A10", id="opt2-A10"),
-    pytest.param({"n_shards": 2}, "A11", id="opt3-A11"),
-    pytest.param({"live": True, "n_shards": 2}, "A11", id="opt4-A7/A8"),
-    pytest.param({"data_dir": "somewhere"}, "A8", id="opt5-A7/A8"),
-    pytest.param({"faults": object()}, "A9", id="opt6-A9")])
-def test_unported_options_raise(opt, item):
+# catalog). data_dir and faults are ported: their cases now hold the
+# reference's refusals — data_dir without live=True, and a fault spec
+# naming an unknown site (FaultSpec rejects it, as the reference's does)
+@pytest.mark.parametrize("opt,exc,match", [
+    pytest.param(lambda: {"mirror": "quantized"}, NotImplementedError,
+                 "A10", id="opt2-A10"),
+    pytest.param(lambda: {"n_shards": 2}, NotImplementedError, "A11",
+                 id="opt3-A11"),
+    pytest.param(lambda: {"live": True, "n_shards": 2}, NotImplementedError,
+                 "A11", id="opt4-A7/A8"),
+    pytest.param(lambda: {"data_dir": "somewhere"}, ValueError,
+                 "data_dir requires live=True", id="opt5-A7/A8"),
+    pytest.param(_unknown_fault_site, ValueError, "unknown fault site",
+                 id="opt6-A9")])
+def test_unported_options_raise(opt, exc, match):
     x, _ = _clustered(n=300)
-    with pytest.raises(NotImplementedError, match=item):
-        SearchEngine(x, n_subsets=2, block=64, device="cpu", **opt)
+    with pytest.raises(exc, match=match):
+        SearchEngine(x, n_subsets=2, block=64, device="cpu", **opt())
+    if exc is ValueError:
+        # the reference refuses the same arguments the same way
+        with pytest.raises(exc, match=match):
+            JaxEngine(x, n_subsets=2, block=64, **opt())
 
 
 @pytest.mark.parametrize("opt", [{"use_jax_fit": True},

@@ -35,6 +35,7 @@ from repro.kernels import ops as jops
 from repro_torch.core import SearchEngine
 from repro_torch.core import knn as tknn
 from repro_torch.core.convert import catalog_from_arrays
+from repro_torch.core.errors import PersistenceError, TransientDeviceError
 from repro_torch.core.segments import SegmentedCatalog
 from repro_torch.kernels import ops as tops
 
@@ -476,25 +477,52 @@ def test_lifecycle_guards():
     assert eng.invalidate_capacity_hints() > 0
     assert len(eng._cap_hints) == 0
     eng.close()                                      # nothing to flush
-    with pytest.raises(NotImplementedError, match="A8"):
+    # a memory-only catalog has nothing to checkpoint to: the typed error
+    # of the reference (tests/test_durability.py's last test)
+    with pytest.raises(PersistenceError, match="persist_dir"):
         eng.checkpoint()
 
 
 def test_catalog_refuses_durability_and_faults():
-    base, _ = _data(ties=False)
+    """Durability and the fault seams are ported: a memory-only catalog
+    refuses checkpoint() with the reference's typed error and reports no
+    durability; a durable one fills stats()["durable"] with the
+    reference's keys and values (wall times aside), and its seams fire
+    before any state changes."""
+    import tempfile
+    from repro.core.segments import SegmentedCatalog as JaxCatalog
+    from repro_torch.serve import FaultInjector, FaultSpec
+    base, extra = _data(ties=False)
     subsets = SearchEngine(base, **ENG, device="cpu").subsets
-    with pytest.raises(NotImplementedError, match="A8"):
-        SegmentedCatalog(base, subsets, block=64, persist_dir="somewhere",
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        SegmentedCatalog(base, subsets, block=64, faults=object(),
-                         device="cpu")
     cat = SegmentedCatalog(base, subsets, block=64, device="cpu")
-    for call in (cat.checkpoint, cat.durability_snapshot,
-                 lambda: SegmentedCatalog.open("somewhere")):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
+    with pytest.raises(PersistenceError, match="persist_dir"):
+        cat.checkpoint()
+    assert cat.durability_snapshot() is None
     assert cat.stats()["durable"] is None
+    cat.close()                                      # nothing to flush
+    got = {}
+    for name, cls, kw in (("repro", JaxCatalog, {}),
+                          ("repro_torch", SegmentedCatalog,
+                           {"device": "cpu"})):
+        with tempfile.TemporaryDirectory() as d:
+            c = cls(base, subsets, block=64, persist_dir=d, **kw)
+            c.append(extra[:100])
+            c.delete([3, 4])
+            c.checkpoint()
+            got[name] = c.stats()["durable"]
+            c.close()
+    for st in got.values():
+        st.pop("wal_sync_s")
+    assert got["repro_torch"] == got["repro"]
+    assert got["repro"]["lsn"] == 2 and got["repro"]["checkpoints"] == 2
+    inj = FaultInjector(specs=[FaultSpec("append", "fail", at_calls=(1,)),
+                               FaultSpec("delete", "fail", at_calls=(1,))])
+    cat = SegmentedCatalog(base, subsets, block=64, device="cpu",
+                           faults=inj)
+    for call in (lambda: cat.append(extra[:10]), lambda: cat.delete([1])):
+        with pytest.raises(TransientDeviceError):
+            call()
+    assert cat.epoch == 0 and cat._lsn == 0          # nothing changed
 
 
 def test_build_indexes_equals_each_build_index():

@@ -23,7 +23,15 @@ and the three WAL sync modes timed), and the feature-extraction path: 16,384
 synthetic patches through the full-width ViT-T (``extract_catalog``,
 flash attention in every layer) into a ``SearchEngine`` and a query
 batch, GPU against CPU, and 512 patches at the paper's 400x400 (626
-tokens). The flash library's SASS must hold
+tokens). Last, the serving layer (``serve``): full_size's engine behind
+``QueryServer`` and ``HttpFrontEnd`` on 127.0.0.1, 64 requests from 8
+clients bitwise the engine's direct ``query_batch`` with every kernel
+call on the serving thread, repeats served from the cache with no device
+work, a warm trace's span coverage and profile sites, closed-loop
+throughput at 1, 8 and 32 clients, an open loop at 50-150 % of its peak,
+the obs layer's overhead; GPU and CPU servers at 65,536 rows giving equal
+bodies; and /ingest append, delete and checkpoint on a durable live
+engine (build/serve_durable, removed at the end). The flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
@@ -39,6 +47,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only live        # the live catalog
     python3 chip_smoke.py --only durable     # the durable live catalog
     python3 chip_smoke.py --only main_wall   # the main path's warm wall
+    python3 chip_smoke.py --only serve       # the serving layer
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -156,12 +165,21 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _cluster_draws(n: int, d: int, seed: int):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 5.0, (N_CLUSTERS, d)).astype(np.float32)
+    return rng, centers, rng.integers(0, N_CLUSTERS, n)
+
+
+def cluster_assign(n: int, d: int, seed: int) -> np.ndarray:
+    """clustered's cluster of each row, without the rows."""
+    return _cluster_draws(n, d, seed)[2]
+
+
 def clustered(n: int, d: int, seed: int):
     """Clustered Gaussians in the manner of benchmarks/query_time.py
     run_scale: 1024 centres ~ N(0, 5^2), rows = centre + N(0, 0.3^2)."""
-    rng = np.random.default_rng(seed)
-    centers = rng.normal(0, 5.0, (N_CLUSTERS, d)).astype(np.float32)
-    assign = rng.integers(0, N_CLUSTERS, n)
+    rng, centers, assign = _cluster_draws(n, d, seed)
     x = centers[assign]
     x += rng.standard_normal((n, d), dtype=np.float32) * np.float32(0.3)
     return x, assign
@@ -3204,6 +3222,543 @@ def phase_search_vit(device, feats, labels, k: int = 100) -> None:
           "gpu_equals_cpu": True})
 
 
+SERVE_N = 64                 # requests of the bitwise HTTP check
+SERVE_CLIENTS = 8
+SERVE_REPEATS = 16           # of them re-sent: cache hits
+SERVE_LOAD = ((1, 32), (8, 16), (32, 8))   # (clients, requests a client)
+SERVE_OPEN_FRACS = (0.5, 1.0, 1.5)          # of the closed-loop peak
+SERVE_OPEN_S = 2.0
+SERVE_QUEUE_DEPTH = 64
+SERVE_DEADLINE_S = 1.0
+SERVE_OBS_REPS = 2
+SERVE_WINDOW_SWEEP = (0.005, 0.010)
+SERVE_OBS_OPEN_S = 4.0
+SERVE_DIR = ROOT / "build" / "serve_durable"
+# wire keys that carry wall times or minted trace ids
+WIRE_VOLATILE = ("e2e_ms", "latency_ms", "train_time_s", "query_time_s",
+                 "trace_id")
+METRIC_FAMILIES = ("server_latency_seconds_bucket", "span_seconds_sum",
+                   "request_seconds_count", "cache_hits_total",
+                   "server_served", "profile_seconds_count")
+
+
+def wire_body(r, k=100) -> dict:
+    """A make_requests request as the JSON body of POST /query."""
+    return {"pos_ids": [int(i) for i in r["pos_ids"]],
+            "neg_ids": [int(i) for i in r["neg_ids"]],
+            "model": r.get("model", "dbranch"),
+            "max_results": r.get("max_results", k)}
+
+
+def http(base: str, path: str, body=None, timeout: float = 300.0):
+    """(status, payload) of one request: POST with a JSON body, else GET;
+    a JSON payload is parsed, /metrics' text is returned as it is."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        base + path, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, raw, ctype = r.status, r.read(), r.headers.get(
+                "Content-Type", "")
+    except urllib.error.HTTPError as e:
+        status, raw, ctype = e.code, e.read(), "application/json"
+    return status, (json.loads(raw) if ctype.startswith("application/json")
+                    else raw.decode())
+
+
+@contextlib.contextmanager
+def serving(eng, **kw):
+    """A started QueryServer over ``eng`` behind an HttpFrontEnd on
+    127.0.0.1 (an ephemeral port): yields (server, base URL); both are
+    closed on the way out."""
+    from repro_torch.serve import HttpFrontEnd, QueryServer
+    srv = QueryServer(eng, **kw)
+    srv.start()
+    fe = HttpFrontEnd(srv, host="127.0.0.1", port=0)
+    try:
+        host, port = fe.start()
+        yield srv, f"http://{host}:{port}"
+    finally:
+        fe.close()
+        srv.close(drain=False)
+
+
+def closed_loop(base: str, bodies, clients: int) -> dict:
+    """``clients`` threads each POST the next body as soon as their last
+    answer came back, until none is left: throughput and latency
+    percentiles of the answers, and every (index, status, body)."""
+    import threading
+    nxt, lock, done = [0], threading.Lock(), []
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= len(bodies):
+                return
+            t0 = time.perf_counter()
+            st, payload = http(base, "/query", bodies[i])
+            with lock:
+                done.append((i, st, payload, time.perf_counter() - t0))
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    lat = [d[3] for d in done if d[1] == 200]
+    return {"clients": clients, "requests": len(bodies), "wall_s": wall,
+            "qps": len(lat) / wall,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "non_200": sum(1 for d in done if d[1] != 200),
+            "answers": sorted(done, key=lambda d: d[0])}
+
+
+def open_loop(base: str, bodies, qps: float) -> dict:
+    """Open loop as benchmarks/serve_load.py drives it over the wire:
+    body i is POSTed at t0 + i / qps from its own thread whatever the
+    server's progress; rejection rate and the served answers' latency."""
+    import threading
+    lock, done, threads = threading.Lock(), [], []
+
+    def fire(body, t_submit):
+        st, payload = http(base, "/query", body)
+        with lock:
+            done.append((st, payload.get("error_type", ""),
+                         time.perf_counter() - t_submit))
+
+    t0 = time.perf_counter()
+    for i, body in enumerate(bodies):
+        delay = t0 + i / qps - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        th = threading.Thread(target=fire, args=(body, time.perf_counter()))
+        th.start()
+        threads.append(th)
+    for th in threads:
+        th.join()
+    lat = [d[2] for d in done if d[0] == 200]
+    tags = {}
+    for d in done:
+        if d[0] != 200:
+            tags[d[1]] = tags.get(d[1], 0) + 1
+    return {"offered_qps": qps, "requests": len(bodies),
+            "served": len(lat), "rejection_rate": 1 - len(lat) / len(done),
+            "rejected_by_type": tags,
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3 if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3 if lat else None}
+
+
+def wire(payload: dict) -> dict:
+    return {k: v for k, v in payload.items() if k not in WIRE_VOLATILE}
+
+
+def same_wire(body: dict, res, what: str) -> None:
+    """A /query answer's ids and scores bitwise a QueryResult's."""
+    if body.get("ok") is not True:
+        raise AssertionError(f"{what}: {body}")
+    if not (np.array_equal(np.asarray(body["ids"], np.int64),
+                           np.asarray(res.ids, np.int64))
+            and np.array_equal(np.asarray(body["scores"], np.float64),
+                               np.asarray(res.scores, np.float64))):
+        raise AssertionError(f"{what}: ids/scores over HTTP != the "
+                             f"engine's direct query_batch")
+
+
+def device_kernel_events(fn) -> int:
+    """Device events (kernels, copies, sets) torch.profiler records while
+    ``fn`` runs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def site_counts(reg) -> dict:
+    from repro_torch.obs.profile import PROFILE_SITES
+    return {s: int(reg.value("profile_seconds_count", site=s))
+            for s in PROFILE_SITES}
+
+
+def traced_request(srv, base, body) -> dict:
+    """One request alone: its trace's span seconds by name, coverage of
+    its wall, device rounds, and the profile sites it counted."""
+    before = site_counts(srv.obs.registry)
+    st, payload = http(base, "/query", body)
+    if st != 200:
+        raise AssertionError(f"traced request: {st} {payload}")
+    after = site_counts(srv.obs.registry)
+    tr = srv.obs.traces.get(payload["trace_id"])
+    by_name = {}
+    for sp in tr["spans"]:
+        by_name[sp["name"]] = by_name.get(sp["name"], 0.0) + sp["dur_s"]
+    rounds = sum(1 for sp in tr["spans"] if sp["name"] == "device_round")
+    return {"wall_s": tr["wall_s"], "span_s": by_name,
+            "coverage": sum(by_name.values()) / tr["wall_s"],
+            "device_rounds": rounds,
+            "span_names": [sp["name"] for sp in tr["spans"]],
+            "profile_counts": {s: after[s] - before[s] for s in after},
+            "cache": payload["cache"]}
+
+
+def serve_full(eng, assign, k: int = 100) -> dict:
+    """full_size's engine behind QueryServer + HttpFrontEnd: 64 requests
+    from 8 clients bitwise the engine's direct query_batch, on the
+    serving thread alone; 16 of them again as cache hits with no device
+    work; a warm traced request; /metrics and /stats."""
+    from repro_torch.kernels import box_scan, zone_prune
+    from repro_torch.serve import ResultCache
+    reqs = make_requests(assign, SERVE_N, k, seed=21)
+    direct = []
+    for i in range(0, SERVE_N, 8):             # warms these shapes too
+        direct += eng.query_batch(reqs[i:i + 8])
+    for o in direct:
+        if isinstance(o, Exception):
+            raise o
+    bodies = [wire_body(r, k) for r in reqs]
+    warm = [wire_body(r, k) for r in make_requests(assign, 16, k, seed=22)]
+    out = {}
+    with serving(eng, max_batch=8, batch_window_s=0.002, max_results=k,
+                 cache=ResultCache()) as (srv, base):
+        closed_loop(base, warm, SERVE_CLIENTS)
+        b0 = srv.stats["batches"]
+        zone_prune.launches = zone_prune.candidates_launches = 0
+        box_scan.seg_launches = 0
+        with kernel_threads() as calls:
+            run = closed_loop(base, bodies, SERVE_CLIENTS)
+        launches = {"zone_candidates": zone_prune.candidates_launches,
+                    "box_scan_seg": box_scan.seg_launches}
+        windows = srv.stats["batches"] - b0
+        first = {}
+        for i, st, payload, _ in run["answers"]:
+            if st != 200 or payload["cache"] != "miss":
+                raise AssertionError(f"request {i}: {st} {wire(payload)}")
+            same_wire(payload, direct[i], f"request {i}")
+            first[i] = payload
+        threads = {t for _, t in calls}
+        if not calls or threads != {srv._thread.ident}:
+            raise AssertionError(f"kernel calls from threads {threads}, "
+                                 f"not the serving thread alone")
+        if min(launches.values()) <= 0:
+            raise AssertionError(f"a path kernel never launched: "
+                                 f"{launches}")
+        # the first SERVE_REPEATS again, three times: every one a hit,
+        # bitwise; no device work while the first pass is served under
+        # torch.profiler, the others timed without it (8 clients, 1)
+        c1 = (zone_prune.candidates_launches, box_scan.seg_launches)
+        hits = {}
+        events = device_kernel_events(lambda: hits.update(
+            {"profiled": closed_loop(base, bodies[:SERVE_REPEATS],
+                                     SERVE_CLIENTS)}))
+        hits["run"] = closed_loop(base, bodies[:SERVE_REPEATS],
+                                  SERVE_CLIENTS)
+        hits["one"] = closed_loop(base, bodies[:SERVE_REPEATS], 1)
+        for i, st, payload, _ in (hits["profiled"]["answers"]
+                                  + hits["run"]["answers"]
+                                  + hits["one"]["answers"]):
+            if payload.get("cache") != "hit" \
+                    or wire(payload) != {**wire(first[i]), "cache": "hit",
+                                         "request_id":
+                                             payload["request_id"]}:
+                raise AssertionError(f"repeat {i}: not a bitwise hit")
+        if events or c1 != (zone_prune.candidates_launches,
+                            box_scan.seg_launches):
+            raise AssertionError(f"cache hits ran device work: {events} "
+                                 f"device events")
+        trace = traced_request(srv, base, wire_body(make_requests(
+            assign, 1, k, seed=24)[0], k))
+        if trace["coverage"] < 0.9:
+            raise AssertionError(f"a warm trace covers "
+                                 f"{trace['coverage']:.1%} of its wall")
+        pc = trace["profile_counts"]
+        if not (pc["jit_dispatch"] == pc["device_sync"]
+                == trace["device_rounds"] > 0):
+            raise AssertionError(f"profile sites {pc} for "
+                                 f"{trace['device_rounds']} rounds")
+        st, text = http(base, "/metrics")
+        missing = [f for f in METRIC_FAMILIES if f not in text]
+        if st != 200 or missing:
+            raise AssertionError(f"/metrics {st}: missing {missing}")
+        st, stats = http(base, "/stats")
+        leaked = [v for v in json_leaves(stats)
+                  if isinstance(v, str) and "tensor(" in v]
+        if st != 200 or leaked:
+            raise AssertionError(f"/stats {st}: tensors on the wire "
+                                 f"{leaked[:3]}")
+        out = {"requests": SERVE_N, "clients": SERVE_CLIENTS,
+               "qps": run["qps"], "p50_ms": run["p50_ms"],
+               "p99_ms": run["p99_ms"], "windows": windows,
+               "launches": launches,
+               "launches_per_window": {n: v / max(windows, 1)
+                                       for n, v in launches.items()},
+               "bitwise_equal_direct_query_batch": True,
+               "kernel_calls_on_serving_thread_only": len(calls),
+               "cache_hits": {"requests": SERVE_REPEATS,
+                              "p50_ms": hits["run"]["p50_ms"],
+                              "p99_ms": hits["run"]["p99_ms"],
+                              "profiled_p50_ms":
+                                  hits["profiled"]["p50_ms"],
+                              "one_client_p50_ms": hits["one"]["p50_ms"],
+                              "one_client_p99_ms": hits["one"]["p99_ms"],
+                              "device_events": events,
+                              "bitwise_equal_miss": True},
+               "warm_trace": trace,
+               "metrics_families": list(METRIC_FAMILIES),
+               "stats_served": stats["served"],
+               "stats_cache": stats["cache"]}
+    return out
+
+
+def json_leaves(obj):
+    if isinstance(obj, dict):
+        for v in obj.values():
+            yield from json_leaves(v)
+    elif isinstance(obj, list):
+        for v in obj:
+            yield from json_leaves(v)
+    else:
+        yield obj
+
+
+def serve_load(eng, assign, k: int = 100) -> dict:
+    """The uncached engine path under load: closed loop at 1, 8 and 32
+    clients (distinct requests, no cache); an open loop at 50 / 100 /
+    150 % of the closed loop's peak with queue_depth=64 and a default
+    deadline; 8 clients with longer batching windows; the obs overhead
+    (the 8-client closed loop and an open loop at half the peak, with
+    metrics and tracing off against on, best p99 of SERVE_OBS_REPS
+    each)."""
+    from repro_torch.obs import Observability
+    from repro_torch.obs import profile as obs_profile
+    pool = [wire_body(r, k) for r in make_requests(assign, 512, k, seed=25)]
+    kw = dict(max_batch=8, batch_window_s=0.002, max_results=k)
+    def closed_run(bodies, clients, **over):
+        with serving(eng, **{**kw, **over}) as (srv, base):
+            r = closed_loop(base, bodies, clients)
+            r["windows"] = srv.stats["batches"]
+        r.pop("answers")
+        r["mean_window"] = r["requests"] / max(r["windows"], 1)
+        if r["non_200"]:
+            raise AssertionError(f"closed loop at {clients}: {r}")
+        return r
+
+    closed, at = [], 0
+    for clients, per in SERVE_LOAD:
+        closed.append(closed_run(pool[at:at + clients * per], clients))
+        at += clients * per
+    peak = max(r["qps"] for r in closed)
+    # 8 clients, longer batching windows: how full a window gets
+    sweep = [{"batch_window_s": w, **closed_run(pool[:128], 8,
+                                                batch_window_s=w)}
+             for w in SERVE_WINDOW_SWEEP]
+    opened = []
+    for frac in SERVE_OPEN_FRACS:
+        qps = peak * frac
+        n = max(int(qps * SERVE_OPEN_S), 8)
+        bodies = [pool[i % len(pool)] for i in range(n)]
+        with serving(eng, queue_depth=SERVE_QUEUE_DEPTH,
+                     default_deadline_s=SERVE_DEADLINE_S, **kw) as (srv,
+                                                                     base):
+            r = open_loop(base, bodies, qps)
+            r["queue_depth_peak"] = srv.summary()["queue_depth_peak"]
+        r["fraction_of_peak"] = frac
+        opened.append(r)
+    # the obs layer's price: the 8-client closed loop, and an open loop
+    # at half the peak (the reference's idle regime), with metrics and
+    # tracing off against on, in turns
+    n = 8 * 16
+    slow = [pool[i % len(pool)]
+            for i in range(max(int(peak * 0.5 * SERVE_OBS_OPEN_S), 8))]
+    arms = {(load, tag): [] for load in ("closed", "open")
+            for tag in ("on", "off")}
+    try:
+        for _ in range(SERVE_OBS_REPS):
+            for load in ("closed", "open"):
+                for tag in ("on", "off"):
+                    obs = Observability(metrics_enabled=tag == "on",
+                                        tracing_enabled=tag == "on")
+                    if tag == "off":
+                        obs_profile.set_enabled(False)
+                    with serving(eng, obs=obs, **kw) as (srv, base):
+                        if load == "closed":
+                            r = closed_loop(base, pool[:n], 8)
+                            r.pop("answers")
+                        else:
+                            r = open_loop(base, slow, peak * 0.5)
+                        r["windows"] = srv.stats["batches"]
+                    arms[(load, tag)].append(r)
+    finally:
+        obs_profile.set_enabled(True)
+    overhead = {}
+    for load in ("closed", "open"):
+        on, off = arms[(load, "on")], arms[(load, "off")]
+        p99 = {t: min(r["p99_ms"] for r in v)
+               for t, v in (("on", on), ("off", off))}
+        overhead[load] = {
+            "p99_ms": p99, "p99_ratio": p99["on"] / p99["off"],
+            "runs": {t: [{k: r.get(k) for k in ("qps", "p50_ms", "p99_ms",
+                                                "windows", "rejection_rate")}
+                         for r in v] for t, v in (("on", on),
+                                                  ("off", off))}}
+    return {"closed_loop": closed, "peak_qps": peak,
+            "window_sweep": sweep, "open_loop": opened,
+            "queue_depth": SERVE_QUEUE_DEPTH,
+            "default_deadline_s": SERVE_DEADLINE_S,
+            "obs_overhead": {**overhead, "reference_limit": 1.1}}
+
+
+def serve_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D,
+                     k: int = 100) -> dict:
+    """The same requests over HTTP to a GPU server and a CPU server, one
+    at a time: bodies equal but for wall times and trace ids (dbranch /
+    dbens, a full-result request, dtree, rforest and knn, and two cache
+    hits). The GPU server's first request is its engine's first: its
+    trace says where a cold request's time goes."""
+    from repro_torch.core import SearchEngine
+    from repro_torch.serve import ResultCache
+    x, assign = clustered(n, d, seed=7)
+    reqs = make_requests(assign, 9, k, seed=8)
+    first = wire_body(reqs.pop(), k)    # each engine's first request
+    bodies = [wire_body(r, k) for r in reqs]
+    bodies += [{**bodies[0], "max_results": None},
+               {**bodies[1], "model": "dtree"},
+               {**bodies[2], "model": "rforest", "n_models": 5},
+               {**bodies[3], "model": "knn"}, bodies[0], bodies[1]]
+    answers, cold = {}, None
+    for dev in (device, "cpu"):
+        eng = SearchEngine(x, device=dev)
+        with serving(eng, max_batch=8, batch_window_s=0.002, max_results=k,
+                     cache=ResultCache()) as (srv, base):
+            trace = traced_request(srv, base, first)
+            if dev != "cpu":
+                cold = trace
+            got = []
+            for b in bodies:
+                st, payload = http(base, "/query", b)
+                if st != 200:
+                    raise AssertionError(f"{dev}: {st} {payload}")
+                got.append(wire(payload))
+        answers[str(dev)] = got
+    g, c = answers[str(device)], answers["cpu"]
+    for i, (a, b) in enumerate(zip(g, c)):
+        if a != b:
+            raise AssertionError(f"body {i}: GPU server != CPU server")
+    return {"rows": n, "dims": d, "bodies": len(bodies),
+            "models": sorted({b.get("model") for b in bodies}),
+            "cache_hits": sum(1 for a in g if a["cache"] == "hit"),
+            "bitwise_equal": True, "cold_first_request": cold}
+
+
+def serve_durable(device, n: int = MID_N, d: int = FULL_D,
+                  k: int = 100) -> dict:
+    """A live, durable engine (build/serve_durable) behind the server:
+    append, delete and checkpoint over /ingest; the query after the
+    append misses the cache and finds the new rows, after the delete it
+    no longer does, each bitwise the engine's direct answer; the WAL's
+    fsync is counted as profile_seconds{site="wal_fsync"}."""
+    import shutil
+    from repro_torch.core import SearchEngine
+    from repro_torch.serve import ResultCache
+    x, assign = clustered(n, d, seed=9)
+    # every hit, not the top k: the new rows tie with old ones and lose
+    # the tie by id
+    r = {**make_requests(assign, 1, k, seed=10)[0], "max_results": None}
+    body = wire_body(r, k)
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    eng = SearchEngine(x, live=True, data_dir=str(SERVE_DIR), device=device)
+    res = {}
+    try:
+        with serving(eng, max_batch=8, batch_window_s=0.002, max_results=k,
+                     cache=ResultCache()) as (srv, base):
+            seq = [http(base, "/query", body)[1] for _ in range(2)]
+            if [s["cache"] for s in seq] != ["miss", "hit"]:
+                raise AssertionError(f"repeat: {[wire(s) for s in seq]}")
+            rows = x[r["pos_ids"]]            # look-alikes of the positives
+            st, app = http(base, "/ingest", {"op": "append",
+                                             "features": rows.tolist()})
+            new = app["info"]["ids"]
+            if st != 200 or new != list(range(n, n + len(rows))):
+                raise AssertionError(f"append: {st} {app}")
+            st, after = http(base, "/query", body)
+            seen = sorted(set(new) & set(after["ids"]))
+            if after["cache"] != "miss" or not seen:
+                raise AssertionError(f"after the append: cache "
+                                     f"{after['cache']}, new rows {seen}")
+            st, dele = http(base, "/ingest", {"op": "delete", "ids": seen})
+            st2, gone = http(base, "/query", body)
+            if st != 200 or set(seen) & set(gone["ids"]) \
+                    or gone["cache"] != "miss":
+                raise AssertionError(f"delete: {st} {dele}")
+            st, ck = http(base, "/ingest", {"op": "checkpoint"})
+            if st != 200:
+                raise AssertionError(f"checkpoint: {st} {ck}")
+            st, text = http(base, "/metrics")
+            fsyncs = site_counts(srv.obs.registry)["wal_fsync"]
+            if 'profile_seconds_count{site="wal_fsync"}' not in text \
+                    or fsyncs <= 0:
+                raise AssertionError("wal_fsync not counted")
+            summ = srv.summary()
+        # the engine's own answer now, bitwise the last one over HTTP
+        same_wire(gone, eng.query_batch([r])[0], "after the delete")
+        res = {"rows": n, "dims": d, "appended": len(new),
+               "new_rows_ranked": len(seen), "deleted": dele["info"]["rows"],
+               "checkpoint": {kk: v for kk, v in ck["info"].items()
+                              if isinstance(v, (int, float, str))},
+               "wal_fsync_count": fsyncs,
+               "durable": summ.get("durable"),
+               "ingest_ms": {"append": app["latency_ms"],
+                             "delete": dele["latency_ms"],
+                             "checkpoint": ck["latency_ms"]},
+               "bitwise_equal_direct": True}
+    finally:
+        eng.close()
+        shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    return res
+
+
+def phase_serve(device, eng, k: int = 100) -> dict:
+    """The serving layer on the card (QueryServer, HttpFrontEnd,
+    ResultCache, the obs layer): serve_full and serve_load on full_size's
+    engine, serve_gpu_vs_cpu and serve_durable at 65,536 rows. Runs after
+    the timed phases: its Observability turns profiling on, and it is
+    switched off again at the end."""
+    from repro_torch.obs import profile as obs_profile
+    t0 = time.perf_counter()
+    assign = cluster_assign(eng.n, eng.d, seed=0)
+    try:
+        full = serve_full(eng, assign, k)
+        load = serve_load(eng, assign, k)
+        gvc = serve_gpu_vs_cpu(device)
+        durable = serve_durable(device)
+    finally:
+        obs_profile.set_enabled(False)
+    res = {"phase": "serve", "card": card_line(), "rows": eng.n,
+           "dims": eng.d, "full": full, "load": load, "gpu_vs_cpu": gvc,
+           "durable": durable, "seconds": time.perf_counter() - t0}
+    emit(res)
+    return res
+
+
+def phase_serve_only(device) -> None:
+    """``--only serve``: full_size's static engine (one warm batch), then
+    the serve phase."""
+    eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    eng.query_batch(reqs)
+    phase_serve(device, eng)
+
+
 KERNELS = {
     "zone_candidates": ("src/repro_torch/kernels/csrc/zone_prune.cu",
                         "src/repro/kernels/zone_prune.py:33"),
@@ -3229,20 +3784,22 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "fit": phase_fit,
         "live": phase_live_only,
         "durable": phase_durable_only,
-        "main_wall": phase_main_wall}
+        "main_wall": phase_main_wall,
+        "serve": phase_serve_only}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
-    box_scan, zone_prune, l2dist, fit, live, durable and main_wall, the
-    kernels are built and only those phases run: the FLASH_CASES rows,
+    box_scan, zone_prune, l2dist, fit, live, durable, main_wall and serve,
+    the kernels are built and only those phases run: the FLASH_CASES rows,
     the 400x400 extraction, the box scans at the main path's inputs,
     zone_candidates on synthetic zone maps, l2dist at the knn path's
     inputs, the batched device fit at full size, the live catalog at full
     size (and its GPU-vs-CPU schedule), the durable live catalog at full
     size (about 3.5 GB on disk under build/ at its peak), the main path's
-    warm wall; for comparing two trees on one card."""
+    warm wall, the serving layer over full_size's engine; for comparing
+    two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -3302,6 +3859,8 @@ def main(argv) -> int:
     res["flash_attention"] = measure_flash(*flash_in, causal=False,
                                            profile=True)
     emit({"phase": "kernels_main_path", "card": card, "runs": [res]})
+    # last: the serving layer's Observability turns profiling on
+    serve = phase_serve(dev, ctx[0])["full"]["launches_per_window"]
     # each kernel's launches on its own path: the fused batch of 8 for
     # zone_candidates / box_scan_seg, the use_fused=False batch of 8 for
     # zone_prune's mask, the dtree + rforest + knn query set for box_scan /
@@ -3317,11 +3876,14 @@ def main(argv) -> int:
                                    "live_batch":
                                        live_launches["zone_candidates"],
                                    "durable_recovered_batch":
-                                       durable_launches["zone_candidates"]},
+                                       durable_launches["zone_candidates"],
+                                   "serve_per_window":
+                                       serve["zone_candidates"]},
                "box_scan_seg": {"fused_batch": launches["box_scan_seg"],
                                 "live_batch": live_launches["box_scan_seg"],
                                 "durable_recovered_batch":
-                                    durable_launches["box_scan_seg"]},
+                                    durable_launches["box_scan_seg"],
+                                "serve_per_window": serve["box_scan_seg"]},
                "zone_prune": {"host_oracle_batch": launches["zone_prune"],
                               "live_host_oracle_batch":
                                   live_launches["zone_prune"]},

@@ -71,6 +71,8 @@ from repro_torch.core.subsets import make_subsets
 from repro_torch.core.trees import fit_decision_tree, fit_random_forest
 from repro_torch.device import resolve_device, to_device_async
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import profile as obs_profile
+from repro_torch.obs import trace as obs_trace
 
 MODELS = ("dbranch", "dbens", "dtree", "rforest", "knn")
 
@@ -347,6 +349,9 @@ class SearchEngine:
         the between-rounds deadline check — a request whose budget is
         gone stops HERE instead of burning another round of device
         time."""
+        # trace seam too: closes the previous device_round span and
+        # opens the next on every ambient trace (no-op untraced)
+        obs_trace.round_mark()
         self._fault("fused_query")
         check_deadline(deadline_s, "device query round")
 
@@ -433,7 +438,8 @@ class SearchEngine:
         return self._compact_now()
 
     def _compact_now(self) -> Dict:
-        st = self._catalog.compact()
+        with obs_profile.profile("compact"):
+            st = self._catalog.compact()
         self._sync_live()
         return st
 
@@ -504,6 +510,7 @@ class SearchEngine:
         and runs the ranking on the device, so the host receives O(k)
         bytes. ``deadline_s`` is an absolute ``time.monotonic()``
         deadline, checked before the fit and between device rounds."""
+        _t_prep = time.perf_counter()
         if model not in MODELS:
             raise ValueError(f"unknown model {model!r}; choose from {MODELS}")
         check_deadline(deadline_s, "fit")
@@ -512,6 +519,10 @@ class SearchEngine:
         pos_ids = np.asarray(list(pos_ids), np.int64)
         neg_ids = np.asarray(list(neg_ids), np.int64)
         xp, xn = view.x[pos_ids], view.x[neg_ids]
+        # snapshot + label-row gather is real pre-fit wall: billed as its
+        # own span so traces account for >=90% of the request
+        obs_trace.add_span_active("prepare", _t_prep,
+                                  time.perf_counter() - _t_prep)
 
         t0 = time.perf_counter()
         if model in ("dbranch", "dbens"):
@@ -541,6 +552,7 @@ class SearchEngine:
                                            max_depth=max_depth,
                                            seed=seed).boxes()
         t_fit = time.perf_counter() - t0
+        obs_trace.add_span_active("fit", t0, t_fit)
 
         t0 = time.perf_counter()
         check_deadline(deadline_s, "inference")
@@ -852,12 +864,16 @@ class SearchEngine:
         (score_mode="sparse") or the dense [N, Q] buffer ("dense"). Same
         probes, capacities, sync cadence and retries; int32 vote addition
         is exactly associative, so both are bitwise-identical end to
-        end."""
-        if self.score_mode == "dense":
-            return self._device_scores_dense(jobs, nq, view,
-                                             deadline_s=deadline_s)
-        return self._device_scores_sparse(jobs, nq, view,
-                                          deadline_s=deadline_s)
+        end. Runs under a trace round scope: each ``_round_checkpoint``
+        inside becomes one ``device_round`` span on every ambient trace
+        (overflow-retry rounds included); a shared no-op when nothing is
+        attached."""
+        with obs_trace.round_scope():
+            if self.score_mode == "dense":
+                return self._device_scores_dense(jobs, nq, view,
+                                                 deadline_s=deadline_s)
+            return self._device_scores_sparse(jobs, nq, view,
+                                              deadline_s=deadline_s)
 
     @staticmethod
     def _live_agg(agg: Dict, view: _EngineView) -> np.ndarray:
@@ -897,6 +913,7 @@ class SearchEngine:
         while pending:
             self._round_checkpoint(deadline_s)
             launched = []
+            _t_disp = time.perf_counter()
             for sid, merged, owner, cap in pending:
                 index = view.indexes[sid]
                 lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
@@ -915,8 +932,11 @@ class SearchEngine:
                 launched.append((sid, merged, owner, cap, counts, cand,
                                  n_hit.reshape(1)))
             # ONE batched sync covers the whole round's overflow checks
+            obs_profile.record("jit_dispatch",
+                               time.perf_counter() - _t_disp)
             self._fault("device_sync")
-            stvecs = torch.stack([l[6] for l in launched]).cpu().numpy()
+            with obs_profile.profile("device_sync"):
+                stvecs = torch.stack([l[6] for l in launched]).cpu().numpy()
             agg["n_host_syncs"] += 1
             agg["host_bytes_transferred"] += int(stvecs.nbytes)
             pending = []
@@ -994,6 +1014,7 @@ class SearchEngine:
         while pending:
             self._round_checkpoint(deadline_s)
             launched, round_parts, round_rcaps = [], [], []
+            _t_disp = time.perf_counter()
             for sid, merged, owner, cap in pending:
                 lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
                 if live:
@@ -1005,8 +1026,11 @@ class SearchEngine:
                                          onehot, capacity=cap)
                 launched.append((sid, merged, owner, cap) + probe)
             # ONE batched sync: a fixed-width int vector per subset
+            obs_profile.record("jit_dispatch",
+                               time.perf_counter() - _t_disp)
             self._fault("device_sync")
-            stvecs = torch.stack([l[7] for l in launched]).cpu().numpy()
+            with obs_profile.profile("device_sync"):
+                stvecs = torch.stack([l[7] for l in launched]).cpu().numpy()
             agg["n_host_syncs"] += 1
             agg["host_bytes_transferred"] += int(stvecs.nbytes)
             pending = []
@@ -1148,14 +1172,22 @@ class SearchEngine:
             ids, scores = self._rank(counts, pos_ids, neg_ids,
                                      include_training)
             return ids, scores, stats    # query() applies the mr cut
+        _t_prep = time.perf_counter()
         if isinstance(boxsets, tuple) and boxsets[0] == "device":
             _, lo_c, hi_c, ent = boxsets
             jobs, bound = self._make_jobs_flat(
                 [(lo_c, hi_c, g, sid, cnt, 0) for g, sid, cnt in ent], 1)
         else:
             jobs, bound = self._make_jobs([(bs, 0) for bs in boxsets], 1)
+        # job assembly (per-subset grouping, device slicing) sits between
+        # fit and the first device round: billed so it never reads as an
+        # unexplained gap in the trace
+        obs_trace.add_span_active("prepare", _t_prep,
+                                  time.perf_counter() - _t_prep,
+                                  {"jobs": len(jobs)})
         scores_dev, stats = self._device_scores(jobs, 1, view,
                                                 deadline_s=deadline_s)
+        _t_rank = time.perf_counter()
         if mr is None:
             counts = self._scores_to_host(scores_dev, view)[:, 0]
             # sparse buffers cross as tiles: price what actually moved
@@ -1170,6 +1202,8 @@ class SearchEngine:
                 bound, view)
             stats["host_bytes_transferred"] += hb
             ids, scores = ranked[0]
+        obs_trace.add_span_active("rank", _t_rank,
+                                  time.perf_counter() - _t_rank)
         return ids, scores, stats
 
     # ------------------------------------------------------------------
@@ -1336,6 +1370,10 @@ class SearchEngine:
                 fitted.append((it[0], it[1], boxsets, it[2], it[3], it[4],
                                it[5], time.perf_counter() - t1))
             fit_wall = time.perf_counter() - t0
+        # the batched fit is one shared device phase: every trace in the
+        # window carries the same fit span (shared-cost attribution)
+        obs_trace.add_span_active("fit", t0, fit_wall,
+                                  {"batch": len(to_fit)})
         if not fitted:
             return results
 
@@ -1360,10 +1398,15 @@ class SearchEngine:
             # a request's boxes live entirely in one form, so per-query
             # score bounds combine by max
             jobs, bound = jobs + j2, max(bound, b2)
+        # shared assembly wall, same attribution rule as the fit span
+        obs_trace.add_span_active("prepare", t0,
+                                  time.perf_counter() - t0,
+                                  {"jobs": len(jobs)})
         scores_dev, agg = self._device_scores(jobs, nq, view,
                                               deadline_s=deadline_s)
 
         # ---- ranking ---------------------------------------------------
+        _t_rank = time.perf_counter()
         mrs = [f[6] for f in fitted]
         if all(m is not None for m in mrs):
             masks = [(pos, neg, incl)
@@ -1387,6 +1430,8 @@ class SearchEngine:
                 if m is not None:
                     ids, sc = ids[:m], sc[:m]
                 ranked.append((ids, sc))
+        obs_trace.add_span_active("rank", _t_rank,
+                                  time.perf_counter() - _t_rank)
         t_query = time.perf_counter() - t0
 
         # ---- de-mux to per-request results -----------------------------

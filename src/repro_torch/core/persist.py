@@ -92,6 +92,7 @@ import numpy as np
 
 from repro_torch.core.errors import (InjectedCrash, PersistenceError,
                                      RecoveryError)
+from repro_torch.obs import profile as obs_profile
 
 try:                                  # POSIX record locks (single-writer)
     import fcntl
@@ -507,6 +508,7 @@ class Persistence:
                     self.stats["wal_fsyncs"] += 1
                     dt = time.perf_counter() - t0
                     self.stats["wal_sync_s"] += dt
+                    obs_profile.record("wal_fsync", dt)
                 else:
                     self._wal_unsynced = True
             except InjectedCrash:
@@ -544,6 +546,7 @@ class Persistence:
                 self.stats["wal_fsyncs"] += 1
                 dt = time.perf_counter() - t0
                 self.stats["wal_sync_s"] += dt
+                obs_profile.record("wal_fsync", dt)
 
     def close(self) -> None:
         with self._lock:

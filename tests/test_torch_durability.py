@@ -3,8 +3,8 @@
 The port's ``core/persist.py``, the durable half of its
 ``SegmentedCatalog`` and the engine's ``data_dir`` / ``wal_sync`` /
 ``faults`` are held to ``repro``'s. Every test of tests/test_durability.py
-that does not need the reference's serving layer has a twin here of the
-same name: the same seeded mutation script and the same crash spec run
+has a twin here of the same name (the two serve-layer ones through each
+package's ``QueryServer``): the same seeded mutation script and the same crash spec run
 through both packages (the port with ``device="cpu"``), each package's
 own assertions hold, and then the two are held to each other — the
 recovered snapshots bitwise (features, validity, frange, epoch, every
@@ -44,12 +44,14 @@ from repro.core import persist as jpersist
 from repro.core.engine import SearchEngine as JaxEngine
 from repro.core.segments import SegmentedCatalog as JaxCatalog
 from repro.core.subsets import make_subsets as jax_make_subsets
+from repro.serve import engine as jserve
 from repro.serve import faults as jfaults
 from repro_torch.core import SearchEngine
 from repro_torch.core import errors as terrors
 from repro_torch.core import persist as tpersist
 from repro_torch.core.segments import SegmentedCatalog
 from repro_torch.core.subsets import make_subsets
+from repro_torch.serve import engine as tserve
 from repro_torch.serve import faults as tfaults
 
 D, BLOCK = 16, 64
@@ -1215,3 +1217,73 @@ def test_recovered_catalog_on_cuda_matches_cpu():
                           ec.query(pos, neg, model=m))
         for e in (eg, ec):
             e.close()
+
+
+# ----------------------------------------------------------------------
+# engine + serve integration (the serving layer's twins)
+# ----------------------------------------------------------------------
+
+def _server_cls(p):
+    """The serving module of ``p``'s package."""
+    return jserve if p is REF else tserve
+
+
+def test_engine_recovery_surfaces_degraded_health():
+    out = []
+    for p in PKGS:
+        srvmod = _server_cls(p)
+        with tempfile.TemporaryDirectory() as d:
+            eng = p.engine(_data(), live=True, data_dir=d)
+            eng.append(_data(10, seed=1))
+            wal = sorted(f for f in os.listdir(d)
+                         if f.startswith("wal-"))[-1]
+            eng.close()
+            del eng
+            path = os.path.join(d, wal)
+            with open(path, "r+b") as f:     # tear the tail on disk
+                f.truncate(os.path.getsize(path) - 3)
+            re = p.engine(live=True, data_dir=d)
+            assert re.recovery is not None and not re.recovery.clean
+            srv = srvmod.QueryServer(re)
+            assert srv.health == "degraded"
+            s = srv.summary()
+            assert s["recovery"]["torn_tail"] and s["recovery"]["quarantined"]
+            assert s["durable"]["sync"] == "batch"
+            out.append((srv.health, s["recovery"],
+                        {k: v for k, v in s["durable"].items()
+                         if not isinstance(v, float)},
+                        s["epoch"], s["rows_live"], s["n_segments"]))
+            re.close()
+    assert out[0] == out[1]
+
+
+def test_server_checkpoint_ingest_op():
+    out = []
+    for p in PKGS:
+        srvmod = _server_cls(p)
+        with tempfile.TemporaryDirectory() as d:
+            eng = p.engine(_data(), live=True, data_dir=d)
+            srv = srvmod.QueryServer(eng)
+            r = srv.handle_ingest(srvmod.IngestRequest(
+                0, "append", features=_data(10, seed=1)))
+            assert r.ok
+            r = srv.handle_ingest(srvmod.IngestRequest(1, "checkpoint"))
+            assert r.ok and r.info["op"] == "checkpoint"
+            assert r.info["lsn"] == 1 and srv.stats["checkpoints"] == 1
+            eng.close()
+            re = p.engine(live=True, data_dir=d)
+            assert re.recovery.clean
+            assert re.recovery.replayed_appends == 0
+            srv2 = srvmod.QueryServer(re)
+            assert srv2.health == "ok"
+            pos, neg = list(range(6)), list(range(100, 140))
+            q = srv2.handle(srvmod.QueryRequest(2, pos, neg,
+                                                kwargs={"max_results": 20}))
+            assert q.ok
+            out.append(({k: v for k, v in r.info.items()
+                         if not isinstance(v, float)},
+                        {k: v for k, v in srv.stats.items()
+                         if isinstance(v, int)},
+                        q.result.ids.tolist(), q.result.scores.tolist()))
+            re.close()
+    assert out[0] == out[1]

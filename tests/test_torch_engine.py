@@ -218,6 +218,25 @@ def test_port_imports_neither_jax_nor_repro():
         "f = extract.extract_catalog(imgs, extract.vit_feature_fn(m), "
         "batch=4, device='cpu')\n"
         "assert f.shape == (5, 32)\n"
+        "import json, urllib.request\n"
+        "from repro_torch.serve import HttpFrontEnd, QueryServer, "
+        "ResultCache\n"
+        "srv = QueryServer(SearchEngine(x, n_subsets=4, block=64, "
+        "live=True, device='cpu'), max_results=5, cache=ResultCache())\n"
+        "srv.start()\n"
+        "fe = HttpFrontEnd(srv)\n"
+        "host, port = fe.start()\n"
+        "base = f'http://{host}:{port}'\n"
+        "req = urllib.request.Request(base + '/query', method='POST', "
+        "data=json.dumps({'pos_ids': list(range(8)), "
+        "'neg_ids': list(range(100, 130))}).encode())\n"
+        "body = json.loads(urllib.request.urlopen(req, timeout=60).read())\n"
+        "assert body['ok'] and body['ids'] == r.ids.tolist(), body\n"
+        "text = urllib.request.urlopen(base + '/metrics', timeout=60)"
+        ".read().decode()\n"
+        "assert 'profile_seconds_count{site=\"device_sync\"}' in text\n"
+        "fe.close()\n"
+        "srv.close()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"

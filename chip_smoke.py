@@ -23,7 +23,14 @@ and the three WAL sync modes timed), and the feature-extraction path: 16,384
 synthetic patches through the full-width ViT-T (``extract_catalog``,
 flash attention in every layer) into a ``SearchEngine`` and a query
 batch, GPU against CPU, and 512 patches at the paper's 400x400 (626
-tokens). Last, the serving layer (``serve``): full_size's engine behind
+tokens). Then the quantized mirror (``quantized``: full_size's catalog
+and batch on ``mirror="quantized"``, bitwise the f32 engine, resident
+bytes of both, walls in turns) and the sharded catalogs (``sharded``:
+``n_shards`` 1, 2, 4 and 8 flat on the card, bitwise S = 1, and an engine
+on a device list naming the card four times: the mesh leg's code path,
+not a multi-card figure); ``gpu_vs_cpu`` holds both, and a live catalog
+with two shards, against the CPU engine. Last, the serving layer
+(``serve``): full_size's engine behind
 ``QueryServer`` and ``HttpFrontEnd`` on 127.0.0.1, 64 requests from 8
 clients bitwise the engine's direct ``query_batch`` with every kernel
 call on the serving thread, repeats served from the cache with no device
@@ -47,6 +54,8 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only live        # the live catalog
     python3 chip_smoke.py --only durable     # the durable live catalog
     python3 chip_smoke.py --only main_wall   # the main path's warm wall
+    python3 chip_smoke.py --only quantized   # the quantized mirror
+    python3 chip_smoke.py --only sharded     # n_shards 1, 2, 4, 8
     python3 chip_smoke.py --only serve       # the serving layer
 
 Phases print one JSON line each. The line before the last two is
@@ -1104,6 +1113,9 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
             raise AssertionError(f"C1 catalog, max_results={mr}: knn ids "
                                  f"!= the reference's")
     live = live_gpu_vs_cpu(device, n, d)
+    quantized = quantized_gpu_vs_cpu(device, x, reqs)
+    sharded = sharded_gpu_vs_cpu(device, x, reqs, eg)
+    live_sharded = live_gpu_vs_cpu(device, n, d, n_shards=LIVE_SHARDS)
     emit({"phase": "gpu_vs_cpu", "rows": n, "dims": d, "requests": 8,
           "engine_modes": list(ENGINE_MODES),
           "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
@@ -1111,7 +1123,8 @@ def phase_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> None:
           "c1_inf_catalog_knn": {"rows": int(xc.shape[0]),
                                  "ids": len(C1_KNN_IDS),
                                  "gpu_equals_cpu_equals_reference": True},
-          "live": live,
+          "live": live, "quantized": quantized, "sharded": sharded,
+          "live_sharded": live_sharded,
           "bitwise_equal": True, "seconds": time.perf_counter() - t0})
 
 
@@ -1447,11 +1460,12 @@ FIT_STAGES = ("_fit_boxes_batched", "dbens_draws", "split_tables",
               "_select_expand")
 
 
-def host_split(fn) -> dict:
-    """Host seconds of one call of ``fn`` by stage (FIT_STAGES, cumulative
-    as cProfile reports them; ``_fit_boxes_batched`` is the whole fit, and
-    what its stages leave is the packing of the lane stack in numpy).
-    cProfile slows Python calls, not the numpy and torch calls inside."""
+def host_split(fn, stages=FIT_STAGES) -> dict:
+    """Host seconds of one call of ``fn`` by stage (``stages``, FIT_STAGES
+    by default, cumulative as cProfile reports them; ``_fit_boxes_batched``
+    is the whole fit, and what its stages leave is the packing of the lane
+    stack in numpy). cProfile slows Python calls, not the numpy and torch
+    calls inside."""
     import cProfile
     import pstats
     import torch
@@ -1462,7 +1476,7 @@ def host_split(fn) -> dict:
     pr.disable()
     out = {}
     for (_, _, name), row in pstats.Stats(pr).stats.items():
-        if name in FIT_STAGES:
+        if name in stages:
             out[name] = out.get(name, 0.0) + row[3]
     return out
 
@@ -1891,22 +1905,28 @@ def kernel_threads():
             setattr(mod, fn_name, fn)
 
 
-def paired_walls(live, static, reqs, rounds: int = None) -> dict:
-    """Per-query wall of a warm query_batch on the live and the static
-    engine, timed in turns (live, static, static, live, ...): the median
-    of ``rounds`` batches each."""
+def turn_walls(engines: dict, reqs, rounds: int = None) -> dict:
+    """Per-query wall of a warm query_batch on each named engine, timed in
+    turns (each round starts one engine later: live, static, static,
+    live, ... for two): the median of ``rounds`` batches each."""
     import torch
-    walls = {"live": [], "static": []}
+    names = list(engines)
+    walls = {name: [] for name in names}
     for i in range(rounds or LIVE_WALL_ROUNDS):
-        order = (("live", live), ("static", static))
-        for name, eng in (order if i % 2 == 0 else order[::-1]):
+        j = i % len(names)
+        for name in names[j:] + names[:j]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            eng.query_batch(reqs)
+            engines[name].query_batch(reqs)
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t0) / len(reqs))
-    return {f"{k}_per_query_wall_s": float(np.median(v))
-            for k, v in walls.items()}
+    return {name: float(np.median(v)) for name, v in walls.items()}
+
+
+def paired_walls(live, static, reqs, rounds: int = None) -> dict:
+    """turn_walls of a live and a static engine."""
+    return {f"{k}_per_query_wall_s": v for k, v in turn_walls(
+        {"live": live, "static": static}, reqs, rounds).items()}
 
 
 def mapped_requests(reqs, live_ids) -> list:
@@ -1998,10 +2018,12 @@ def live_knn_inputs(live, pos) -> dict:
     return out
 
 
-def live_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> dict:
+def live_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D,
+                    n_shards: int = 1) -> dict:
     """The live schedule at ``n`` rows on a GPU engine and the port's CPU
-    engine: after the appends, the deletes and the compaction, query
-    batches in the default, numpy-fit and dense modes and with
+    engine (``n_shards`` of them: the base ceil-split, appends on
+    per-shard tails): after the appends, the deletes and the compaction,
+    query batches in the default, numpy-fit and dense modes and with
     use_fused=False, and the dtree / rforest / knn queries, bitwise
     (stats included)."""
     from repro_torch.core import SearchEngine
@@ -2009,8 +2031,8 @@ def live_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> dict:
     x, assign = clustered(n, d, seed=5)
     reqs = make_requests(assign, 8, 100, seed=6)
     base, passes = live_split(n)
-    eg = SearchEngine(x[:base], device=device, live=True)
-    ec = SearchEngine(x[:base], device="cpu", live=True)
+    eg = SearchEngine(x[:base], device=device, live=True, n_shards=n_shards)
+    ec = SearchEngine(x[:base], device="cpu", live=True, n_shards=n_shards)
 
     def check(dead=()):
         for mode in ENGINE_MODES:
@@ -2051,10 +2073,12 @@ def live_gpu_vs_cpu(device, n: int = MID_N, d: int = FULL_D) -> dict:
     check(dead)
     stg, stc = eg.index_stats(), ec.index_stats()
     for k in ("epoch", "geom", "n_segments", "rows_live", "rows_tombstoned",
-              "segments"):
+              "segments", "n_shards"):
         if stg[k] != stc[k]:
             raise AssertionError(f"live index_stats {k} differ")
     return {"rows": n, "base_rows": base, "appends": len(passes),
+            "n_shards": n_shards, "shard_tail_segments":
+                stg["shard_tail_segments"],
             "deleted": int(len(dead)), "epoch": stg["epoch"],
             "checked_after": ["appends", "deletes", "compaction"],
             "engine_modes": list(ENGINE_MODES), "use_fused_false": True,
@@ -3759,6 +3783,546 @@ def phase_serve_only(device) -> None:
     phase_serve(device, eng)
 
 
+# ----------------------------------------------------------------------
+# the quantized mirror (A10) and the sharded catalogs (A11)
+# ----------------------------------------------------------------------
+
+# the quantized batch's host stages: the whole scoring, the probes, the
+# compactions, the candidate syncs (Tensor.cpu), the host-row staging
+# (inv_perm, np.full), the pinned uploads, the re-checks; beside the fit
+# and the ranking
+QUANT_STAGES = ("_device_scores_quantized", "quantized_probe",
+                "quantized_compact", "<method 'cpu' of 'torch._C.TensorBase' "
+                "objects>", "inv_perm", "full", "to_device_async",
+                "quantized_recheck", "_fit_boxes_batched", "_rank_device")
+SHARD_COUNTS = (1, 2, 4, 8)    # benchmarks/query_time.py run_sharded's
+GPU_VS_CPU_SHARDS = 4
+LIVE_SHARDS = 2
+MESH_SHARDS = 4                # a device list naming the one card 4 times
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch counter to 0."""
+    from repro_torch.kernels import box_scan, flash_attention, l2dist
+    from repro_torch.kernels import zone_prune
+    zone_prune.launches = zone_prune.candidates_launches = 0
+    box_scan.scan_launches = box_scan.seg_launches = 0
+    l2dist.launches = flash_attention.launches = 0
+
+
+def read_counts() -> dict:
+    """Each kernel's launches since zero_counts (zone_prune: its [NZ, B]
+    and hit-vector entries)."""
+    from repro_torch.kernels import box_scan, flash_attention, l2dist
+    from repro_torch.kernels import zone_prune
+    return {"zone_candidates": zone_prune.candidates_launches,
+            "zone_prune": zone_prune.launches
+            - zone_prune.candidates_launches,
+            "box_scan_seg": box_scan.seg_launches,
+            "box_scan": box_scan.scan_launches, "l2dist": l2dist.launches,
+            "flash_attention": flash_attention.launches}
+
+
+def counted(fn):
+    """(fn's result, the kernel launches it made): the counters are set
+    to 0 just before and read just after."""
+    zero_counts()
+    out = fn()
+    return out, read_counts()
+
+
+def needs_launches(counts: dict, names, what: str) -> None:
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: {missing} never launched ({counts})")
+
+
+def quantized_gpu_vs_cpu(device, x, reqs) -> dict:
+    """mirror="quantized" on the card against the port's CPU engine:
+    batches with and without max_results and single queries, ids, scores
+    and integer stats bitwise, at two capacity fractions (1/64 forces
+    overflow retries); resident bytes by kind equal, no f32 mirror."""
+    from repro_torch.core import SearchEngine
+    t0 = time.perf_counter()
+    for cf in (0.25, 1 / 64):
+        eg = SearchEngine(x, device=device, mirror="quantized",
+                          capacity_frac=cf)
+        ec = SearchEngine(x, device="cpu", mirror="quantized",
+                          capacity_frac=cf)
+        for mr in (100, None):
+            rq = [{**r, "max_results": mr} for r in reqs]
+            same_results(eg.query_batch(rq), ec.query_batch(rq))
+        for r in reqs[:2]:
+            kw = dict(model=r["model"], max_results=100)
+            same_results([eg.query(r["pos_ids"], r["neg_ids"], **kw)],
+                         [ec.query(r["pos_ids"], r["neg_ids"], **kw)],
+                         batched=False)
+    bg, bc = (e.index_stats()["device_bytes"] for e in (eg, ec))
+    if bg != bc or bg["rows"] or bg["zones"] or not bg["quantized"]:
+        raise AssertionError(f"quantized device bytes {bg} (CPU {bc})")
+    return {"capacity_fracs": [0.25, 1 / 64], "device_bytes": bg,
+            "bitwise_equal": True, "seconds": time.perf_counter() - t0}
+
+
+def sharded_gpu_vs_cpu(device, x, reqs, eg1) -> dict:
+    """n_shards=GPU_VS_CPU_SHARDS on the card (flat) against the port's CPU
+    engine: the default, numpy-fit and dense modes, use_fused=False and
+    the dtree / rforest / knn queries, bitwise (stats included); an
+    engine on a device list naming the card MESH_SHARDS times, ids and
+    scores bitwise the flat one's; and on such a list distributed_query
+    and its pruned form over the unsharded card engine ``eg1``'s largest
+    probe, bitwise query_index and the same calls over a CPU list."""
+    from repro_torch.core import SearchEngine
+    t0 = time.perf_counter()
+    s = GPU_VS_CPU_SHARDS
+    eg = SearchEngine(x, device=device, n_shards=s)
+    ec = SearchEngine(x, device="cpu", n_shards=s)
+    if eg.shard_mesh is not None:
+        raise AssertionError("one card, and the engine built a mesh")
+    for mode in ENGINE_MODES:
+        set_mode((eg, ec), mode)
+        for mr in (100, None):
+            rq = [{**r, "max_results": mr} for r in reqs]
+            same_results(eg.query_batch(rq), ec.query_batch(rq))
+    set_mode((eg, ec), "default")
+    for e in (eg, ec):
+        e.use_fused = False
+    try:
+        rq = [{**r, "max_results": None} for r in reqs]
+        same_all(eg.query_batch(rq), ec.query_batch(rq))
+    finally:
+        for e in (eg, ec):
+            e.use_fused = True
+    for model in ("dtree", "rforest", "knn"):
+        for r in reqs[:2]:
+            kw = dict(model=model, max_results=100, k_neighbors=1000)
+            same_all([eg.query(r["pos_ids"], r["neg_ids"], **kw)],
+                     [ec.query(r["pos_ids"], r["neg_ids"], **kw)])
+    em = SearchEngine(x, device=device, n_shards=MESH_SHARDS,
+                      shard_mesh=[str(device)] * MESH_SHARDS)
+    for mr in (100, None):
+        rq = [{**r, "max_results": mr} for r in reqs]
+        same_ranked(em.query_batch(rq), ec.query_batch(rq),
+                    "device-list mesh != flat (CPU)")
+    dist = distributed_check(eg1, reqs, [str(device)] * MESH_SHARDS,
+                             cpu_mesh=["cpu"] * MESH_SHARDS)
+    return {"n_shards": s, "engine_modes": list(ENGINE_MODES),
+            "use_fused_false": True,
+            "models": ["dbranch", "dbens", "dtree", "rforest", "knn"],
+            "mesh": [str(d) for d in em.shard_mesh],
+            "distributed_query": dist,
+            "bitwise_equal": True, "seconds": time.perf_counter() - t0}
+
+
+def held_seg(x, lo, hi, onehot, what: str):
+    """box_scan_seg's kernel on (x, lo, hi, onehot) held bitwise to its
+    plain version, which runs over row chunks (rows are independent, so
+    the chunks' concatenation is the whole); returns the plain counts."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    got = ops.box_scan_seg(x, lo, hi, onehot)
+    step = max(1, ref._SCAN_CHUNK_ELEMS // max(lo.shape[0] * x.shape[1], 1))
+    want = torch.cat([ref.box_scan_seg_ref(x[i:i + step], lo, hi, onehot)
+                      for i in range(0, x.shape[0], step)])
+    if not torch.equal(got, want):
+        raise AssertionError(f"box_scan_seg, {what} {tuple(x.shape)} x "
+                             f"{lo.shape[0]} boxes: kernel != plain")
+    return want
+
+
+def quantized_recount(eq, reqs) -> dict:
+    """The quantized scoring at full size, its launches held to the plain
+    versions and its integer stats recounted with them. The jobs are the
+    batch's (query_batch's device fit, _make_jobs_flat); for each subset
+    at the capacity the warm hints give: zone_candidates on the widened
+    f16 zones and box_scan_seg on the code-space inputs (codes widened to
+    f32 over [C·block, d'], thresholds that are ±inf on pad boxes, an
+    all-ones [B, 1] one-hot) bitwise their plain versions, the candidate
+    mask, count and compacted list bitwise quantized_probe's and
+    quantized_compact's; then box_scan_seg on the re-check's staged
+    [rcap, d'] rows and the request one-hot. An overflow retries as the
+    engine does. Host syncs, host bytes (stat vectors, candidate lists,
+    staged rows), score rows and gathered blocks recounted from the plain
+    candidate sets must equal what the engine's scoring reports for the
+    same jobs."""
+    import torch
+    from repro_torch.core.capacity import pow2ceil
+    from repro_torch.core.index import (code_thresholds, quantized_compact,
+                                        quantized_probe)
+    from repro_torch.kernels import ops, ref
+    nq = len(reqs)
+    lo_c, hi_c, entries = batched_fit(eq, reqs)
+    jobs, _ = eq._make_jobs_flat(
+        [(lo_c, hi_c, g, sid, cnt, q) for q, ent in enumerate(entries)
+         for g, sid, cnt in ent], nq)
+    count = {"n_host_syncs": 0, "host_bytes_transferred": 0,
+             "score_rows": 0, "blocks_gathered": 0, "retried_subsets": 0}
+    shapes = {"code_space_rows_max": 0, "boxes_max": 0,
+              "recheck_rows_max": 0, "inf_thresholds": 0}
+    rounds = 0
+    for sid, merged, owner in jobs:
+        ix = eq.indexes[sid]
+        lo, hi, oh = eq._probe_inputs(merged, owner, nq)
+        cap = eq._initial_capacity(ix, merged.n_boxes)
+        qrows3, c0, scale, zlo16, zhi16 = ix.device_quantized()
+        _, block, d = qrows3.shape
+        attempts = 0
+        while True:
+            attempts += 1
+            count["host_bytes_transferred"] += 8     # the [2] stat vector
+            zl, zh = zlo16.float(), zhi16.float()
+            cand, n_hit = ref.zone_candidates_ref(zl, zh, lo, hi, cap)
+            kc, kn = ops.zone_candidates(zl, zh, lo, hi, cap)
+            if not (torch.equal(kc, cand) and torch.equal(kn, n_hit)):
+                raise AssertionError(f"subset {sid}: zone_candidates on "
+                                     f"the f16 zones != plain")
+            nh = int(n_hit)
+            if nh <= cap:
+                break
+            count["blocks_gathered"] += cap
+            cap = min(pow2ceil(nh), ix.n_blocks)
+        rounds = max(rounds, attempts)
+        count["retried_subsets"] += attempts - 1
+        count["blocks_gathered"] += cap
+        qf = (qrows3.index_select(0, cand.long()).float() + 127.0).reshape(
+            cap * block, d)
+        tlo, thi = code_thresholds(lo, hi, c0, scale)
+        ones = torch.ones((lo.shape[0], 1), dtype=torch.float32,
+                          device=lo.device)
+        m = held_seg(qf, tlo, thi, ones, f"subset {sid} code space")
+        gids = ix.device_gids().index_select(0, cand.long())
+        valid = torch.arange(cap, device=lo.device) < n_hit
+        want = (m.reshape(cap, block) > 0) & (gids >= 0) & valid[:, None]
+        kg, kmask, kst = quantized_probe(ix, lo, hi, capacity=cap)
+        nc = int(want.sum())
+        if not (torch.equal(kmask, want) and torch.equal(kg, gids)
+                and kst.tolist() == [nh, nc]):
+            raise AssertionError(f"subset {sid}: quantized_probe != the "
+                                 f"plain candidate set ({kst.tolist()} "
+                                 f"against {[nh, nc]})")
+        rcap = pow2ceil(max(nc, 1))
+        live = torch.arange(rcap, device=lo.device) < nc
+        cg = torch.where(live, gids.reshape(-1)[
+            ref.compact_ref(want.reshape(-1), rcap).long()], -1)
+        if not torch.equal(quantized_compact(kg, kmask,
+                                             row_capacity=rcap)[0], cg):
+            raise AssertionError(f"subset {sid}: quantized_compact != plain")
+        cgh = cg.cpu().numpy()
+        xsub = np.full((rcap, d), np.inf, np.float32)
+        livem = cgh >= 0
+        xsub[livem] = ix.rows[ix.inv_perm()[cgh[livem]]]
+        held_seg(torch.from_numpy(xsub).to(lo.device), lo, hi, oh,
+                 f"subset {sid} re-check")
+        count["n_host_syncs"] += 1
+        count["host_bytes_transferred"] += int(cgh.nbytes) + int(xsub.nbytes)
+        count["score_rows"] += nc
+        shapes["code_space_rows_max"] = max(shapes["code_space_rows_max"],
+                                            int(qf.shape[0]))
+        shapes["boxes_max"] = max(shapes["boxes_max"], int(lo.shape[0]))
+        shapes["recheck_rows_max"] = max(shapes["recheck_rows_max"], rcap)
+        shapes["inf_thresholds"] += int(torch.isinf(tlo).sum()
+                                        + torch.isinf(thi).sum())
+    count["n_host_syncs"] += rounds
+    _, agg = eq._device_scores(jobs, nq, eq._view())
+    got = {key: int(agg[key]) for key in count}
+    if got != count:
+        raise AssertionError(f"quantized scoring stats {got} != the plain "
+                             f"recount {count}")
+    return {"subsets": len(jobs), "rounds": rounds, "recount": count,
+            "shapes": shapes, "box_scan_seg_exact": True,
+            "zone_candidates_exact": True}
+
+
+def distributed_check(eng, reqs, mesh, cpu_mesh=None) -> dict:
+    """The mesh leg's distributed_query (zone_hits + box_scan a device)
+    and distributed_query_pruned (zone_candidates + box_scan) over the
+    device list ``mesh``, at the subset and boxes of the batch's largest
+    probe: each bitwise query_index's counts, Morton order mapped back;
+    with ``cpu_mesh`` also bitwise the same calls over that CPU list.
+    Returns their launches."""
+    import torch
+    from repro_torch.core.boxes import BoxSet
+    from repro_torch.core.index import (distributed_query,
+                                        distributed_query_pruned,
+                                        query_index)
+    ix, lo, hi, _, _ = max(probe_inputs(eng, reqs),
+                           key=lambda t: t[1].shape[0])
+    rows3, zlo, zhi = ix.device_arrays()
+    per_dev = ix.n_blocks // len(mesh)           # covers every survivor
+    args = (rows3, zlo, zhi, lo, hi)
+    got, l_full = counted(lambda: distributed_query(*args, mesh, ix.block))
+    pruned, l_pruned = counted(lambda: distributed_query_pruned(
+        *args, mesh, ix.block, per_dev))
+    torch.cuda.synchronize()
+    if not torch.equal(got, pruned):
+        raise AssertionError("distributed_query_pruned != distributed_query")
+    local, _ = query_index(ix, BoxSet(lo.cpu().numpy(), hi.cpu().numpy(),
+                                      ix.dims, ix.subset_id))
+    valid = ix.perm >= 0
+    g = got.cpu().numpy()
+    back = np.zeros(ix.n_rows, np.int32)
+    back[ix.perm[valid]] = g[valid]
+    if not np.array_equal(back, local):
+        raise AssertionError("distributed_query != query_index")
+    if cpu_mesh is not None:
+        cargs = [a.cpu() for a in args]
+        if not (np.array_equal(distributed_query(
+                *cargs, cpu_mesh, ix.block).numpy(), g)
+                and np.array_equal(distributed_query_pruned(
+                    *cargs, cpu_mesh, ix.block, per_dev).numpy(), g)):
+            raise AssertionError("distributed_query on the card != CPU")
+    needs_launches(l_full, ("zone_prune", "box_scan"), "distributed_query")
+    needs_launches(l_pruned, ("zone_candidates", "box_scan"),
+                   "distributed_query_pruned")
+    return {"mesh": [str(d) for d in mesh], "blocks": ix.n_blocks,
+            "boxes": int(lo.shape[0]), "counted_rows": int((g > 0).sum()),
+            "launches": {"distributed_query": l_full,
+                         "distributed_query_pruned": l_pruned},
+            "bitwise_query_index": True, "bitwise_cpu": cpu_mesh is not None}
+
+
+def phase_quantized(device, eng, reqs, k: int = 100) -> dict:
+    """mirror="quantized" at full width: full_size's catalog and batch of
+    8 on a quantized engine beside full_size's f32 engine ``eng``: ids
+    and scores bitwise (ranked and full lists), the cadence (one stat
+    sync a round plus one candidate sync a subset), resident bytes by
+    kind for both engines and their ratio, the warm per-query wall of
+    both in turns, host bytes and launches a batch, device busy; and
+    quantized_recount: every box_scan_seg and zone_candidates input of
+    the batch's scoring held to the plain versions at full size, its
+    syncs, host bytes, score rows and gathered blocks recounted from
+    them. Returns the quantized batch's launches."""
+    import torch
+    from repro_torch.core import SearchEngine
+    from repro_torch.kernels import box_scan, zone_prune
+    t0 = time.perf_counter()
+    eq = SearchEngine(eng.x, device=device, mirror="quantized")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eq.query_batch(reqs)                      # the mirrors, the hints
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eq.query_batch(reqs)
+    torch.cuda.synchronize()
+    outs, launches = counted(lambda: eq.query_batch(reqs))
+    needs_launches(launches, ("zone_candidates", "box_scan_seg"),
+                   "the quantized batch")
+    if launches["zone_prune"] or launches["box_scan"]:
+        raise AssertionError(f"the quantized batch ran another path: "
+                             f"{launches}")
+    same_ranked(outs, eng.query_batch(reqs), "quantized != f32")
+    rq = [{**r, "max_results": None} for r in reqs]
+    same_ranked(eq.query_batch(rq), eng.query_batch(rq),
+                "quantized != f32, max_results=None")
+    st = outs[0].stats
+    # per subset one probe (a zone_candidates, a code-space box_scan_seg)
+    # and, once it did not overflow, one re-check box_scan_seg; one stat
+    # sync a round and one candidate sync a subset
+    subsets = launches["box_scan_seg"] - launches["zone_candidates"]
+    if (st["batch_retried_subsets"] == 0
+            and st["batch_n_host_syncs"] != 1 + subsets):
+        raise AssertionError(f"{st['batch_n_host_syncs']} host syncs for "
+                             f"{subsets} subsets in one round")
+    # the batch's own stats are the recount's: the same jobs and hints
+    recount = quantized_recount(eq, reqs)
+    for key in ("n_host_syncs", "score_rows", "blocks_gathered",
+                "retried_subsets"):
+        if st[f"batch_{key}"] != recount["recount"][key]:
+            raise AssertionError(f"quantized batch {key} "
+                                 f"{st[f'batch_{key}']} != the plain "
+                                 f"recount {recount['recount'][key]}")
+    rank_bytes = (st["batch_host_bytes_transferred"]
+                  - recount["recount"]["host_bytes_transferred"])
+    # ... and the rest is the ranked lists' bytes, the f32 batch's past
+    # its [2] stat vector a probe
+    f32_outs, f32_launches = counted(lambda: eng.query_batch(reqs))
+    f32_host = f32_outs[0].stats["batch_host_bytes_transferred"]
+    if rank_bytes != f32_host - 8 * f32_launches["zone_candidates"]:
+        raise AssertionError(f"quantized batch host bytes "
+                             f"{st['batch_host_bytes_transferred']}: the "
+                             f"scoring's recount {recount['recount']} and "
+                             f"ranked lists not the f32 batch's ({f32_host},"
+                             f" {f32_launches['zone_candidates']} probes)")
+    bq = eq.index_stats()["device_bytes"]
+    bf = eng.index_stats()["device_bytes"]
+    if bq["rows"] or bq["zones"] or not bq["quantized"]:
+        raise AssertionError(f"quantized engine's device bytes {bq}")
+    _, wall_q, peak_q = timed_batch(eq, reqs)
+    walls = turn_walls({"quantized": eq, "f32": eng}, reqs)
+    counters = {
+        "zone_candidates_kernel": lambda: zone_prune.candidates_launches,
+        "box_scan_seg_kernel": lambda: box_scan.seg_launches}
+    prof = profile_batch(lambda: eq.query_batch(reqs), counters)
+    host_s = host_split(lambda: eq.query_batch(reqs), QUANT_STAGES)
+    out = {"phase": "quantized", "rows": eng.n, "dims": eng.d,
+           "batch": len(reqs), "build_s": build_s,
+           "first_batch_s": first_s,
+           "per_query_wall_s": walls["quantized"],
+           "f32_per_query_wall_s": walls["f32"],
+           "wall_ratio_quantized_over_f32": walls["quantized"] / walls["f32"],
+           "timed_batch_wall_s": wall_q, "max_memory_allocated": peak_q,
+           "device_bytes": {"quantized": bq, "f32": bf},
+           "f32_rows_zones_over_quantized":
+               (bf["rows"] + bf["zones"]) / bq["quantized"],
+           "n_host_syncs": st["batch_n_host_syncs"],
+           "subsets": subsets,
+           "retried_subsets": st["batch_retried_subsets"],
+           "host_bytes_transferred": st["batch_host_bytes_transferred"],
+           "host_bytes_per_query":
+               st["batch_host_bytes_transferred"] / len(reqs),
+           "f32_host_bytes_transferred": f32_host,
+           "blocks_gathered": st["batch_blocks_gathered"],
+           "score_rows": st["batch_score_rows"],
+           "plain_recount": recount, "rank_host_bytes": rank_bytes,
+           "launches": launches, "profile": prof, "host_s": host_s,
+           "bitwise_equal_f32": True}
+    emit(out)
+    return launches
+
+
+def phase_sharded(device, eng, reqs, k: int = 100) -> dict:
+    """n_shards in SHARD_COUNTS at full width, flat on the one card (as
+    benchmarks/query_time.py run_sharded sweeps them): full_size's
+    catalog and batch of 8; S = 1 is full_size's engine ``eng``. Each
+    engine's ranked and full lists bitwise S = 1's; host bytes a query,
+    syncs, launches and resident bytes; the warm per-query wall of all in
+    turns. Beside them an engine on a device list naming the card
+    MESH_SHARDS times (a code-path check of the mesh leg, not a multi-card
+    figure), and at S = 4 the dense mode, the dtree / rforest / knn
+    queries and use_fused=False, bitwise S = 1's. Returns the launches by
+    path."""
+    import torch
+    from repro_torch.core import SearchEngine
+    rq_full = [{**r, "max_results": None} for r in reqs]
+    outs1 = eng.query_batch(reqs)
+    full1 = eng.query_batch(rq_full)
+    engines, build = {"S=1": eng}, {}
+    for s in SHARD_COUNTS[1:]:
+        t0 = time.perf_counter()
+        engines[f"S={s}"] = SearchEngine(eng.x, device=device, n_shards=s)
+        build[f"S={s}"] = time.perf_counter() - t0
+        if engines[f"S={s}"].shard_mesh is not None:
+            raise AssertionError("one card, and the engine built a mesh")
+    mesh = f"mesh{MESH_SHARDS}"
+    t0 = time.perf_counter()
+    engines[mesh] = SearchEngine(eng.x, device=device, n_shards=MESH_SHARDS,
+                                 shard_mesh=[str(device)] * MESH_SHARDS)
+    build[mesh] = time.perf_counter() - t0
+    per, launches = {}, {}
+    for name, e in engines.items():
+        t0 = time.perf_counter()
+        e.query_batch(reqs)                   # the mirrors, the hints
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        e.query_batch(reqs)
+        torch.cuda.synchronize()
+        outs, launches[name] = counted(lambda: e.query_batch(reqs))
+        needs_launches(launches[name], ("zone_candidates", "box_scan_seg"),
+                       f"the {name} batch")
+        same_ranked(outs, outs1, f"{name} != S=1")
+        same_ranked(e.query_batch(rq_full), full1,
+                    f"{name} != S=1, max_results=None")
+        st = outs[0].stats
+        per[name] = {
+            "first_batch_s": first_s, "build_s": build.get(name),
+            "n_host_syncs": st["batch_n_host_syncs"],
+            "retried_subsets": st["batch_retried_subsets"],
+            "host_bytes_per_query":
+                st["batch_host_bytes_transferred"] / len(reqs),
+            "blocks_gathered": st["batch_blocks_gathered"],
+            "blocks_touched": st["batch_blocks_touched"],
+            "score_rows": st["batch_score_rows"],
+            "device_bytes": e.index_stats()["device_bytes"]["total"],
+            "launches": launches[name]}
+    # host bytes flat in S: a probe syncs a [5] int32 stat vector flat at
+    # every S > 1, a [2] one at S = 1 (one zone_candidates a probe, retries
+    # included); the rest (the ranked lists) is the same at every S
+    rest = {name: per[name]["host_bytes_per_query"] * len(reqs)
+            - (8 if name == "S=1" else 20)
+            * launches[name]["zone_candidates"]
+            for name in [f"S={s}" for s in SHARD_COUNTS]}
+    if len(set(rest.values())) != 1:
+        raise AssertionError(f"host bytes past the stat vectors differ "
+                             f"with S: {rest} ({per})")
+    walls = turn_walls(engines, reqs)
+    # S = 4: the dense buffer, the scan and knn models, the host oracle
+    e4, s4 = engines["S=4"], {}
+    set_mode([e4], "dense")
+    try:
+        outs_d, wall_d, peak_d = timed_batch(e4, reqs)
+        _, launches["S=4_dense"] = counted(lambda: e4.query_batch(reqs))
+    finally:
+        set_mode([e4], "default")
+    same_ranked(outs_d, outs1, "S=4 dense != S=1")
+    s4["dense"] = {"query_batch_wall_s": wall_d,
+                   "per_query_wall_s": wall_d / len(reqs),
+                   "max_memory_allocated": peak_d,
+                   "score_buffer_bytes_peak":
+                       outs_d[0].stats["batch_score_buffer_bytes_peak"]}
+    pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
+    kw = dict(max_results=k, max_depth=12, n_models=25, k_neighbors=1000)
+    for m in ("dtree", "rforest", "knn"):
+        e4.query(pos, neg, model=m, **kw)     # warm
+        t0 = time.perf_counter()
+        a, launches[f"S=4_{m}"] = counted(
+            lambda: e4.query(pos, neg, model=m, **kw))
+        torch.cuda.synchronize()
+        s4[m] = {"query_wall_s": time.perf_counter() - t0}
+        same_ranked([a], [eng.query(pos, neg, model=m, **kw)],
+                    f"S=4 {m} != S=1")
+    needs_launches(launches["S=4_knn"], ("l2dist",), "S=4 knn")
+    if launches["S=4_knn"]["l2dist"] != 4:
+        raise AssertionError("S=4 knn: not one l2dist a shard")
+    needs_launches(launches["S=4_rforest"], ("box_scan",), "S=4 rforest")
+    e4.use_fused = False
+    try:
+        e4.query_batch(rq_full)               # the shards' own mirrors
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_u, launches["S=4_host_oracle"] = counted(
+            lambda: e4.query_batch(rq_full))
+        torch.cuda.synchronize()
+        s4["host_oracle"] = {"per_query_wall_s":
+                             (time.perf_counter() - t0) / len(reqs)}
+    finally:
+        e4.use_fused = True
+    needs_launches(launches["S=4_host_oracle"], ("zone_prune", "box_scan"),
+                   "S=4 use_fused=False")
+    same_ranked(outs_u, full1, "S=4 use_fused=False != S=1")
+    dist = distributed_check(eng, reqs, [str(device)] * MESH_SHARDS)
+    for leg, n in dist["launches"].items():
+        launches[f"{mesh}_{leg}"] = n
+    emit({"phase": "sharded", "rows": eng.n, "dims": eng.d,
+          "batch": len(reqs), "shard_counts": list(SHARD_COUNTS),
+          "flat": True, "mesh": {"name": mesh,
+                                 "devices": [str(d) for d in
+                                             engines[mesh].shard_mesh],
+                                 "note": "one card named "
+                                         f"{MESH_SHARDS} times: a code-path "
+                                         "check, not a multi-card figure"},
+          "per_query_wall_s": walls, "per_engine": per,
+          "host_bytes_flat_in_S": True, "host_bytes_past_stats": rest,
+          "distributed_query": dist, "S=4": s4, "launches": launches,
+          "bitwise_equal_S1": True})
+    return launches
+
+
+def phase_quantized_only(device) -> None:
+    """``--only quantized``: full_size's static engine (one warm batch),
+    then the quantized phase."""
+    eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    eng.query_batch(reqs)
+    phase_quantized(device, eng, reqs)
+
+
+def phase_sharded_only(device) -> None:
+    """``--only sharded``: full_size's static engine (one warm batch),
+    then the sharded phase."""
+    eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    eng.query_batch(reqs)
+    phase_sharded(device, eng, reqs)
+
+
 KERNELS = {
     "zone_candidates": ("src/repro_torch/kernels/csrc/zone_prune.cu",
                         "src/repro/kernels/zone_prune.py:33"),
@@ -3785,21 +4349,24 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "live": phase_live_only,
         "durable": phase_durable_only,
         "main_wall": phase_main_wall,
+        "quantized": phase_quantized_only,
+        "sharded": phase_sharded_only,
         "serve": phase_serve_only}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
-    box_scan, zone_prune, l2dist, fit, live, durable, main_wall and serve,
-    the kernels are built and only those phases run: the FLASH_CASES rows,
-    the 400x400 extraction, the box scans at the main path's inputs,
-    zone_candidates on synthetic zone maps, l2dist at the knn path's
-    inputs, the batched device fit at full size, the live catalog at full
-    size (and its GPU-vs-CPU schedule), the durable live catalog at full
-    size (about 3.5 GB on disk under build/ at its peak), the main path's
-    warm wall, the serving layer over full_size's engine; for comparing
-    two trees on one card."""
+    box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
+    quantized, sharded and serve, the kernels are built and only those
+    phases run: the FLASH_CASES rows, the 400x400 extraction, the box
+    scans at the main path's inputs, zone_candidates on synthetic zone
+    maps, l2dist at the knn path's inputs, the batched device fit at full
+    size, the live catalog at full size (and its GPU-vs-CPU schedule), the
+    durable live catalog at full size (about 3.5 GB on disk under build/
+    at its peak), the main path's warm wall, the quantized mirror and the
+    sharded catalogs at full size, the serving layer over full_size's
+    engine; for comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -3859,6 +4426,8 @@ def main(argv) -> int:
     res["flash_attention"] = measure_flash(*flash_in, causal=False,
                                            profile=True)
     emit({"phase": "kernels_main_path", "card": card, "runs": [res]})
+    quant_launches = phase_quantized(dev, ctx[0], ctx[1])
+    shard_launches = phase_sharded(dev, ctx[0], ctx[1])
     # last: the serving layer's Observability turns profiling on
     serve = phase_serve(dev, ctx[0])["full"]["launches_per_window"]
     # each kernel's launches on its own path: the fused batch of 8 for
@@ -3899,6 +4468,12 @@ def main(argv) -> int:
                    "extract_catalog": flash_launches,
                    "per_batch": flash_launches
                    / -(-EXTRACT_N // EXTRACT_BATCH)}}
+    # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
+    # batch, its dense batch, knn, dtree + rforest and use_fused=False
+    for name in KERNELS:
+        by_path[name]["quantized_batch"] = quant_launches[name]
+        by_path[name]["sharded"] = {
+            path: c[name] for path, c in shard_launches.items()}
     rows = []
     for name, (src, replaces) in KERNELS.items():
         r = res[name]

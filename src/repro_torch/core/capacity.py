@@ -6,22 +6,31 @@ In the reference every capacity that reaches a kernel is a static jit
 argument, so capacities come from a small set of buckets. The port keeps
 the same buckets: they decide gather sizes, overflow retries and tile
 memory, which the parity tests compare. Only the helpers the static
-sparse path uses are copied (``pow2above`` and ``fit_bucket`` come with
-the paths that need them).
+sparse and sharded paths use are copied (``fit_bucket`` comes with the
+path that needs it).
 
 - ``pow2ceil(v)`` — smallest power of two >= v (4 -> 4). Used for gather
   capacities and row-tile sizing, where v itself is a valid capacity.
+- ``pow2above(v)`` — smallest power of two strictly > v (4 -> 8). Used for
+  the sharded ranking's score bound, which must exceed every score.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["pow2ceil", "quantum_bucket", "hybrid_bucket", "HintTable"]
+__all__ = ["pow2ceil", "pow2above", "quantum_bucket", "hybrid_bucket",
+           "HintTable"]
 
 
 def pow2ceil(v: int) -> int:
     """Smallest power of two >= max(v, 1). pow2ceil(4) == 4."""
     return 1 << max(int(v) - 1, 0).bit_length()
+
+
+def pow2above(v: int) -> int:
+    """Smallest power of two strictly greater than max(v, 1).
+    pow2above(4) == 8."""
+    return 1 << int(max(v, 1)).bit_length()
 
 
 def quantum_bucket(v: int, quantum: int) -> int:

@@ -1,6 +1,8 @@
-"""The RapidEarth search engine on PyTorch — the single-device paths of
-``repro.core.engine`` for all five models, over a static catalog or a
-live one (``live=True``: append / delete / compact, core/segments.py).
+"""The RapidEarth search engine on PyTorch — the port of
+``repro.core.engine`` for all five models, over a static catalog, a
+sharded one (``n_shards``), a quantized mirror (``mirror="quantized"``)
+or a live one (``live=True``: append / delete / compact,
+core/segments.py).
 
   offline:  features [N, D]  ->  K feature subsets  ->  K zone-map indexes
   online :  (pos ids, neg ids, model)  ->  batched device fit  ->
@@ -34,9 +36,17 @@ live catalog is durable (core/persist.py): a directory that holds one is
 recovered — disk wins over the constructor's features and geometry — and
 served through the same probe.
 
+``n_shards > 1`` partitions the catalog row-space into contiguous shards,
+each with its own per-subset index. On one device the shard set runs as
+ONE fused probe over the stacked mirrors' virtual block space (the
+reference's flat fallback); with a ``shard_mesh`` (a list of devices,
+one a shard) each shard's probe runs on its device and the small
+outputs are gathered to the first. ``mirror="quantized"`` probes int8 /
+f16 mirrors with a conservative code-space prune and re-checks the
+candidates against their exact f32 rows.
+
 Ids, scores and the integer stats are bitwise those of the reference
-engine in the same configuration. What this port does not implement yet
-raises ``NotImplementedError`` naming its ROADMAP item.
+engine in the same configuration.
 """
 from __future__ import annotations
 
@@ -58,9 +68,16 @@ from repro_torch.core.capacity import quantum_bucket as _cap_quantum
 from repro_torch.core.dbranch import (DBENS_SUBSET_CANDIDATES, dbens_draws,
                                       fit_dbens, fit_dbranch_best_subset,
                                       fit_select, split_tables)
-from repro_torch.core.errors import RecoveryError, check_deadline, unported
-from repro_torch.core.index import (build_indexes, full_scan, fused_stats,
-                                    pad_boxes, query_index, sparse_probe,
+from repro_torch.core.errors import RecoveryError, check_deadline
+from repro_torch.core.index import (ShardedZoneMapIndex, build_indexes,
+                                    build_sharded_indexes, full_scan,
+                                    fused_stats, pad_boxes, quantized_compact,
+                                    quantized_probe, quantized_recheck,
+                                    query_index, query_index_sharded,
+                                    resolve_mesh, sharded_fused_stats,
+                                    sharded_query_accumulate,
+                                    sharded_rank_merge, sharded_sparse_probe,
+                                    sharded_survivor_tiles, sparse_probe,
                                     to_device_f32)
 from repro_torch.core.segments import (SegmentedCatalog,
                                        SegmentedZoneMapIndex,
@@ -136,7 +153,8 @@ class SparseScores:
 
 
 class SearchEngine:
-    """End-to-end engine over an in-memory feature matrix, on one device.
+    """End-to-end engine over an in-memory feature matrix, on one device
+    (a sharded one's shards optionally on a device list, ``shard_mesh``).
 
     ``device=None`` means CUDA and raises when CUDA is absent; pass
     ``device="cpu"`` to run the plain PyTorch versions of the kernels.
@@ -158,10 +176,15 @@ class SearchEngine:
     already holds one is recovered, and ``features`` may then be None),
     ``wal_sync`` ("always", "batch" or "none"), ``faults`` (a fault
     injector, serve/faults.py, whose seams the engine and the catalog
-    fire), and the reference's ``mirror`` and ``n_shards``, which take
-    only the values of the single-device path. ``recovery`` holds the
-    report of a recovery (None otherwise); a damaged directory serves
-    its salvaged catalog.
+    fire), ``mirror`` ("f32", or "quantized": int8 rows and f16 zones on
+    the device, with an exact re-check; sparse, fused, static and
+    unsharded only), ``n_shards`` (row-range shards; a recovered catalog
+    keeps its own) and ``shard_mesh`` (None: a mesh over the first
+    n_shards CUDA devices when there are that many, else the flat
+    single-device formulation; False: always flat; or a list of
+    devices, one a shard, which may repeat a device; live engines always
+    run flat). ``recovery`` holds the report of a recovery (None
+    otherwise); a damaged directory serves its salvaged catalog.
 
     The scan models read the whole [N, D] feature matrix. The reference
     uploads it on every scan; this engine keeps one device copy, uploaded
@@ -177,8 +200,8 @@ class SearchEngine:
                                     wal_sync=wal_sync, **options)
         t0 = time.perf_counter()
         if recovered is not None:
-            # disk wins: subsets and geometry come from the manifest, not
-            # the constructor's arguments
+            # disk wins: subsets and geometry (shards too) come from the
+            # manifest, not the constructor's arguments
             self.subsets = np.asarray(recovered.subsets)
             self._catalog = recovered
             self.indexes = list(recovered.snapshot().indexes)
@@ -186,10 +209,17 @@ class SearchEngine:
             self.subsets = make_subsets(self.d, n_subsets, subset_dim,
                                         seed=seed)
             if self.live:
+                # with n_shards > 1 the base is the ceil-split partition
+                # and appends land on per-shard tails, served flat
                 self._catalog = SegmentedCatalog(
-                    self.x, self.subsets, block=block, faults=self.faults,
+                    self.x, self.subsets, block=block,
+                    n_shards=self.n_shards, faults=self.faults,
                     persist_dir=data_dir, sync=wal_sync, device=self.device)
                 self.indexes = list(self._catalog.snapshot().indexes)
+            elif self.n_shards > 1:
+                self.indexes = build_sharded_indexes(
+                    self.x, self.subsets, self.n_shards, block=block,
+                    device=self.device)
             else:
                 self.indexes = build_indexes(self.x, self.subsets,
                                              block=block, device=self.device)
@@ -205,24 +235,28 @@ class SearchEngine:
                    use_jax_fit: bool = True, fit_max_nodes: int = 64,
                    use_fused: bool = True, score_mode: str = "sparse",
                    mirror: str = "f32", n_shards: int = 1,
-                   live: bool = False, data_dir=None,
+                   shard_mesh=None, live: bool = False, data_dir=None,
                    wal_sync: str = "batch",
                    faults=None) -> Optional[SegmentedCatalog]:
-        """The options every constructor takes; each one the port does not
-        implement yet raises NotImplementedError naming its ROADMAP item.
-        Returns the catalog recovered from ``data_dir``, or None."""
+        """The options every constructor takes, checked as the reference
+        checks them. Returns the catalog recovered from ``data_dir``, or
+        None."""
         self.device = resolve_device(device)
         if score_mode not in ("sparse", "dense"):
             raise ValueError(f"score_mode must be 'sparse' or 'dense', "
                              f"got {score_mode!r}")
-        if mirror == "quantized":
-            raise unported("mirror='quantized'", "A10")
-        if mirror != "f32":
+        # "quantized" probes int8/f16 device mirrors with a conservative
+        # code-space prune, then re-checks the candidate set against the
+        # exact f32 rows: results stay bitwise, with fewer device bytes
+        if mirror not in ("f32", "quantized"):
             raise ValueError(f"mirror must be 'f32' or 'quantized', "
                              f"got {mirror!r}")
-        if int(n_shards) > 1:
-            raise unported("n_shards > 1 (sharded, and live sharded, "
-                            "catalogs)", "A11")
+        if mirror == "quantized" and (
+                score_mode != "sparse" or not use_fused or live
+                or int(n_shards) > 1):
+            raise ValueError(
+                "mirror='quantized' requires score_mode='sparse', "
+                "use_fused=True and a static non-sharded catalog")
         # fault-injection seams: an object with a check(site) method, or
         # None; the engine never imports the injector
         self.faults = faults
@@ -243,13 +277,15 @@ class SearchEngine:
                         raise
                     recovered = e.catalog
                 self.recovery = recovered.recovery
-                if recovered.n_shards > 1:
-                    recovered.close()
-                    raise unported("n_shards > 1 (a recovered sharded "
-                                   "live catalog)", "A11")
-        self.n_shards = 1
+        self.n_shards = (recovered.n_shards if recovered is not None
+                         else max(int(n_shards), 1))
         self.mirror = mirror
         self.live = bool(live)
+        # a live catalog serves its shards flat on every device list (as
+        # the reference's does); a static one resolves its mesh
+        self.shard_mesh = (self._resolve_shard_mesh(shard_mesh)
+                           if self.n_shards > 1 and not self.live else None)
+        self._shard_flat = self.n_shards > 1 and self.shard_mesh is None
         self._catalog: Optional[SegmentedCatalog] = None
         self._sync_lock = threading.Lock()
         if recovered is not None:
@@ -293,6 +329,9 @@ class SearchEngine:
         from repro_torch.core.convert import index_from_arrays
         eng = cls.__new__(cls)
         eng._configure(x, **options)
+        if eng.n_shards > 1:
+            raise ValueError("from_arrays builds one index a subset: "
+                             "n_shards must be 1")
         eng.subsets = np.asarray(subsets, np.int32)
         eng.indexes = [index_from_arrays(**ix, device=eng.device)
                        for ix in indexes]
@@ -319,7 +358,8 @@ class SearchEngine:
                              f"{catalog.device}, not {dev}")
         eng = cls.__new__(cls)
         eng._configure(catalog.snapshot().x, device=catalog.device,
-                       live=True, **options)
+                       live=True, **{**options,
+                                     "n_shards": catalog.n_shards})
         eng.subsets = np.asarray(catalog.subsets)
         eng._catalog = catalog
         eng.build_time_s = 0.0
@@ -360,9 +400,27 @@ class SearchEngine:
         the number of entries dropped."""
         return self._cap_hints.invalidate()
 
+    def _resolve_shard_mesh(self, mesh):
+        """None -> a mesh over the first n_shards CUDA devices when the
+        engine runs on CUDA and there are that many, else the flat
+        single-device formulation; False -> flat; a list of devices is
+        used as given. Both run the same per-shard steps: the mesh
+        decides only where they run, never what they return."""
+        if mesh is False:
+            return None
+        if mesh is not None:
+            return resolve_mesh(mesh)
+        if (self.device.type == "cuda"
+                and torch.cuda.device_count() >= self.n_shards):
+            return tuple(torch.device("cuda", i)
+                         for i in range(self.n_shards))
+        return None
+
     @staticmethod
     def _index_nbytes(ix) -> int:
-        return (ix.rows_nbytes if isinstance(ix, SegmentedZoneMapIndex)
+        return (ix.rows_nbytes
+                if isinstance(ix, (ShardedZoneMapIndex,
+                                   SegmentedZoneMapIndex))
                 else int(ix.rows.nbytes))
 
     def _device_features(self, view: Optional[_EngineView] = None
@@ -569,7 +627,8 @@ class SearchEngine:
             n_live = view.live_rows if view.live else view.n
             k = min(k_neighbors, n_live)
             ids_k, _ = knn_mod.knn_subset(view.indexes[0], xp, k=k,
-                                          live=view.valid_host)
+                                          live=view.valid_host,
+                                          mesh=self.shard_mesh)
             counts = knn_mod.knn_vote(ids_k, view.n)
             stats = {"path": "index",
                      "bytes_touched": self._index_nbytes(view.indexes[0])}
@@ -776,23 +835,43 @@ class SearchEngine:
         union (many boxes) do not poison each other's sizing."""
         return (int(geom), sid, self._pow2ceil(max(int(n_boxes), 1)))
 
+    def _mesh_sharded(self) -> bool:
+        return self.n_shards > 1 and not self._shard_flat
+
+    def _cap_blocks(self, index) -> int:
+        """The block count a capacity is bounded by: the index's blocks,
+        the PER-SHARD bound on a mesh, the whole virtual block space of a
+        flat sharded index (a segmented index reports its own)."""
+        if isinstance(index, ShardedZoneMapIndex):
+            return (index.nb_max if self._mesh_sharded()
+                    else index.n_shards * index.nb_max)
+        return index.n_blocks
+
     def _cap_bucket(self, v: int, n_blocks: int) -> int:
-        """Capacity bucket: pow2-rounded, capped at the block count."""
-        return min(_cap_pow2ceil(max(int(v), 1)), n_blocks)
+        """Capacity bucket, capped at the block count: pow2-rounded, or
+        on a mesh (where every shard gathers the bucket) a multiple of 8,
+        as in the reference."""
+        v = max(int(v), 1)
+        b = _cap_quantum(v, 8) if self._mesh_sharded() else _cap_pow2ceil(v)
+        return min(b, n_blocks)
 
     def _initial_capacity(self, index, n_boxes: Optional[int] = None,
                           geom: int = 0) -> int:
         """Gather capacity for a subset's probe: the last observed
         survivor count for a like-sized boxset of the same geometry
-        generation when one is known, otherwise the capacity_frac
-        cold-start policy (over a segmented index's whole virtual block
-        space). Results stay exact either way: an under-sized guess is
-        caught by the batched overflow check and retried."""
-        nbk = index.n_blocks
+        generation when one is known (plus 25 % on a mesh, whose per-shard
+        bucket has no pow2 headroom), otherwise the capacity_frac
+        cold-start policy (over a segmented or flat sharded index's whole
+        virtual block space). Results stay exact either way: an
+        under-sized guess is caught by the batched overflow check and
+        retried."""
+        nbk = self._cap_blocks(index)
         if n_boxes is not None:
             hint = self._cap_hints.get(self._cap_key(index.subset_id,
                                                      n_boxes, geom))
             if hint is not None:
+                if self._mesh_sharded():
+                    hint += -(-hint // 4)
                 return self._cap_bucket(hint, nbk)
         cap = max(1, int(nbk * self.capacity_frac))
         return self._cap_bucket(cap, nbk)
@@ -861,7 +940,9 @@ class SearchEngine:
     def _device_scores(self, jobs, nq: int, view: _EngineView,
                        deadline_s=None):
         """Mode dispatch for the score accumulation: the survivor tiles
-        (score_mode="sparse") or the dense [N, Q] buffer ("dense"). Same
+        (score_mode="sparse"; against the quantized mirror with
+        mirror="quantized") or the dense [N, Q] buffer ("dense"; the
+        stacked [S, Nloc_max, Q] one on a static sharded engine). Same
         probes, capacities, sync cadence and retries; int32 vote addition
         is exactly associative, so both are bitwise-identical end to
         end. Runs under a trace round scope: each ``_round_checkpoint``
@@ -869,11 +950,14 @@ class SearchEngine:
         (overflow-retry rounds included); a shared no-op when nothing is
         attached."""
         with obs_trace.round_scope():
-            if self.score_mode == "dense":
-                return self._device_scores_dense(jobs, nq, view,
-                                                 deadline_s=deadline_s)
-            return self._device_scores_sparse(jobs, nq, view,
-                                              deadline_s=deadline_s)
+            if self.score_mode == "sparse":
+                if self.mirror == "quantized":
+                    return self._device_scores_quantized(
+                        jobs, nq, view, deadline_s=deadline_s)
+                return self._device_scores_sparse(jobs, nq, view,
+                                                  deadline_s=deadline_s)
+            return self._device_scores_dense(jobs, nq, view,
+                                             deadline_s=deadline_s)
 
     @staticmethod
     def _live_agg(agg: Dict, view: _EngineView) -> np.ndarray:
@@ -884,6 +968,18 @@ class SearchEngine:
         agg["rows_live"] = view.live_rows
         agg["rows_tombstoned"] = view.n - view.live_rows
         return np.zeros(n_segs, np.int64)
+
+    def _price_overflow(self, agg: Dict, index, cap: int, nh: int,
+                        itemsize: int = 4) -> int:
+        """An overflowed subset's failed attempt still gathered (and
+        priced) ``cap`` blocks of device traffic, per shard on a mesh,
+        globally otherwise. Returns the retry capacity, bucketed to at
+        least the observed survivor count ``nh``."""
+        gathered = cap * (self.n_shards if self._mesh_sharded() else 1)
+        agg["blocks_gathered"] += gathered
+        agg["bytes_touched"] += int(
+            gathered * index.block * len(index.dims) * itemsize)
+        return self._cap_bucket(nh, self._cap_blocks(index))
 
     def _device_scores_dense(self, jobs, nq: int, view: _EngineView,
                              deadline_s=None):
@@ -900,12 +996,30 @@ class SearchEngine:
         subset (segmented_query_accumulate): the buffer's row index is the
         global id, tombstoned rows are masked to 0 inside the
         accumulation, and the stat vector carries the refined blocks per
-        segment after the survivor total."""
-        scores = torch.zeros((view.n, nq), dtype=torch.int32,
-                             device=self.device)
+        segment after the survivor total. A static sharded engine's
+        buffer is [S, Nloc_max, nq] (a list of per-shard [Nloc_max, nq]
+        buffers on a mesh), and each subset is ONE call that probes every
+        shard (sharded_query_accumulate): its [3] stats (max n_hit, sum
+        min(n_hit, C), sum n_hit; global when flat) keep the round sync
+        flat in shard count. Live and sharded probes accumulate on the
+        device before the sync, conditionally: an overflowed attempt
+        leaves the buffer as it was."""
         agg = self._new_agg()
         live = view.live
+        sharded = (not live) and self.n_shards > 1
         per_seg_agg = self._live_agg(agg, view) if live else None
+        if sharded:
+            agg["n_shards"] = self.n_shards
+            nlm = self.indexes[0].n_loc_max
+            if self._mesh_sharded():
+                scores = [torch.zeros((nlm, nq), dtype=torch.int32,
+                                      device=dev) for dev in self.shard_mesh]
+            else:
+                scores = torch.zeros((self.n_shards, nlm, nq),
+                                     dtype=torch.int32, device=self.device)
+        else:
+            scores = torch.zeros((view.n, nq), dtype=torch.int32,
+                                 device=self.device)
         pending = [(sid, merged, owner,
                     self._initial_capacity(view.indexes[sid],
                                            merged.n_boxes, geom=view.geom))
@@ -918,19 +1032,21 @@ class SearchEngine:
                 index = view.indexes[sid]
                 lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
                 if live:
-                    # accumulated already: an overflowed attempt leaves
-                    # the buffer as it was
                     scores, stvec = segmented_query_accumulate(
                         index, scores, lo_d, hi_d, onehot, view.valid,
                         capacity=cap)
-                    launched.append((sid, merged, owner, cap, None, None,
-                                     stvec))
+                elif sharded:
+                    scores, stvec = sharded_query_accumulate(
+                        index, scores, lo_d, hi_d, onehot, capacity=cap,
+                        mesh=self.shard_mesh)
+                else:
+                    rows3, zlo, zhi = index.device_arrays()
+                    counts, cand, n_hit = kops.fused_query(
+                        rows3, zlo, zhi, lo_d, hi_d, onehot, capacity=cap)
+                    launched.append((sid, merged, owner, cap, counts, cand,
+                                     n_hit.reshape(1)))
                     continue
-                rows3, zlo, zhi = index.device_arrays()
-                counts, cand, n_hit = kops.fused_query(
-                    rows3, zlo, zhi, lo_d, hi_d, onehot, capacity=cap)
-                launched.append((sid, merged, owner, cap, counts, cand,
-                                 n_hit.reshape(1)))
+                launched.append((sid, merged, owner, cap, None, None, stvec))
             # ONE batched sync covers the whole round's overflow checks
             obs_profile.record("jit_dispatch",
                                time.perf_counter() - _t_disp)
@@ -947,13 +1063,8 @@ class SearchEngine:
                 self._cap_hints.observe(
                     self._cap_key(sid, merged.n_boxes, view.geom), nh)
                 if nh > cap:
-                    # the failed attempt still gathered (and priced) cap
-                    # blocks of device traffic
-                    agg["blocks_gathered"] += cap
-                    agg["bytes_touched"] += int(
-                        cap * index.block * len(index.dims) * 4)
-                    pending.append((sid, merged, owner,
-                                    min(self._pow2ceil(nh), index.n_blocks)))
+                    pending.append((sid, merged, owner, self._price_overflow(
+                        agg, index, cap, nh)))
                     continue
                 if live:
                     st_d = segmented_fused_stats(index, nh, st[1:], cap,
@@ -961,6 +1072,10 @@ class SearchEngine:
                                                  view.live_rows)
                     per_seg_agg += np.asarray(
                         st_d["per_segment_blocks_touched"], np.int64)
+                elif sharded:
+                    st_d = sharded_fused_stats(index, nh, int(st[1]), cap,
+                                               merged.n_boxes,
+                                               flat=self._shard_flat)
                 else:
                     scores = kops.accumulate_scores(
                         scores, counts, cand, index.device_inv_perm(),
@@ -977,11 +1092,12 @@ class SearchEngine:
                            view: _EngineView) -> None:
         """Dense-path memory accounting, symmetric with the sparse form:
         the peak device score footprint IS the full buffer."""
-        agg["score_buffer_bytes_peak"] = int(scores.nbytes)
-        agg["score_rows"] = int(scores.nbytes) // (4 * max(nq, 1))
+        nbytes = (sum(int(t.nbytes) for t in scores)
+                  if isinstance(scores, list) else int(scores.nbytes))
+        agg["score_buffer_bytes_peak"] = nbytes
+        agg["score_rows"] = nbytes // (4 * max(nq, 1))
         agg["dense_score_bytes_equiv"] = int(view.n) * nq * 4
-        self._score_bytes_peak = max(self._score_bytes_peak,
-                                     int(scores.nbytes))
+        self._score_bytes_peak = max(self._score_bytes_peak, nbytes)
 
     def _device_scores_sparse(self, jobs, nq: int, view: _EngineView,
                               deadline_s=None):
@@ -995,10 +1111,17 @@ class SearchEngine:
         is conservative and int32 vote addition is associative, so the
         tiles are bitwise the dense accumulation. A live view probes the
         virtual block space with its validity mask, and its stat vectors
-        carry the refined blocks per segment as well."""
+        carry the refined blocks per segment as well. A static sharded
+        engine probes every shard in one call a subset
+        (sharded_sparse_probe: [5] stats a subset); on a mesh each
+        shard's survivors are compacted on its device and gathered."""
         agg = self._new_agg()
         live = view.live
+        sharded = (not live) and self.n_shards > 1
+        mesh_mode = sharded and not self._shard_flat
         per_seg_agg = self._live_agg(agg, view) if live else None
+        if sharded:
+            agg["n_shards"] = self.n_shards
         tile_parts, tile_bytes, score_rows = [], 0, 0
         # every per-row, per-query count is bounded by its round's merged
         # box count, so below 2**15 boxes the tile values fit int16
@@ -1021,6 +1144,10 @@ class SearchEngine:
                     probe = segmented_sparse_probe(
                         view.indexes[sid], lo_d, hi_d, onehot, view.valid,
                         capacity=cap)
+                elif sharded:
+                    probe = sharded_sparse_probe(
+                        view.indexes[sid], lo_d, hi_d, onehot, capacity=cap,
+                        mesh=self.shard_mesh)
                 else:
                     probe = sparse_probe(view.indexes[sid], lo_d, hi_d,
                                          onehot, capacity=cap)
@@ -1041,25 +1168,38 @@ class SearchEngine:
                 self._cap_hints.observe(
                     self._cap_key(sid, merged.n_boxes, view.geom), nh)
                 if nh > cap:
-                    # the failed attempt still gathered (and priced) cap
-                    # blocks of device traffic
-                    agg["blocks_gathered"] += cap
-                    agg["bytes_touched"] += int(
-                        cap * index.block * len(index.dims) * 4)
-                    pending.append((sid, merged, owner,
-                                    min(self._pow2ceil(nh), index.n_blocks)))
+                    pending.append((sid, merged, owner, self._price_overflow(
+                        agg, index, cap, nh)))
                     continue
-                nm = int(st[1])
-                score_rows += nm
                 if live:
                     st_d = segmented_fused_stats(index, nh, st[2:], cap,
                                                  merged.n_boxes,
                                                  view.live_rows)
                     per_seg_agg += np.asarray(
                         st_d["per_segment_blocks_touched"], np.int64)
+                    nm = int(st[1])
+                    score_rows += nm
+                elif sharded:
+                    st_d = sharded_fused_stats(index, nh, int(st[1]), cap,
+                                               merged.n_boxes,
+                                               flat=self._shard_flat)
+                    nm = int(st[3])     # per-shard max (flat: global)
+                    score_rows += int(st[4])
                 else:
                     st_d = fused_stats(index, nh, cap, merged.n_boxes)
+                    nm = int(st[1])
+                    score_rows += nm
                 self._accumulate_agg(agg, st_d, merged.n_boxes)
+                if mesh_mode:
+                    # per-shard tiles at a pow2 row capacity, as in the
+                    # reference
+                    rcap = self._pow2ceil(max(nm, 1))
+                    keys, vals = sharded_survivor_tiles(
+                        counts, gids, ok, row_capacity=rcap,
+                        mesh=self.shard_mesh)
+                    tile_parts.append((keys, vals))
+                    tile_bytes += int(keys.nbytes) + int(vals.nbytes)
+                    continue
                 round_parts.append((counts, gids, ok))
                 round_rcaps.append(_cap_hybrid(max(nm, 1), quantum=512))
             if len(round_parts) == 1:
@@ -1082,6 +1222,84 @@ class SearchEngine:
             agg["per_segment_blocks_touched"] = per_seg_agg.tolist()
         return self._finish_sparse(tile_parts, tile_bytes, score_rows,
                                    agg, nq, view, transient_bytes=transient)
+
+    def _device_scores_quantized(self, jobs, nq: int, view: _EngineView,
+                                 deadline_s=None):
+        """Sparse scoring against the COMPRESSED mirrors
+        (mirror="quantized"): per round every pending subset's
+        quantized_probe is queued (widened-f16 zone prune, int8 code-space
+        row test: it can only over-select), then ONE stat sync reads
+        (n_hit, n_cand) a subset. Per subset that did not overflow, the
+        candidate ids are compacted and cross to the host (one
+        O(candidates) sync each), the exact f32 rows of only those
+        candidates are staged back up through pinned memory, and
+        quantized_recheck emits the subset's tile. The reference's cadence
+        and stats: the gather is priced in int8 bytes, and the staged
+        rows count as host bytes."""
+        agg = self._new_agg()
+        tile_parts, tile_bytes, score_rows = [], 0, 0
+        pending = [(sid, merged, owner,
+                    self._initial_capacity(view.indexes[sid],
+                                           merged.n_boxes))
+                   for sid, merged, owner in jobs]
+        while pending:
+            self._round_checkpoint(deadline_s)
+            launched = []
+            _t_disp = time.perf_counter()
+            for sid, merged, owner, cap in pending:
+                lo_d, hi_d, onehot = self._probe_inputs(merged, owner, nq)
+                gids, cmask, st = quantized_probe(view.indexes[sid], lo_d,
+                                                  hi_d, capacity=cap)
+                launched.append((sid, merged, owner, cap, gids, cmask, st,
+                                 lo_d, hi_d, onehot))
+            obs_profile.record("jit_dispatch",
+                               time.perf_counter() - _t_disp)
+            self._fault("device_sync")
+            with obs_profile.profile("device_sync"):
+                stvecs = torch.stack([l[6] for l in launched]).cpu().numpy()
+            agg["n_host_syncs"] += 1
+            agg["host_bytes_transferred"] += int(stvecs.nbytes)
+            pending = []
+            for (sid, merged, owner, cap, gids, cmask, _, lo_d, hi_d,
+                 onehot), st in zip(launched, stvecs):
+                index = view.indexes[sid]
+                nh, ncand = int(st[0]), int(st[1])
+                self._cap_hints.observe(self._cap_key(sid, merged.n_boxes),
+                                        nh)
+                if nh > cap:
+                    # the discarded gather moved int8 rows: 1 byte a dim
+                    pending.append((sid, merged, owner, self._price_overflow(
+                        agg, index, cap, nh, itemsize=1)))
+                    continue
+                st_d = fused_stats(index, nh, cap, merged.n_boxes)
+                # the surviving gather also moved int8, not f32
+                st_d["bytes_touched"] = int(st_d["bytes_touched"]) // 4
+                self._accumulate_agg(agg, st_d, merged.n_boxes)
+                rcap = self._pow2ceil(max(ncand, 1))
+                cgids_dev, _ = quantized_compact(gids, cmask,
+                                                 row_capacity=rcap)
+                cgids = cgids_dev.cpu().numpy()    # O(candidates) sync
+                agg["n_host_syncs"] += 1
+                agg["host_bytes_transferred"] += int(cgids.nbytes)
+                # stage the EXACT f32 rows of only the candidate set, read
+                # from the index's Morton-ordered host rows (the same
+                # floats as x[ids][:, dims]; candidates come in Morton
+                # order, so the reads run nearly in sequence); +inf pad
+                # rows match nothing and carry zeroed vals
+                xsub = np.full((rcap, len(index.dims)), np.inf, np.float32)
+                livem = cgids >= 0
+                if livem.any():
+                    xsub[livem] = index.rows[index.inv_perm()[cgids[livem]]]
+                agg["host_bytes_transferred"] += int(xsub.nbytes)
+                keys, vals = quantized_recheck(
+                    to_device_async(xsub, self.device), cgids_dev, lo_d,
+                    hi_d, onehot)
+                score_rows += ncand
+                tile_parts.append((keys, vals))
+                tile_bytes += int(keys.nbytes) + int(vals.nbytes)
+            agg["retried_subsets"] += len(pending)
+        return self._finish_sparse(tile_parts, tile_bytes, score_rows,
+                                   agg, nq, view)
 
     def _finish_sparse(self, tile_parts, tile_bytes: int, score_rows: int,
                        agg: Dict, nq: int, view: _EngineView, *,
@@ -1112,15 +1330,28 @@ class SearchEngine:
 
     def _scores_to_host(self, scores_dev, view: _EngineView) -> np.ndarray:
         """[N, Q] int32 host counts in GLOBAL row order: the dense buffer
-        as it is, or only the survivor tiles, de-duplicated by scatter-add
-        on the host (bitwise the dense transfer at O(survivors))."""
-        if not isinstance(scores_dev, SparseScores):
+        (a sharded one shard by shard, at each shard's offset), or only
+        the survivor tiles, de-duplicated by scatter-add on the host
+        (bitwise the dense transfer at O(survivors))."""
+        if isinstance(scores_dev, SparseScores):
+            keys = scores_dev.keys.cpu().numpy()
+            vals = scores_dev.vals.cpu().numpy()
+            out = np.zeros((scores_dev.n, vals.shape[1]), np.int32)
+            m = keys != int(kops.TILE_INVALID)
+            np.add.at(out, keys[m], vals[m])
+            return out
+        if view.live or self.n_shards == 1:
             return scores_dev.cpu().numpy()
-        keys = scores_dev.keys.cpu().numpy()
-        vals = scores_dev.vals.cpu().numpy()
-        out = np.zeros((scores_dev.n, vals.shape[1]), np.int32)
-        m = keys != int(kops.TILE_INVALID)
-        np.add.at(out, keys[m], vals[m])
+        # the stacked [S, Nloc_max, Q] buffer: each shard's real rows land
+        # back at its global offset
+        sc = ([t.cpu().numpy() for t in scores_dev]
+              if isinstance(scores_dev, list) else scores_dev.cpu().numpy())
+        offs = view.indexes[0].offsets
+        out = np.zeros((view.n, sc[0].shape[-1]), np.int32)
+        for s in range(self.n_shards):
+            nl = int(offs[s + 1] - offs[s])
+            if nl:
+                out[offs[s]:offs[s] + nl] = sc[s][:nl]
         return out
 
     def _index_inference(self, boxsets: List[BoxSet], view: _EngineView):
@@ -1128,10 +1359,12 @@ class SearchEngine:
         query_index, the boxes of one subset merged into one call. Kept
         as the correctness oracle for the device-resident path. A live
         view runs it per segment (counts land at each segment's global
-        offset), then zeroes the tombstoned rows."""
+        offset), then zeroes the tombstoned rows; a sharded one per shard
+        (query_index_sharded)."""
         counts = np.zeros(view.n, np.int64)
         agg = self._new_agg()
-        qfn = self._query_segments if view.live else query_index
+        qfn = (self._query_segments if view.live else query_index_sharded
+               if self.n_shards > 1 else query_index)
         by_subset: Dict[int, List[BoxSet]] = {}
         for bs in boxsets:
             by_subset.setdefault(bs.subset_id, []).append(bs)
@@ -1224,7 +1457,8 @@ class SearchEngine:
                      view: _EngineView):
         """Device ranking: kops.sparse_topk of the survivor tiles, or
         kops.rank_topk of the dense [N, Q] buffer (``score_bound``, the
-        largest per-query box count, bounds its scores); only [Q, k]
+        largest per-query box count, bounds its scores), or
+        sharded_rank_merge of a static sharded engine's; only [Q, k]
         ids/scores plus [Q] valid counts cross to the host. masks:
         per-query (pos, neg, include_training). Returns ([(ids, scores)]
         aligned with masks, host bytes transferred)."""
@@ -1244,6 +1478,10 @@ class SearchEngine:
         if isinstance(scores_dev, SparseScores):
             ids_k, scores_k, n_valid = kops.sparse_topk(
                 scores_dev.keys, scores_dev.vals, tids_d, k=kk)
+        elif self.n_shards > 1 and not view.live:
+            ids_k, scores_k, n_valid = sharded_rank_merge(
+                view.indexes[0], scores_dev, tids_d, k=kk,
+                score_bound=score_bound, mesh=self.shard_mesh)
         else:
             ids_k, scores_k, n_valid = kops.rank_topk(
                 scores_dev, tids_d, k=kk, score_bound=score_bound,

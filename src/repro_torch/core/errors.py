@@ -1,7 +1,6 @@
 """Typed error taxonomy + deadline helpers shared by the core engine and
 the serving layer (DESIGN.md §14). A copy of ``repro.core.errors``: the
-port imports nothing of the JAX package. ``unported`` is the port's own:
-the error of a feature it does not implement yet.
+port imports nothing of the JAX package.
 
 The serving path needs to tell three failure families apart at every
 seam — retry, shed, or report — so the exceptions carry a stable
@@ -138,10 +137,3 @@ def check_deadline(deadline_s: Optional[float], where: str = "") -> None:
         raise DeadlineExceeded(
             f"deadline exceeded by {late * 1e3:.1f} ms"
             + (f" at {where}" if where else ""))
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    """The NotImplementedError of a reference feature the port does not
-    implement yet, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")

@@ -1,5 +1,5 @@
 """k-nearest-neighbour baseline (the engine's 5th search model) — the
-single-device part of ``repro.core.knn`` (static and live indexes).
+port of ``repro.core.knn`` (static, sharded and live indexes).
 
 The paper's kNN runs on a small feature subset so it can reuse the
 pre-built per-subset index; here the analogue is the Morton-ordered rows
@@ -14,40 +14,71 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.index import ZoneMapIndex, to_device_f32
+from repro_torch.core.index import (ShardedZoneMapIndex, resolve_mesh,
+                                    to_device_f32)
 from repro_torch.core.segments import SegmentedZoneMapIndex
 from repro_torch.device import to_device_async
 from repro_torch.kernels import ops as kops
 
 
 def knn_subset(index, queries_full: np.ndarray, k: int = 1000,
-               live: Optional[np.ndarray] = None
+               live: Optional[np.ndarray] = None, mesh=None
                ) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k over the index's subset dims. queries_full: [Q, D_full].
     Returns (ids [Q, k] original row ids, dists [Q, k]).
 
-    The rows come from the resident rows3 mirror: padding sits only at
-    its tail, so its first n_rows rows are the real ones in Morton order,
-    and ``perm`` maps their positions back to row ids.
+    The rows are the index's real rows in Morton order
+    (``ZoneMapIndex.device_rows``: the resident rows3 mirror, or the host
+    rows for this call on an index that serves from its quantized mirror
+    alone), and ``perm`` maps their positions back to row ids.
 
     A SegmentedZoneMapIndex (live catalog) searches each segment's LIVE
     rows only (``live``: the snapshot's [n] bool validity mask) and merges
     the per-segment lists by (distance, global id), so the result is that
-    of a search over the concatenated surviving rows. Sharded indexes are
-    ROADMAP A11."""
+    of a search over the concatenated surviving rows.
+
+    A ShardedZoneMapIndex runs the same local top-k -> merge: per shard
+    l2dist + top-k over its rows in the stacked mirror (on the shard's
+    device of ``mesh``, the engine's shard_mesh), local ids offset to
+    global, then a (distance, global id) merge, so duplicate distances
+    come out the same for every shard count."""
     if isinstance(index, SegmentedZoneMapIndex):
         return _knn_segmented(index, queries_full, k, live)
-    if not isinstance(index, ZoneMapIndex):
-        raise NotImplementedError(
-            "knn_subset over a sharded index is not ported to repro_torch "
-            "yet (ROADMAP A11)")
-    rows3, _, _ = index.device_arrays()
-    rows = rows3.reshape(-1, rows3.shape[-1])[: index.n_rows]
+    if isinstance(index, ShardedZoneMapIndex):
+        return _knn_sharded(index, queries_full, k, mesh)
+    rows = index.device_rows()
     q = to_device_f32(np.asarray(queries_full)[:, index.dims], index.device)
     k = min(k, index.n_rows)
     d, idx = kops.knn_topk(rows, q, k)
     ids = index.perm[idx.cpu().numpy()]
     return ids, d.cpu().numpy()
+
+
+def _merge(per_ids, per_d, k: int):
+    """Merge per-part [Q, k_i] lists by (distance, global id)."""
+    all_ids = np.concatenate(per_ids, axis=1)
+    all_d = np.concatenate(per_d, axis=1)
+    order = np.lexsort((all_ids, all_d), axis=1)[:, :k]
+    return (np.take_along_axis(all_ids, order, 1),
+            np.take_along_axis(all_d, order, 1))
+
+
+def _knn_sharded(index, queries_full, k: int, mesh):
+    """Per shard: l2dist + top-k over its real rows, read from the
+    shard's slice of the stacked rows mirror; then one host merge."""
+    q = np.asarray(queries_full, np.float32)[:, index.dims]
+    rows4, _, _ = index.device_arrays(resolve_mesh(mesh))
+    k = min(k, index.n_rows)
+    per_ids, per_d = [], []
+    for i, (sh, off) in enumerate(zip(index.shards, index.offsets[:-1])):
+        if sh.n_rows == 0:
+            continue
+        rows = rows4[i].reshape(-1, rows4[i].shape[-1])[:sh.n_rows]
+        d, idx = kops.knn_topk(rows, to_device_f32(q, rows.device),
+                               min(k, sh.n_rows))
+        per_ids.append(sh.perm[idx.cpu().numpy()] + int(off))
+        per_d.append(d.cpu().numpy())
+    return _merge(per_ids, per_d, k)
 
 
 def _knn_segmented(index, queries_full, k: int, live):
@@ -77,11 +108,7 @@ def _knn_segmented(index, queries_full, k: int, live):
     if not per_ids:
         nq = q.shape[0]
         return np.empty((nq, 0), np.int64), np.empty((nq, 0))
-    all_ids = np.concatenate(per_ids, axis=1)
-    all_d = np.concatenate(per_d, axis=1)
-    order = np.lexsort((all_ids, all_d), axis=1)[:, :min(k, n_live)]
-    return (np.take_along_axis(all_ids, order, 1),
-            np.take_along_axis(all_d, order, 1))
+    return _merge(per_ids, per_d, min(k, n_live))
 
 
 def knn_full(x: torch.Tensor, queries: np.ndarray, k: int = 1000

@@ -65,16 +65,9 @@ import torch
 
 from repro_torch.core import persist as persistmod
 from repro_torch.core.errors import PersistenceError, RecoveryError
-from repro_torch.core.index import ZoneMapIndex, build_indexes
+from repro_torch.core.index import ZoneMapIndex, build_indexes, shard_offsets
 from repro_torch.device import resolve_device, to_device_async
 from repro_torch.kernels import ops as kops
-
-
-def shard_offsets(n: int, n_shards: int) -> np.ndarray:
-    """[S + 1] global row offsets of an even ceil-split partition (a copy
-    of ``repro.core.index.shard_offsets``)."""
-    per = -(-max(int(n), 1) // n_shards)
-    return np.minimum(np.arange(n_shards + 1, dtype=np.int64) * per, n)
 
 
 # ----------------------------------------------------------------------
@@ -202,7 +195,8 @@ class SegmentedZoneMapIndex:
         mirrors plus this view's own concatenated copies (counted only
         when they are distinct tensors — a one-segment view shares the
         segment's rows and zones)."""
-        out = {"rows": 0, "zones": 0, "gids": 0, "inv_perm": 0}
+        out = {"rows": 0, "zones": 0, "gids": 0, "inv_perm": 0,
+               "quantized": 0}
         for s in self.segs:
             for k, v in s.device_bytes().items():
                 out[k] += v

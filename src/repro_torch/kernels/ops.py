@@ -397,6 +397,48 @@ def rank_topk(scores, train_ids, *, k: int, score_bound=None,
     return _rank_sort(scores, train_ids, k=k)
 
 
+def shard_local_topk(scores, train_ids, offset: int, n_local: int, *,
+                     k: int, score_bound=None, method=None):
+    """Shard-local ranking stage of the sharded path: rank ONE shard's
+    [Nloc, Q] score buffer (rows past ``n_local`` score 0) with rank_topk
+    and remap the winners to GLOBAL ids. train_ids: [Q, T] GLOBAL ids to
+    exclude; those in [offset, offset + n_local) map to local ids by
+    subtraction, every other one to Nloc, which rank_topk drops. Returns
+    (global ids [Q, k'] int32, -1 invalid; scores [Q, k']; n_valid [Q]),
+    k' = min(k, Nloc), so merge_topk orders score ties by global id."""
+    nloc = scores.shape[0]
+    t = torch.where((train_ids >= offset) & (train_ids < offset + n_local),
+                    train_ids - offset, nloc).to(torch.int32)
+    ids, sc, nv = rank_topk(scores, t, k=k, score_bound=score_bound,
+                            method=method, scores_transposed=True)
+    gids = torch.where(ids >= 0, ids + int(offset), -1)
+    return gids.to(torch.int32), sc, nv
+
+
+def merge_topk(ids, scores, *, k: int):
+    """Cross-shard merge of per-shard top-k lists on the device.
+
+    ids: [S, Q, ks] int32 GLOBAL ids (-1 invalid); scores: [S, Q, ks]
+    int32 (> 0 valid, 0 invalid). Returns (ids [Q, k'], scores [Q, k'],
+    n_valid [Q]) int32 with k' = min(k, S * ks), in the pinned order:
+    descending score, ascending global id on ties (ties at the global
+    k-th score included). One int64 key (-score) * 2^32 + id sorts it;
+    invalid slots take the id 2^31 - 1 and score 0, so they sort past
+    every valid candidate and come back as id -1."""
+    s, q, ks = ids.shape
+    fids = ids.transpose(0, 1).reshape(q, s * ks)
+    fsc = scores.transpose(0, 1).reshape(q, s * ks)
+    key_id = torch.where(fsc > 0, fids, int(TILE_INVALID))
+    key = (-fsc.to(torch.int64)) * (1 << 32) + key_id.to(torch.int64)
+    kk = min(int(k), s * ks)
+    top = torch.sort(key, dim=1).values[:, :kk]
+    out_scores = (-(top >> 32)).to(torch.int32)
+    out_ids = torch.where(out_scores > 0, (top & 0xFFFFFFFF).to(torch.int32),
+                          -1)
+    return (out_ids, out_scores,
+            (out_scores > 0).sum(1, dtype=torch.int32))
+
+
 def _mask_training(scores, train_ids):
     """scores [Q, N] with each query's training rows set to 0; ids >= N
     (the padding) go to a dump column that is cut off."""

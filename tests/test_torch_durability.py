@@ -1154,8 +1154,9 @@ def test_engine_refusals_and_recovery_without_features():
     with pytest.raises(ValueError, match="from_catalog"):
         SearchEngine.from_catalog(PORT.fresh(_data()), data_dir="x")
     # a directory the reference wrote with n_shards=2: the port's catalog
-    # recovers it (its shard bookkeeping is the reference's), its engine
-    # refuses it as it refuses n_shards > 1
+    # recovers it (its shard bookkeeping is the reference's), and its
+    # engine serves it flat with the catalog's two shards, bitwise the
+    # reference's engine over the same directory
     with tempfile.TemporaryDirectory() as d:
         cat = REF.fresh(_data(), persist_dir=d, n_shards=2)
         _apply(cat, MUTATIONS)
@@ -1166,9 +1167,18 @@ def test_engine_refusals_and_recovery_without_features():
         jre = REF.open(d)
         _same_catalogs(jre, re)
         jre.close()
-        with pytest.raises(NotImplementedError, match="A11"):
-            PORT.engine(live=True, data_dir=d)
-        PORT.open(d).close()         # the refusal released the directory
+        pos, neg = [1, 2, 3, 40, 41], [60, 61, 62, 63, 64, 65]
+        got = {}
+        for P in PKGS:               # one package's catalog at a time
+            eng = P.engine(live=True, data_dir=d)
+            assert eng.n_shards == 2 and eng.recovery.clean
+            got[P.name] = [eng.query(pos, neg, model=m, max_results=mr)
+                           for m in ("dbranch", "dbens")
+                           for mr in (None, 20)]
+            eng.close()
+        for a, b in zip(got["repro"], got["repro_torch"]):
+            _same_results(a, b)
+        PORT.open(d).close()         # the engine released the directory
 
 
 @pytest.mark.gpu

@@ -279,18 +279,21 @@ def _unknown_fault_site():
     return {"faults": FaultInjector(specs=[FaultSpec("no_such_site")])}
 
 
-# ids kept as they were before ported options left or changed this list
-# (live=True alone is ported: its case now asks for a live sharded
-# catalog). data_dir and faults are ported: their cases now hold the
-# reference's refusals — data_dir without live=True, and a fault spec
+# ids kept as they were before ported options left or changed this list.
+# Every option is ported, so each case holds one of the reference's
+# refusals: the quantized mirror with the dense buffer, with shards and
+# with a live catalog; data_dir without live=True; and a fault spec
 # naming an unknown site (FaultSpec rejects it, as the reference's does)
+_QUANTIZED = "mirror='quantized' requires"
+
+
 @pytest.mark.parametrize("opt,exc,match", [
-    pytest.param(lambda: {"mirror": "quantized"}, NotImplementedError,
-                 "A10", id="opt2-A10"),
-    pytest.param(lambda: {"n_shards": 2}, NotImplementedError, "A11",
-                 id="opt3-A11"),
-    pytest.param(lambda: {"live": True, "n_shards": 2}, NotImplementedError,
-                 "A11", id="opt4-A7/A8"),
+    pytest.param(lambda: {"mirror": "quantized", "score_mode": "dense"},
+                 ValueError, _QUANTIZED, id="opt2-A10"),
+    pytest.param(lambda: {"mirror": "quantized", "n_shards": 2}, ValueError,
+                 _QUANTIZED, id="opt3-A11"),
+    pytest.param(lambda: {"mirror": "quantized", "live": True}, ValueError,
+                 _QUANTIZED, id="opt4-A7/A8"),
     pytest.param(lambda: {"data_dir": "somewhere"}, ValueError,
                  "data_dir requires live=True", id="opt5-A7/A8"),
     pytest.param(_unknown_fault_site, ValueError, "unknown fault site",

@@ -116,9 +116,8 @@ def _parity(je, te, x_all, pos, neg, k, mode):
 
 def _same_catalog_stats(je, te, mode="default"):
     """index_stats equal, the resident device bytes too: by kind and per
-    index (the port has no quantized mirror: A10), except on the host
-    oracle, whose query_index reads the port's device mirror and the
-    reference's host rows."""
+    index, except on the host oracle, whose query_index reads the port's
+    device mirror and the reference's host rows."""
     sj, st = je.index_stats(), te.index_stats()
     for k, v in sj.items():
         if k in ("build_time_s", "device_bytes", "device_bytes_per_index"):
@@ -126,11 +125,10 @@ def _same_catalog_stats(je, te, mode="default"):
         assert st[k] == v, (k, v, st[k])
     if mode == "host_oracle":
         return
-    want = {k: v for k, v in sj["device_bytes"].items() if k != "quantized"}
-    assert st["device_bytes"] == want
+    assert st["device_bytes"] == sj["device_bytes"]
     for wj, wt in zip(sj["device_bytes_per_index"],
                       st["device_bytes_per_index"]):
-        assert wt == {k: v for k, v in wj.items() if k != "quantized"}
+        assert wt == wj
 
 
 # ----------------------------------------------------------------------

@@ -141,9 +141,20 @@ def test_knn_full_matches_reference(name, integer, request):
     assert (gd[:, 0] == 0).all()
 
 
-def test_knn_subset_refuses_unported_index_kinds():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tknn.knn_subset(object(), np.zeros((1, 12), np.float32), k=3)
+def test_knn_subset_refuses_unported_index_kinds(request):
+    """Kept under its name from when the sharded index was refused: knn
+    over a ShardedZoneMapIndex is now the reference's (per-shard top-k,
+    merged by (distance, global id)), flat and on a device-list mesh."""
+    x, q = _knn_data("blob_data", request, True)
+    for s in (2, 4, 8):
+        jix = jindex.build_sharded_index(x, DIMS, s, block=64, subset_id=0)
+        tix = tindex.build_sharded_index(x, DIMS, s, block=64, subset_id=0,
+                                         device="cpu")
+        wids, wd = jknn.knn_subset(jix, q, k=37)
+        for mesh in (None, ["cpu"] * s):
+            gids, gd = tknn.knn_subset(tix, q, k=37, mesh=mesh)
+            np.testing.assert_array_equal(gids, wids)
+            np.testing.assert_array_equal(gd, wd)
 
 
 def test_knn_subset_reads_the_device_mirror():

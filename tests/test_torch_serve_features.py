@@ -1,14 +1,15 @@
 """The serving cases of tests/test_serve_features.py through both
 packages, and the port's serving entry points, on the CPU.
 
-Twins of the non-sharded serving cases (``test_server_handles_request``,
+Twins of the serving cases (``test_server_handles_request``,
 ``test_server_error_isolation``, ``test_server_threaded_batching``,
-``test_merge_shard_results``), under the same names, by
-tests/test_torch_serve.py's ``twin``: each case body runs on the port
+``test_merge_shard_results``,
+``test_server_error_isolation_in_sharded_batch``), under the same names,
+by tests/test_torch_serve.py's ``twin``: each case body runs on the port
 (``device="cpu"``) and on the reference, and what it returns is equal.
-The sharded case waits for the sharded engine (ROADMAP A11); the feature
-extraction cases are held by tests/test_torch_features.py. The CLI entry
-points run on the CPU only when asked, and without a card refuse.
+The feature extraction cases are held by tests/test_torch_features.py.
+The CLI entry points run on the CPU only when asked, and without a card
+refuse.
 """
 from __future__ import annotations
 
@@ -88,6 +89,37 @@ def test_merge_shard_results():
         np.testing.assert_array_equal(ids, [2, 101, 0])
         np.testing.assert_array_equal(scores, [5.0, 3.0, 1.0])
         return ids.tolist(), scores.tolist()
+    twin(case)
+
+
+def test_server_error_isolation_in_sharded_batch(small_x):
+    """One poisoned request (no positives: its fit fails) inside a window
+    of a 4-shard engine fails alone; the others answer as the unsharded
+    engine's sequential queries, and the server counts one error and two
+    sharded queries."""
+    feats, labels = small_x
+
+    def case(p):
+        eng = _small_engine(p, feats)
+        sharded = p.engine(feats, n_subsets=8, subset_dim=5, block=64,
+                           n_shards=4, max_results=25)
+        srv = p.QueryServer(sharded, max_results=25)
+        pos = np.nonzero(labels == 2)[0][:10]
+        neg = np.nonzero(labels != 2)[0][:40]
+        good0 = p.QueryRequest(0, pos, neg, "dbranch")
+        bad = p.QueryRequest(1, [], neg[:5], "dbranch")      # no positives
+        good2 = p.QueryRequest(2, pos[:6], neg[:20], "dbranch")
+        out = srv.handle_batch([good0, bad, good2])
+        assert out[0].ok and not out[1].ok and out[2].ok
+        assert srv.stats["errors"] == 1 and srv.stats["served"] == 3
+        assert srv.stats["sharded_queries"] == 2
+        assert srv.summary()["n_shards"] == 4
+        for resp, req in ((out[0], good0), (out[2], good2)):
+            want = eng.query(req.pos_ids, req.neg_ids, model="dbranch",
+                             max_results=25)
+            np.testing.assert_array_equal(resp.result.ids, want.ids)
+            np.testing.assert_array_equal(resp.result.scores, want.scores)
+        return [_res(r) for r in out]
     twin(case)
 
 

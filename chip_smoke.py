@@ -23,7 +23,15 @@ and the three WAL sync modes timed), and the feature-extraction path: 16,384
 synthetic patches through the full-width ViT-T (``extract_catalog``,
 flash attention in every layer) into a ``SearchEngine`` and a query
 batch, GPU against CPU, and 512 patches at the paper's 400x400 (626
-tokens). Then the quantized mirror (``quantized``: full_size's catalog
+tokens). DINO training of that ViT-T (``dino``, ROADMAP A12's
+remainder): ``init_dino`` and ``make_dino_step`` at 64x64 with a batch
+of 64 and at 400x400, one step's loss, gradients and new state against
+the CPU's, the attention forward of teacher and student on the flash
+kernel (48 launches a step) and the student's backward through the plain
+``flash_attention_bwd_ref`` under an autograd Function (24 a step),
+timed steps, a profiled one, the plain backward beside SDPA's forward +
+backward, and the trained student embedding the catalog for a query
+batch. Then the quantized mirror (``quantized``: full_size's catalog
 and batch on ``mirror="quantized"``, bitwise the f32 engine, resident
 bytes of both, walls in turns) and the sharded catalogs (``sharded``:
 ``n_shards`` 1, 2, 4 and 8 flat on the card, bitwise S = 1, and an engine
@@ -57,6 +65,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only quantized   # the quantized mirror
     python3 chip_smoke.py --only sharded     # n_shards 1, 2, 4, 8
     python3 chip_smoke.py --only serve       # the serving layer
+    python3 chip_smoke.py --only dino        # DINO training of the ViT-T
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -1147,7 +1156,33 @@ def host_oracle_engine(eng, device):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC")
 
 
-def profile_batch(fn, counters=None, graph_fallback: bool = False) -> dict:
+def _kernel_class(name: str) -> str:
+    """flash attention, cuBLAS's products or the rest, by kernel name."""
+    low = name.lower()
+    return ("flash_attention" if "flash_attention_kernel" in name else
+            "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass"))
+            else "other")
+
+
+def _range_kernels(events, name: str) -> list:
+    """(kernel name, device us) of every kernel launched inside the
+    torch.profiler ranges (record_function) called ``name``: the kernels
+    of the range's CPU event and of every op under it."""
+    from torch.autograd import DeviceType
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration) for k in e.kernels)
+        for ch in e.cpu_children:
+            walk(ch)
+    for e in events:
+        if e.name == name and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
+
+
+def profile_batch(fn, counters=None, graph_fallback: bool = False,
+                  ranges=()) -> dict:
     """One more warm call of ``fn`` (a query batch, a batched fit, an
     extraction batch) under torch.profiler: device busy time (the sum of
     kernel self times on the card) against the host wall, and the kernels
@@ -1159,7 +1194,10 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False) -> dict:
     (``LAUNCH_CALLS``; equal where every kernel is PyTorch's, as in the
     fit). Where either fails, the launch count is None, and the busy time
     is None too unless ``graph_fallback``: then it is one replay of a
-    CUDA graph of ``fn`` (only for a ``fn`` with no host sync)."""
+    CUDA graph of ``fn`` (only for a ``fn`` with no host sync). Each name
+    in ``ranges`` is a record_function range inside ``fn``: the device
+    time of the kernels launched under it is its own class in
+    ``device_ms_by_class``, taken out of the others."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1177,7 +1215,8 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False) -> dict:
         # device-side events only: a CPU op's device total repeats the
         # time of the kernels it launched
         us = _self_device_us(e)
-        if e.device_type == DeviceType.CUDA and us > 0:
+        if e.device_type == DeviceType.CUDA and us > 0 \
+                and e.key not in ranges:      # a range's device-side span
             rows.append((us, e.key, e.count))
         elif e.device_type != DeviceType.CUDA and e.key in LAUNCH_CALLS:
             launch_calls += e.count
@@ -1205,11 +1244,17 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False) -> dict:
     # flash attention, cuBLAS's products and the rest
     by_class = {"flash_attention": 0.0, "cublas": 0.0, "other": 0.0}
     for us, k, _ in rows:
-        low = k.lower()
-        cls = ("flash_attention" if "flash_attention_kernel" in k else
-               "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass"))
-               else "other")
-        by_class[cls] += us * 1e-3
+        by_class[_kernel_class(k)] += us * 1e-3
+    in_range = {}
+    for name in ranges:
+        under = _range_kernels(prof.events(), name)
+        mine = {c: 0.0 for c in ("flash_attention", "cublas", "other")}
+        for k, us in under:
+            mine[_kernel_class(k)] += us * 1e-3
+        for c, ms in mine.items():
+            by_class[c] -= ms
+        by_class[name] = sum(mine.values())
+        in_range[name] = {"kernels": len(under), "device_ms_by_class": mine}
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_by": busy_by,
             "device_idle_share": (1.0 - busy / wall
@@ -1221,6 +1266,7 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False) -> dict:
             "launches_counted": counted, "launches_recorded": recorded,
             "all_recorded": all_recorded,
             "path_kernels": per_launch, "device_ms_by_class": by_class,
+            **({"ranges": in_range} if ranges else {}),
             "top_device": [{"name": k[:60], "ms": us * 1e-3, "count": c}
                            for us, k, c in rows[:8]]}
 
@@ -3032,8 +3078,8 @@ def phase_extraction(device):
     port init) over EXTRACT_N synthetic 64x64 patches by extract_catalog
     on the card; the first CPU_CHECK_N re-extracted on the CPU with the
     same weights. Returns the features, the labels, the flash launches of
-    the timed catalog pass and the first batch's layer-0 attention
-    inputs in the kernel layout."""
+    the timed catalog pass, the first batch's layer-0 attention inputs in
+    the kernel layout and the images."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.rapidearth_vit import (FEATURE_DIM, IMAGE_SIZE,
@@ -3121,7 +3167,7 @@ def phase_extraction(device):
     with torch.inference_mode():
         x0 = model.embed(imgs[:EXTRACT_BATCH])
         flash_in = ops.kernel_layout(*model.layers[0].qkv(x0))
-    return feats, data["labels"], launches, flash_in
+    return feats, data["labels"], launches, flash_in, imgs
 
 
 def phase_extraction_400(device) -> dict:
@@ -3206,11 +3252,13 @@ def phase_extraction_400(device) -> dict:
     return res
 
 
-def phase_search_vit(device, feats, labels, k: int = 100) -> None:
+def phase_search_vit(device, feats, labels, k: int = 100,
+                     phase: str = "search_on_vit_features") -> None:
     """The ViT features, normalised as examples/train_extractor.py does,
     into a SearchEngine on the card and one on the CPU; a query batch of
     8 (dbranch/dbens, 15 positives of one class, 80 negatives) on both,
-    ids, scores and stats bitwise equal."""
+    ids, scores and stats bitwise equal; the results' class share is
+    printed beside the base rate, with no limit."""
     import torch
     from repro_torch.core import SearchEngine
     from repro_torch.data.synthetic import CLASSES
@@ -3233,7 +3281,7 @@ def phase_search_vit(device, feats, labels, k: int = 100) -> None:
         raise AssertionError("a query over the ViT features found nothing")
     groups = [VIT_QUERY_CLASSES[i % len(VIT_QUERY_CLASSES)]
               for i in range(len(reqs))]
-    emit({"phase": "search_on_vit_features", "rows": int(x.shape[0]),
+    emit({"phase": phase, "rows": int(x.shape[0]),
           "dims": int(x.shape[1]), "batch": len(reqs),
           "classes": [CLASSES[c] for c in groups],
           "build_s_gpu_and_cpu": build_s, "query_batch_wall_s": wall,
@@ -3244,6 +3292,369 @@ def phase_search_vit(device, feats, labels, k: int = 100) -> None:
                                                                  groups)],
           "class_base_rate": [float((labels == c).mean()) for c in groups],
           "gpu_equals_cpu": True})
+
+
+# DINO training of the extractor (ROADMAP A12's remainder): the paper
+# ViT-T at the config's 64x64 /16 with examples/train_extractor.py's
+# batch of 64, and at the paper's 400x400 /16 (626 tokens): one step held
+# against the CPU at batch 2, timed at batch 16
+DINO_BATCH = 64
+DINO_STEPS = 20
+DINO400_CHECK_BATCH = 2
+DINO400_BATCH = 16
+DINO400_STEPS = 5
+DINO_LR = 1e-3                # make_dino_step's default, as the reference's
+# card against CPU after one step from one seed on the same views: the
+# loss relative; each gradient against its tensor's largest |entry|; the
+# moments likewise (v = (1 - b2) g^2: twice the gradient's); the
+# parameters within 2 lr (Adam's first step moves each by at most lr, so
+# a near-zero gradient whose sign differs can move them 2 lr apart), the
+# teacher within (1 - ema) of that; the centre within FEATURE_TOL
+DINO_LOSS_RTOL = 1e-4
+DINO_GRAD_TOL = 1e-3
+DINO_EMA = 0.996
+# torch.profiler range around every plain attention backward
+DINO_BWD_RANGE = "attention_backward"
+
+
+@contextlib.contextmanager
+def plain_attention_watch():
+    """While open, counts the calls of kernels/ref.flash_attention_ref (a
+    forward through the plain version), runs each
+    flash_attention_bwd_ref call inside the torch.profiler range
+    DINO_BWD_RANGE, and keeps the first backward's inputs; restores both
+    functions on leaving."""
+    import torch
+    from repro_torch.kernels import ref
+    fwd, bwd = ref.flash_attention_ref, ref.flash_attention_bwd_ref
+    seen = {"plain_forward": 0, "bwd_inputs": None}
+
+    def counted_fwd(*args, **kwargs):
+        seen["plain_forward"] += 1
+        return fwd(*args, **kwargs)
+
+    def ranged_bwd(*args, **kwargs):
+        if seen["bwd_inputs"] is None:
+            # detached: the saved tensors would keep the step's autograd
+            # graph alive, whose AccumulateGrad nodes then tie the next
+            # step to their stream (no CUDA graph can capture it)
+            seen["bwd_inputs"] = (tuple(a.detach() for a in args), kwargs)
+        with torch.profiler.record_function(DINO_BWD_RANGE):
+            return bwd(*args, **kwargs)
+    ref.flash_attention_ref, ref.flash_attention_bwd_ref = (counted_fwd,
+                                                            ranged_bwd)
+    try:
+        yield seen
+    finally:
+        ref.flash_attention_ref, ref.flash_attention_bwd_ref = fwd, bwd
+
+
+def dino_launches(seen) -> dict:
+    """The flash kernel's launches, the backward calls and the plain
+    forwards since zero_counts."""
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.launches, "backward_calls":
+            fa.backward_calls, "plain_forward": seen["plain_forward"]}
+
+
+def needs_dino_launches(counts: dict, layers: int, what: str) -> None:
+    """A step launches the kernel once a layer, view and network (teacher
+    and student) and runs the backward once a layer and view; no forward
+    takes the plain version."""
+    want = {"flash_attention": 4 * layers, "backward_calls": 2 * layers,
+            "plain_forward": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: {counts}, expected {want}")
+
+
+def _rel_max(a, b) -> float:
+    """max |a - b| over max |b| (b on the CPU)."""
+    return float((a.detach().cpu() - b.detach()).abs().max()
+                 / b.detach().abs().max().clamp_min(1e-30))
+
+
+def _abs_max(a, b) -> float:
+    return float((a.detach().cpu() - b.detach()).abs().max())
+
+
+def dino_gpu_vs_cpu(device, cfg, x, size: int) -> dict:
+    """One DINO step from one seed (init_dino, generator seed 0) on the
+    card and on the CPU, on the same two views of ``x`` (drawn and made on
+    the CPU, then uploaded): loss, every gradient and the state after the
+    step against the CPU's, to the DINO_* tolerances; the card's step
+    launches the kernel 4 x layers times and the backward 2 x layers."""
+    import torch
+    from repro_torch.configs.rapidearth_vit import PATCH_SIZE
+    from repro_torch.features.dino import augment, init_dino, make_dino_step
+    step = make_dino_step(cfg, image_size=size, patch_size=PATCH_SIZE,
+                          lr=DINO_LR, ema=DINO_EMA)
+    gen = torch.Generator().manual_seed(1)
+    xc = torch.from_numpy(np.ascontiguousarray(x))
+    v1, v2 = augment(xc, gen), augment(xc, gen)
+    sg, sc = (init_dino(cfg, image_size=size, patch_size=PATCH_SIZE,
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev) for dev in (device, "cpu"))
+    with plain_attention_watch() as seen:
+        zero_counts()
+        lg, cg, gg = step.loss_and_grads(sg, v1.to(device), v2.to(device))
+        torch.cuda.synchronize()
+        counts = dino_launches(seen)
+    needs_dino_launches(counts, cfg.num_layers, f"dino step {size}x{size}")
+    t0 = time.perf_counter()
+    lc, cc, gc = step.loss_and_grads(sc, v1, v2)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    grad_err = {n: _rel_max(gg[n], g) for n, g in gc.items()}
+    worst = max(grad_err, key=grad_err.get)
+    if not np.isfinite(float(lg)) or loss_err > DINO_LOSS_RTOL:
+        raise AssertionError(f"dino {size}x{size}: GPU loss {float(lg)} != "
+                             f"CPU loss {float(lc)} (rel {loss_err})")
+    if grad_err[worst] > DINO_GRAD_TOL:
+        raise AssertionError(f"dino {size}x{size}: gradient {worst} off by "
+                             f"{grad_err[worst]} of its max")
+    step.update(sg, gg, cg)
+    step.update(sc, gc, cc)
+    torch.cuda.synchronize()
+    lr = DINO_LR
+    st = dict(sc.trainables())
+    moved = {n: (p.detach().cpu() - st[n].detach()).abs()
+             for n, p in sg.trainables().items()}
+    param_err = max(float(d.max()) for d in moved.values()) / lr
+    n_el = sum(d.numel() for d in moved.values())
+    far = sum(int((d > 0.01 * lr).sum()) for d in moved.values())
+    teacher_err = max(
+        [_abs_max(p, q) for p, q in zip(sg.teacher.parameters(),
+                                        sc.teacher.parameters())]
+        + [_abs_max(sg.head_t[w], sc.head_t[w]) for w in ("w1", "w2")])
+    m_err = max(_rel_max(sg.opt_m[n], m) for n, m in sc.opt_m.items())
+    v_err = max(_rel_max(sg.opt_v[n], v) for n, v in sc.opt_v.items())
+    center_err = _abs_max(sg.center, sc.center)
+    res = {"image_size": size, "batch": int(x.shape[0]),
+           "tokens": int(sg.student.pos.shape[-2]),
+           "loss_gpu": float(lg), "loss_cpu": float(lc),
+           "loss_rel_err": loss_err, "loss_rtol": DINO_LOSS_RTOL,
+           "grad_max_rel_err": grad_err[worst], "grad_worst": worst,
+           "grad_tol": DINO_GRAD_TOL, "grads": len(grad_err),
+           "param_max_err_lr": param_err,
+           "param_share_over_0.01lr": far / n_el,
+           "teacher_max_err": teacher_err, "moment_m_rel_err": m_err,
+           "moment_v_rel_err": v_err, "center_max_err": center_err,
+           "launches": counts, "cpu_step_grads_s": cpu_s}
+    if param_err > 2.0 + 1e-3 or teacher_err > 2 * (1 - DINO_EMA) * lr \
+            + 1e-6 or m_err > DINO_GRAD_TOL or v_err > 2 * DINO_GRAD_TOL \
+            or center_err > FEATURE_TOL:
+        raise AssertionError(f"dino {size}x{size}: the state after a step "
+                             f"is off the CPU's: {res}")
+    return res
+
+
+def dino_train(device, cfg, imgs, size: int, batch: int, steps: int):
+    """DINO training on the card through the user's entry point,
+    ``make_dino_step(...)(state, images, generator)`` with host batches
+    cycling through ``imgs`` as examples/train_extractor.py takes them:
+    one warm step, one counted step (the kernel 4 x layers times, the
+    backward 2 x layers, no plain forward), then ``steps`` timed steps
+    (host clock ending in a synchronise), peak memory above what was
+    resident, every loss finite, the teacher moved. Returns the state, the
+    step and the record."""
+    import torch
+    from repro_torch.configs.rapidearth_vit import PATCH_SIZE
+    from repro_torch.features.dino import init_dino, make_dino_step
+    state = init_dino(cfg, image_size=size, patch_size=PATCH_SIZE,
+                      generator=torch.Generator().manual_seed(0),
+                      device=device)
+    step = make_dino_step(cfg, image_size=size, patch_size=PATCH_SIZE,
+                          lr=DINO_LR, ema=DINO_EMA)
+    gen = torch.Generator().manual_seed(2)
+    n = imgs.shape[0] - imgs.shape[0] % batch
+    batches = [imgs[i:i + batch] for i in range(0, n, batch)]
+    teacher0 = state.teacher.layers[0].wq.detach().clone()
+    state, _ = step(state, batches[0], gen)                  # warm
+    with plain_attention_watch() as seen:
+        zero_counts()
+        state, _ = step(state, batches[1 % len(batches)], gen)
+        torch.cuda.synchronize()
+        counts = dino_launches(seen)
+    needs_dino_launches(counts, cfg.num_layers,
+                        f"dino_step {size}x{size} batch {batch}")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        state, m = step(state, batches[(i + 2) % len(batches)], gen)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).cpu().numpy()
+    moved = float((state.teacher.layers[0].wq - teacher0).abs().max())
+    if not np.isfinite(losses).all() or moved == 0:
+        raise AssertionError(f"dino {size}x{size}: losses {losses}, teacher "
+                             f"moved {moved}")
+    return state, step, {
+        "image_size": size, "batch": batch, "steps": steps,
+        "s_per_step": wall / steps, "images_per_s": batch * steps / wall,
+        "max_memory_allocated": peak, "peak_above_resident": peak - resident,
+        "losses": losses.tolist(), "teacher_max_move": moved,
+        "state_steps": state.step, "launches_per_step": counts}
+
+
+def dino_profile(device, state, step, x):
+    """One step on two uploaded views of ``x`` under torch.profiler
+    (profile_batch, the plain backward as its own class: the kernels under
+    DINO_BWD_RANGE), and a CUDA graph of 3 such steps (device time with no
+    host gaps). Run after the state is no longer needed: the graph's
+    replays take steps with a stale Adam scale. Returns the record and
+    the profiled step's first attention backward's inputs."""
+    import torch
+    from repro_torch.features.dino import augment
+    gen = torch.Generator().manual_seed(3)
+    xc = torch.from_numpy(np.ascontiguousarray(x))
+    v1, v2 = (augment(xc, gen).to(device) for _ in range(2))
+    fn = lambda: step.on_views(state, v1, v2)
+    with plain_attention_watch() as seen:
+        prof = profile_batch(fn, flash_counter(), graph_fallback=True,
+                             ranges=(DINO_BWD_RANGE,))
+        prof["graph_step_ms"] = graph_ms(fn, iters=3)
+    return prof, seen["bwd_inputs"]
+
+
+def dino_bwd_bound(bh: int, s: int, g: int, d: int):
+    """The attention backward: q, k, v, dout read and dq, dk, dv written
+    once, against its five products of 2 BH G S^2 D FLOPs each (the scores
+    again, dv, dp, dq, dk) at the 3xTF32 rate of the f32 forward
+    (flash_bound's convention)."""
+    byts = (3 * bh * s * g * d + 4 * bh * s * d) * 4
+    flops = 10 * bh * g * s * s * d
+    tb, to = byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S
+    return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def attention_backward_times(args, kwargs) -> dict:
+    """At one backward's own inputs (q, k, v, dout in the kernel
+    layout, as a DINO step gave them): the plain backward by CUDA events
+    and by a CUDA graph (device ms); the kernel forward and the plain
+    backward through ops' autograd Function (events); SDPA's forward and
+    forward + backward on the same q, k, v and dout (events), the library
+    yardstick, never on the path; the backward's bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v, dout = args
+    causal = kwargs["causal"]
+    bh, s, g, d = q.shape
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
+                                                causal=causal)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    # the autograd Function in the kernel layout (ops applies it there)
+    from repro_torch.kernels.ops import _FlashAttention
+
+    def port_fb():
+        o = _FlashAttention.apply(*leaves, causal)
+        return torch.autograd.grad(o, leaves, dout)
+    ql = leaves[0].detach().permute(0, 2, 1, 3).contiguous() \
+        .requires_grad_(True)
+    kl = leaves[1].detach()[:, None].contiguous().requires_grad_(True)
+    vl = leaves[2].detach()[:, None].contiguous().requires_grad_(True)
+    dl = dout.permute(0, 2, 1, 3).contiguous()
+    sdpa = lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                  is_causal=causal,
+                                                  enable_gqa=g > 1)
+
+    def sdpa_fb():
+        return torch.autograd.grad(sdpa(), (ql, kl, vl), dl)
+    # the backward against SDPA's, on the same inputs (a yardstick)
+    got = plain()
+    want = sdpa_fb()
+    lib_err = max(float((a.float() - b.float().reshape(a.shape)).abs().max())
+                  for a, b in zip(got, (want[0].permute(0, 2, 1, 3),
+                                        want[1][:, 0], want[2][:, 0])))
+    b0 = fa.backward_calls
+    res = {"shape": {"bh": bh, "s": s, "g": g, "d": d}, "causal": causal,
+           "plain_bwd_ms": time_ms(plain, iters=10, warmup=2),
+           "plain_bwd_device_ms": graph_ms(plain, iters=10),
+           "plain_bwd_device_ms_by": "graph",
+           "kernel_fwd_plain_bwd_ms": time_ms(port_fb, iters=10, warmup=2),
+           "library_fwd_ms": time_ms(sdpa, iters=10, warmup=2),
+           "library_fwd_bwd_ms": time_ms(sdpa_fb, iters=10, warmup=2),
+           "library_max_abs_diff": lib_err}
+    fa.backward_calls = b0        # the timing's calls are not the path's
+    res["bound_ms"], res["bound_by"] = dino_bwd_bound(bh, s, g, d)
+    return res
+
+
+def phase_dino(device, imgs=None, labels=None) -> dict:
+    """DINO training of the paper-config ViT-T on the card (ROADMAP A12's
+    remainder, examples/train_extractor.py's flow): at 64x64 /16 one step
+    held against the CPU at batch DINO_BATCH, the counted step, DINO_STEPS
+    timed steps and a profiled one; the trained student embeds the
+    extraction phase's patches (``imgs``, ``labels``; made here when not
+    given) for one dbranch/dbens batch (phase_search_vit); at 400x400 one
+    step against the CPU at batch DINO400_CHECK_BATCH and DINO400_STEPS
+    timed at DINO400_BATCH; the plain attention backward timed at each
+    step's own inputs beside SDPA's. Returns the record."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.rapidearth_vit import IMAGE_SIZE
+    from repro_torch.data.synthetic import (PatchDatasetConfig,
+                                            generate_patches)
+    from repro_torch.features.extract import extract_catalog, vit_feature_fn
+    from repro_torch.kernels import flash_attention as fa
+    precision = torch.get_float32_matmul_precision()
+    if precision != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError(f"f32 matmuls must be full f32: {precision}")
+    cfg = get_config("rapidearth-vit-t")
+    if imgs is None:
+        data = generate_patches(PatchDatasetConfig(
+            n_patches=EXTRACT_N, patch_size=IMAGE_SIZE, seed=0))
+        imgs, labels = data["images"], data["labels"]
+    t_phase = time.perf_counter()
+    check = dino_gpu_vs_cpu(device, cfg, imgs[:DINO_BATCH], IMAGE_SIZE)
+    n_train = DINO_BATCH * (DINO_STEPS + 2)
+    state, step, train = dino_train(device, cfg, imgs[:n_train], IMAGE_SIZE,
+                                    DINO_BATCH, DINO_STEPS)
+    zero_counts()
+    t0 = time.perf_counter()
+    feats = extract_catalog(imgs, vit_feature_fn(state.student),
+                            batch=EXTRACT_BATCH, device=device)
+    embed_s = time.perf_counter() - t0
+    embed_launches = fa.launches
+    if embed_launches != -(-len(imgs) // EXTRACT_BATCH) * cfg.num_layers \
+            or not np.isfinite(feats).all():
+        raise AssertionError(f"dino embedding: {embed_launches} launches, "
+                             f"finite {np.isfinite(feats).all()}")
+    phase_search_vit(device, feats, labels, phase="search_on_dino_features")
+    prof, bwd_in = dino_profile(device, state, step, imgs[:DINO_BATCH])
+    bwd = attention_backward_times(*bwd_in)
+    del state, step, feats
+    imgs400 = generate_patches(PatchDatasetConfig(
+        n_patches=2 * DINO400_BATCH, patch_size=EXTRACT400_SIZE,
+        seed=0))["images"]
+    check400 = dino_gpu_vs_cpu(device, cfg, imgs400[:DINO400_CHECK_BATCH],
+                               EXTRACT400_SIZE)
+    state, step, train400 = dino_train(device, cfg, imgs400,
+                                       EXTRACT400_SIZE, DINO400_BATCH,
+                                       DINO400_STEPS)
+    prof400, bwd_in = dino_profile(device, state, step,
+                                   imgs400[:DINO400_BATCH])
+    bwd400 = attention_backward_times(*bwd_in)
+    del state, step
+    res = {"phase": "dino", "model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads,
+           "head_dim": cfg.resolved_head_dim, "proj_dim": 256,
+           "float32_matmul_precision": precision,
+           "gpu_vs_cpu": check, "train": train, "profile_one_step": prof,
+           "embed_s": embed_s, "embed_patches": int(len(imgs)),
+           "embed_flash_launches": embed_launches,
+           "attention_backward": bwd,
+           "gpu_vs_cpu_400": check400, "train_400": train400,
+           "profile_one_step_400": prof400,
+           "attention_backward_400": bwd400,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
 
 
 SERVE_N = 64                 # requests of the bitwise HTTP check
@@ -3802,12 +4213,14 @@ MESH_SHARDS = 4                # a device list naming the one card 4 times
 
 
 def zero_counts() -> None:
-    """Every kernel wrapper's launch counter to 0."""
+    """Every kernel wrapper's launch counter to 0, and the attention
+    backward's call counter."""
     from repro_torch.kernels import box_scan, flash_attention, l2dist
     from repro_torch.kernels import zone_prune
     zone_prune.launches = zone_prune.candidates_launches = 0
     box_scan.scan_launches = box_scan.seg_launches = 0
     l2dist.launches = flash_attention.launches = 0
+    flash_attention.backward_calls = 0
 
 
 def read_counts() -> dict:
@@ -4351,22 +4764,25 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "main_wall": phase_main_wall,
         "quantized": phase_quantized_only,
         "sharded": phase_sharded_only,
-        "serve": phase_serve_only}
+        "serve": phase_serve_only,
+        "dino": phase_dino}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
-    quantized, sharded and serve, the kernels are built and only those
-    phases run: the FLASH_CASES rows, the 400x400 extraction, the box
-    scans at the main path's inputs, zone_candidates on synthetic zone
+    quantized, sharded, serve and dino, the kernels are built and only
+    those phases run: the FLASH_CASES rows, the 400x400 extraction, the
+    box scans at the main path's inputs, zone_candidates on synthetic zone
     maps, l2dist at the knn path's inputs, the batched device fit at full
     size, the live catalog at full size (and its GPU-vs-CPU schedule), the
     durable live catalog at full size (about 3.5 GB on disk under build/
     at its peak), the main path's warm wall, the quantized mirror and the
     sharded catalogs at full size, the serving layer over full_size's
-    engine; for comparing two trees on one card."""
+    engine, DINO training of the ViT-T at 64x64 and 400x400 (with its own
+    16,384 synthetic patches to embed); for comparing two trees on one
+    card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -4413,8 +4829,10 @@ def main(argv) -> int:
     scan_launches, scan_in, knn_in, qi_in = phase_full_scan_knn(*ctx)
     live_launches, live_probe, memory = phase_live(dev, ctx[0], ctx[1])
     durable_launches = phase_durable(dev, ctx[0], ctx[1], memory)
-    feats, labels, flash_launches, flash_in = phase_extraction(dev)
+    feats, labels, flash_launches, flash_in, imgs = phase_extraction(dev)
     phase_search_vit(dev, feats, labels)
+    dino = phase_dino(dev, imgs, labels)
+    del imgs
     ext400 = phase_extraction_400(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
@@ -4467,7 +4885,12 @@ def main(argv) -> int:
                "flash_attention": {
                    "extract_catalog": flash_launches,
                    "per_batch": flash_launches
-                   / -(-EXTRACT_N // EXTRACT_BATCH)}}
+                   / -(-EXTRACT_N // EXTRACT_BATCH),
+                   "dino_step": dino["train"]["launches_per_step"][
+                       "flash_attention"],
+                   "dino_step_400": dino["train_400"]["launches_per_step"][
+                       "flash_attention"],
+                   "dino_embed_catalog": dino["embed_flash_launches"]}}
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
     # batch, its dense batch, knn, dtree + rforest and use_fused=False
     for name in KERNELS:
@@ -4519,6 +4942,16 @@ def main(argv) -> int:
                                  if f"{name}_kernel" in f}
     rows[-1]["sass"] = sass
     rows[-1]["extraction_400_flash_launches"] = ext400["flash_launches"]
+    # the plain backward under ops.flash_attention's autograd Function (no
+    # kernel yet: ROADMAP B5b), at each DINO step's shapes
+    rows[-1]["attention_backward"] = {
+        "source": "src/repro_torch/kernels/ref.py flash_attention_bwd_ref",
+        "calls_per_step": {
+            "dino_step": dino["train"]["launches_per_step"]["backward_calls"],
+            "dino_step_400":
+                dino["train_400"]["launches_per_step"]["backward_calls"]},
+        "dino_step": dino["attention_backward"],
+        "dino_step_400": dino["attention_backward_400"]}
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

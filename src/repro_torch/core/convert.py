@@ -11,16 +11,19 @@ the same state itself.
 
 ``vit_from_numpy`` turns a reference ViT parameter tree (``init_vit`` of
 ``repro.features.vit``, or trained weights, with numpy leaves) into the
-port's ``ViT``.
+port's ``ViT``; ``dino_state_from_numpy`` does the same for a whole
+reference ``DinoState`` (both ViTs, heads, centre, Adam's moments, step).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.index import ZoneMapIndex
 from repro_torch.core.segments import SegmentedCatalog
 from repro_torch.device import resolve_device
+from repro_torch.features.dino import DinoState
 from repro_torch.features.vit import ViT, load_arrays
 
 
@@ -86,6 +89,12 @@ def vit_from_numpy(params, cfg: ModelConfig, *, image_size: int,
     layout. ``device`` defaults to CUDA."""
     model = ViT(cfg, image_size=image_size, patch_size=patch_size,
                 device=device)
+    load_arrays(model, _vit_arrays(params, cfg))
+    return model
+
+
+def _vit_arrays(params, cfg: ModelConfig) -> dict:
+    """A reference ViT tree as {the port's parameter name: array}."""
     arrays = {k: params[k] for k in ("patch_proj", "patch_bias", "cls",
                                      "pos", "final_norm")}
     lay = params["layers"]
@@ -99,5 +108,44 @@ def vit_from_numpy(params, cfg: ModelConfig, *, image_size: int,
                              f"stacked, the config has {cfg.num_layers}")
         for i in range(cfg.num_layers):
             arrays[f"layers.{i}.{name}"] = stacked[i]
-    load_arrays(model, arrays)
-    return model
+    return arrays
+
+
+def dino_state_from_numpy(state, cfg: ModelConfig, *, image_size: int,
+                          patch_size: int, device=None) -> DinoState:
+    """The port's DinoState holding a reference ``DinoState`` with numpy
+    leaves: student and teacher by ``vit_from_numpy``, the heads {w1, w2},
+    the centre, ``opt_m`` / ``opt_v`` (pytrees (student, head_s)) under
+    the names ``DinoState.trainables`` gives, and the step. ``device``
+    defaults to CUDA."""
+    dev = resolve_device(device)
+    vit = dict(cfg=cfg, image_size=image_size, patch_size=patch_size,
+               device=dev)
+    student = vit_from_numpy(state.student, **vit).requires_grad_(True)
+    teacher = vit_from_numpy(state.teacher, **vit)
+
+    def tensor(a, grad=False):
+        return torch.tensor(np.asarray(a, np.float32), device=dev,
+                            requires_grad=grad)
+
+    def heads(tree, grad=False):
+        if set(tree) != {"w1", "w2"}:
+            raise ValueError(f"a head holds w1 and w2, got {sorted(tree)}")
+        return {k: tensor(tree[k], grad) for k in ("w1", "w2")}
+
+    def moments(pair):
+        vit_tree, head = pair
+        return {**{f"student.{n}": tensor(a)
+                   for n, a in _vit_arrays(vit_tree, cfg).items()},
+                **{f"head_s.{n}": w for n, w in heads(head).items()}}
+
+    out = DinoState(student, teacher, heads(state.head_s, True),
+                    heads(state.head_t), tensor(state.center),
+                    moments(state.opt_m), moments(state.opt_v),
+                    int(np.asarray(state.step)))
+    for name, p in out.trainables().items():
+        for which in (out.opt_m, out.opt_v):
+            if name not in which or which[name].shape != p.shape:
+                raise ValueError(f"moment {name} is missing or has another "
+                                 f"shape than its parameter")
+    return out

@@ -8,13 +8,15 @@ learned positional embeddings). ``extract_features`` returns the paper's
 
 Each encoder layer's attention is ``kernels.ops.flash_attention`` with
 ``causal=False`` and one query head per kv head: the hand-written CUDA
-kernel on the card, its plain version on the CPU. The projections and
-the MLP stay ``torch.matmul``, as the reference leaves them to XLA.
-Everything computes in float32 (the reference builds f32 parameters and
-never casts), and the MLP's GELU is the tanh approximation that
-``jax.nn.gelu`` defaults to. Parameters keep the reference's [in, out]
-layout (``h @ W``) and do not require grad: training, and with it the
-attention backward, is ROADMAP A12's remainder.
+kernel on the card, its plain version on the CPU; under autograd its
+backward is the plain ``kernels/ref.flash_attention_bwd_ref``. The
+projections and the MLP stay ``torch.matmul``, as the reference leaves
+them to XLA. Everything computes in float32 (the reference builds f32
+parameters and never casts), and the MLP's GELU is the tanh
+approximation that ``jax.nn.gelu`` defaults to. Parameters keep the
+reference's [in, out] layout (``h @ W``). They are built without grad,
+for extraction; a model that trains (the DINO student,
+``features/dino.py``) turns it on with ``requires_grad_(True)``.
 """
 from __future__ import annotations
 

@@ -8,10 +8,14 @@ q's dtype. The kernel picks its own tiles, so S needs no padding; its
 products run on the tensor cores (bf16, or 3xTF32 for float32) from
 tiles that TMA loads, so every tensor must start on a 16-byte boundary.
 It takes CUDA tensors only; the CPU dispatch to the plain version
-(``kernels/ref.flash_attention_ref``) lives in ``kernels/ops.py``. There
-is no backward: an input that requires grad raises.
+(``kernels/ref.flash_attention_ref``) lives in ``kernels/ops.py``. This
+entry is forward only, and an input that requires grad raises:
+gradients go through ``ops.flash_attention``, whose autograd Function
+launches this kernel forward and runs the plain backward
+(``kernels/ref.flash_attention_bwd_ref``).
 
-``launches`` counts kernel launches.
+``launches`` counts kernel launches; ``backward_calls`` counts the
+backward passes ``ops.flash_attention`` runs.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from repro_torch.kernels.build import launch_fn
 
 launches = 0
+backward_calls = 0
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,8 +66,9 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor,
                              f"{t.data_ptr():#x}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
-            "flash_attention has no backward yet (the attention backward is "
-            "ROADMAP A12's remainder); call it without autograd")
+            "kernels.flash_attention.flash_attention is forward only; for "
+            "gradients call kernels.ops.flash_attention, which runs this "
+            "kernel forward under an autograd Function")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -88,19 +88,53 @@ def kernel_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return qk, kk, vk
 
 
+def _flash_forward(q, k, v, causal: bool) -> torch.Tensor:
+    """Kernel-layout attention: the CUDA kernel, or on the CPU its plain
+    version."""
+    if _on_cpu(q):
+        return kref.flash_attention_ref(q, k, v, causal=causal)
+    return _flash.flash_attention(q, k, v, causal=causal)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel-layout attention with a backward: the forward is
+    ``_flash_forward`` (the CUDA kernel on the card), run without grad,
+    saving q, k and v; the backward is ``kref.flash_attention_bwd_ref`` on
+    every device (no hand-written backward kernel yet), which recomputes
+    the scores, and counts ``_flash.backward_calls``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _flash_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = kref.flash_attention_bwd_ref(
+            q, k, v, dout.contiguous(), causal=ctx.causal)
+        _flash.backward_calls += 1
+        return dq, dk, dv, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     *, causal: bool = True) -> torch.Tensor:
     """GQA attention in model layout: q [B, S, Hq, D]; k/v [B, S, Hkv, D]
     -> [B, S, Hq, D]. Repacks to the kernel's layout and back, as the
     reference wrapper does; the kernel takes any S (no chunk sizes, no
-    padding)."""
+    padding). Where autograd records (grad enabled and an input requires
+    grad) it runs through ``_FlashAttention``, so the repacking
+    differentiates by itself; otherwise it is one forward call that saves
+    nothing."""
     b, s, hq, d = q.shape
     hkv = k.shape[2]
     qk, kk, vk = kernel_layout(q, k, v)
-    if _on_cpu(qk):
-        out = kref.flash_attention_ref(qk, kk, vk, causal=causal)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (qk, kk, vk)):
+        out = _FlashAttention.apply(qk, kk, vk, causal)
     else:
-        out = _flash.flash_attention(qk, kk, vk, causal=causal)
+        out = _flash_forward(qk, kk, vk, causal)
     out = out.reshape(b, hkv, s, hq // hkv, d).permute(0, 2, 1, 3, 4)
     return out.reshape(b, s, hq, d)
 

@@ -141,14 +141,52 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [BH, S, G, D]; k/v: [BH, S, D] -> [BH, S, G, D] in q's dtype.
     Scores are taken in float32 and scaled by D^-0.5 after the product;
     causal masking keeps qpos >= kpos and sets the rest to -1e30."""
+    probs = _attention_probs(q, k, causal)
+    out = torch.einsum("bgqk,bkd->bqgd", probs, v.to(torch.float32))
+    return out.to(q.dtype)
+
+
+def _attention_probs(q: torch.Tensor, k: torch.Tensor,
+                     causal: bool) -> torch.Tensor:
+    """softmax(q k^T D^-0.5) [BH, G, S, S] in float32, the causal entries
+    set to -1e30 before the softmax."""
     s, d = q.shape[1], q.shape[3]
-    scale = d ** -0.5
     scores = torch.einsum("bqgd,bkd->bgqk", q.to(torch.float32),
-                          k.to(torch.float32)) * scale
+                          k.to(torch.float32)) * d ** -0.5
     if causal:
         pos = torch.arange(s, device=q.device)
         mask = pos[:, None] >= pos[None, :]
         scores = scores.masked_fill(~mask, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bgqk,bkd->bqgd", probs, v.to(torch.float32))
-    return out.to(q.dtype)
+    return torch.softmax(scores, dim=-1)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, dout: torch.Tensor, *,
+                            causal: bool = True):
+    """The attention backward in the kernel's layout, unchunked: q, dout
+    [BH, S, G, D]; k/v [BH, S, D] -> (dq, dk, dv) in their inputs'
+    dtypes. The scores are recomputed in float32 as in
+    ``flash_attention_ref`` (scaled by D^-0.5, causal entries -1e30), p is
+    their softmax, and with dp = dout v^T: dv = p^T dout, ds = p (dp -
+    delta), dq = ds k scale, dk = ds^T q scale, dk and dv summed over the
+    G query heads of each kv head.
+
+    delta = sum_k p dp, the softmax's own VJP, as XLA differentiates the
+    reference ViT's ``jax.nn.softmax``. The reference's ``_flash_core_bwd``
+    (``repro.models.attention``) takes the equal sum_d dout out from the
+    forward's output instead, but the card's output carries the kernel's
+    3xTF32 rounding, and its mismatch with the p recomputed here is
+    amplified where p (dp - delta) cancels (the wq / wk gradients): at
+    400x400 it moved them by 1.1e-3 of their largest entry against the
+    CPU's, where this delta keeps the backward consistent with its own
+    p."""
+    scale = q.shape[3] ** -0.5
+    qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
+    dof = dout.to(torch.float32)
+    p = _attention_probs(q, k, causal)                         # [BH,G,S,S]
+    dv = torch.einsum("bgqk,bqgd->bkd", p, dof)
+    dp = torch.einsum("bqgd,bkd->bgqk", dof, vf)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dq = torch.einsum("bgqk,bkd->bqgd", ds, kf) * scale
+    dk = torch.einsum("bgqk,bqgd->bkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

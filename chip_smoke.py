@@ -46,7 +46,15 @@ work, a warm trace's span coverage and profile sites, closed-loop
 throughput at 1, 8 and 32 clients, an open loop at 50-150 % of its peak,
 the obs layer's overhead; GPU and CPU servers at 65,536 rows giving equal
 bodies; and /ingest append, delete and checkpoint on a durable live
-engine (build/serve_durable, removed at the end). The flash library's SASS must hold
+engine (build/serve_durable, removed at the end). The LM backbones'
+serving path (``lm``, ROADMAP A13a): llama3-8b at full width and depth
+(8.03 B bf16 parameters drawn on the card) prefills 4,096 tokens with one
+flash kernel launch a layer (32), decodes 32 greedy tokens with none, and
+runs ``lm_feature_fn`` on 4 x 4,096 tokens; the kernel is held to its
+plain version at layer 0's inputs; its first two layers prefill on the
+card and on the CPU alike; and every other assigned architecture at full
+width (cut to one repeat of its layer pattern where it is large) checks
+prefill + 8 decode steps against a prefill of 8 more tokens. The flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
@@ -66,6 +74,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only sharded     # n_shards 1, 2, 4, 8
     python3 chip_smoke.py --only serve       # the serving layer
     python3 chip_smoke.py --only dino        # DINO training of the ViT-T
+    python3 chip_smoke.py --only lm          # the LM backbones' serving
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -132,8 +141,9 @@ EXTRACT400_SIZE = 400
 CPU_CHECK400_N = 8
 # flash attention, model layout (b, s, hq, hkv, d, causal, dtype): the
 # shapes of tests/test_kernels.py, the ViT's own (batch 128 x 3 heads, 16
-# patches + CLS), the paper's 400x400 patches at /16 plus CLS, and a long
-# causal GQA case whose upper key tiles are skipped
+# patches + CLS), the paper's 400x400 patches at /16 plus CLS, a long
+# causal GQA case whose upper key tiles are skipped, and llama3-8b's
+# 4,096-token prefill (the lm phase's own shape: BH 8, G 4, D 128)
 FLASH_CASES = (
     (2, 256, 8, 2, 32, True, "float32"),
     (1, 128, 4, 4, 64, True, "float32"),
@@ -144,6 +154,7 @@ FLASH_CASES = (
     (128, 17, 3, 3, 64, False, "float32"),
     (128, 626, 3, 3, 64, False, "float32"),
     (2, 2048, 16, 4, 128, True, "bfloat16"),
+    (1, 4096, 32, 8, 128, True, "bfloat16"),
 )
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # ROADMAP C1's catalog: 4,096 x 12 normal rows (seed 0), row 7 +inf and
@@ -1157,10 +1168,12 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC")
 
 
 def _kernel_class(name: str) -> str:
-    """flash attention, cuBLAS's products or the rest, by kernel name."""
+    """flash attention, cuBLAS's products or the rest, by kernel name
+    (cuBLAS's bf16 products on the H100 are its ``nvjet`` kernels)."""
     low = name.lower()
     return ("flash_attention" if "flash_attention_kernel" in name else
-            "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass"))
+            "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass",
+                                               "nvjet"))
             else "other")
 
 
@@ -3657,6 +3670,401 @@ def phase_dino(device, imgs=None, labels=None) -> dict:
     return res
 
 
+# the LM backbones' serving path (ROADMAP A13a): llama3-8b whole at full
+# width (32 layers, d 4096, 32/8 heads of 128, bf16) from a seeded CUDA
+# generator; a 4,096-token prefill is the smallest that launches the flash
+# kernel (S > FLASH_THRESHOLD and a multiple of the reference's 2048-token
+# q chunk), then 32 greedy decode steps and lm_feature_fn on 4 x 4,096
+LM_ARCH = "llama3-8b"
+LM_SEQ = 4096
+LM_DECODE = 32
+LM_FEATURE_BATCH = 4
+LM_SEED = 0
+# card against CPU: the model's first two layers, the same weights; the
+# final hidden state within FLASH_TOL["bfloat16"] of its max |value|
+LM_CHECK_LAYERS = 2
+LM_HIDDEN_TOL = 2e-2
+# every other architecture at full width, cut to one repeat of its scan
+# pattern (True) or whole (False): prefill(S) + LM_CONSIST_STEPS decode
+# steps against prefill(S + LM_CONSIST_STEPS) at the last position
+# (tests/test_arch_smoke.py's check), dropless MoE at capacity factor 64
+# as that test sets it. bf16 compute through 1-48 layers, each path
+# rounding its own way (the flash kernel beside f32 plain attention, one
+# token's products beside 4,104 rows'): the logits within 5e-2 of their
+# max |value|
+LM_OTHERS = (("qwen3-moe-235b-a22b", True),
+             ("llama4-maverick-400b-a17b", True), ("granite-20b", True),
+             ("nemotron-4-15b", True), ("llava-next-mistral-7b", True),
+             ("internlm2-1.8b", False), ("mamba2-1.3b", False),
+             ("musicgen-medium", False), ("recurrentgemma-2b", True))
+LM_CONSIST_STEPS = 8
+LM_CONSIST_TOL = 5e-2
+LM_MOE_CAPACITY = 64.0
+
+
+def lm_config(arch: str, cut: bool):
+    """The arch's full-width config; ``cut``: one repeat of its scan
+    pattern. MoE at LM_MOE_CAPACITY."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    over = {"moe_capacity_factor": LM_MOE_CAPACITY} if cfg.num_experts \
+        else {}
+    if cut:
+        over["num_layers"] = len(cfg.scan_pattern()[0])
+    return dataclasses.replace(cfg, **over)
+
+
+def flash_layers(cfg, s: int) -> int:
+    """The flash kernel's launches of one prefill (or lm_feature_fn call)
+    of S tokens: one a global-attention layer where the LM takes its flash
+    branch (S > FLASH_THRESHOLD) and flash_attention does not route to
+    full_attention (S a multiple of min(2048, S) and of min(1024, S))."""
+    from repro_torch.models import lm
+    if s <= lm.FLASH_THRESHOLD or s % min(2048, s) or s % min(1024, s):
+        return 0
+    return sum(kind in ("AD", "AM") for kind in cfg.layer_kinds())
+
+
+def lm_inputs(cfg, b: int, s: int, seed: int):
+    """Seeded token ids [b, s] int32, or for embedding inputs (llava)
+    N(0, 1) float32 embeddings [b, s, d]."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_mode == "embeddings":
+        return rng.normal(0, 1, (b, s, cfg.d_model)).astype(np.float32)
+    return rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+@contextlib.contextmanager
+def first_flash_inputs(store: list):
+    """Records (clones of) the kernel-layout q, k, v of the first flash
+    kernel call made inside; the call itself goes through unchanged."""
+    from repro_torch.kernels import flash_attention as fa
+    raw = fa.flash_attention
+
+    def capture(q, k, v, *, causal=True):
+        if not store:
+            store.append((q.clone(), k.clone(), v.clone(), causal))
+        return raw(q, k, v, causal=causal)
+    fa.flash_attention = capture
+    try:
+        yield store
+    finally:
+        fa.flash_attention = raw
+
+
+def flash_at(store: list) -> dict:
+    """The flash kernel against flash_attention_ref at the recorded
+    inputs, within FLASH_TOL of the dtype (raises beyond it)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q, k, v, causal = store[0]
+    got = fa.flash_attention(q, k, v, causal=causal).float()
+    want = ref.flash_attention_ref(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    err = float((got - want).abs().max())
+    if not err <= FLASH_TOL[dt]:
+        raise AssertionError(f"flash_attention at the LM's inputs "
+                             f"{tuple(q.shape)}: max abs err {err} > "
+                             f"{FLASH_TOL[dt]}")
+    return {"shape": list(q.shape), "dtype": dt, "max_abs_err": err,
+            "tol": FLASH_TOL[dt]}
+
+
+def synced(fn):
+    """(fn(), host seconds) with the card synchronised on both sides."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def cache_bytes(caches) -> int:
+    return sum(t.numel() * t.element_size() for c in caches
+               for t in (c.values() if isinstance(c, dict) else c))
+
+
+def free_cuda() -> None:
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_serve(device, cfg, model) -> tuple:
+    """llama3-8b's prefill of LM_SEQ tokens (the flash kernel's launches
+    counted: one a layer), pad_caches and LM_DECODE greedy decode steps
+    (none), lm_feature_fn on LM_FEATURE_BATCH x LM_SEQ (one a layer a
+    call); the first layer's kernel inputs captured in a warm prefill.
+    Returns (record, captured inputs)."""
+    import torch
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.features.extract import lm_feature_fn
+    from repro_torch.models import lm
+    sv = ServeConfig()
+    tokens = lm_inputs(cfg, 1, LM_SEQ, LM_SEED)
+    store = []
+    with first_flash_inputs(store):
+        (_, caches), warm_s = synced(lambda: lm.prefill(model, tokens, sv))
+    del caches
+    ((logits, caches), prefill_s), counts = counted(
+        lambda: synced(lambda: lm.prefill(model, tokens, sv)))
+    want = flash_layers(cfg, LM_SEQ)
+    if counts["flash_attention"] != want or want != cfg.num_layers:
+        raise AssertionError(f"lm prefill: {counts['flash_attention']} "
+                             f"flash launches, expected {want}")
+    if tuple(logits.shape) != (1, 1, cfg.padded_vocab) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("lm prefill: logits of the wrong shape or "
+                             "not finite")
+    prefill_counts = counts
+    caches = lm.pad_caches(caches, cfg, LM_SEQ + LM_DECODE)
+    kv = cache_bytes(caches)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps, out = [], []
+
+    def decode():
+        nonlocal logits, caches, tok
+        for i in range(LM_DECODE):
+            t0 = time.perf_counter()
+            logits, caches = lm.decode_step(model, caches, tok, LM_SEQ + i,
+                                            sv)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            out.append(tok)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+    (_, decode_s), counts = counted(lambda: synced(decode))
+    if counts["flash_attention"] != 0:
+        raise AssertionError(f"lm decode: {counts['flash_attention']} "
+                             f"flash launches, expected 0")
+    gen_tokens = torch.cat(out, 1)[0].tolist()
+    if not all(0 <= t < cfg.padded_vocab for t in gen_tokens) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError("lm decode: a token out of range or logits "
+                             "not finite")
+    prof = lm_profile(model, torch.from_numpy(tokens).to(device), caches,
+                      tok, LM_SEQ + LM_DECODE - 1, sv)
+    del caches, logits
+    feat_tokens = torch.from_numpy(
+        lm_inputs(cfg, LM_FEATURE_BATCH, LM_SEQ, LM_SEED + 1)).to(device)
+    fn = lm_feature_fn(model)
+    fn(feat_tokens)
+    (feats, feat_s), fcounts = counted(lambda: synced(
+        lambda: fn(feat_tokens)))
+    if fcounts["flash_attention"] != cfg.num_layers \
+            or tuple(feats.shape) != (LM_FEATURE_BATCH, cfg.d_model) \
+            or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"lm_feature_fn: {fcounts['flash_attention']} "
+                             f"launches, shape {tuple(feats.shape)}")
+    rec = {"prefill_tokens": LM_SEQ, "prefill_s": prefill_s,
+           "prefill_warm_s": warm_s,
+           "prefill_tokens_per_s": LM_SEQ / prefill_s,
+           "prefill_launches": prefill_counts,
+           "kv_cache_bytes": kv, "decode_steps": LM_DECODE,
+           "decode_s": decode_s,
+           "decode_s_per_token": decode_s / LM_DECODE,
+           "decode_s_per_token_median": float(np.median(steps)),
+           "decode_tokens_per_s": LM_DECODE / decode_s,
+           "decode_launches": counts, "greedy_tokens": gen_tokens,
+           "feature_batch": [LM_FEATURE_BATCH, LM_SEQ],
+           "feature_s": feat_s, "feature_launches": fcounts,
+           "feature_shape": list(feats.shape), "profile": prof}
+    return rec, store
+
+
+def lm_profile(model, tokens, caches, tok, pos: int, sv) -> dict:
+    """Where a prefill's and a decode step's time goes: one warm prefill
+    of ``tokens`` (on the card) and one decode step at ``pos`` (it
+    rewrites that slot of the padded caches) under torch.profiler
+    (profile_batch: device busy by class, launches, the idle share), and
+    the decode step as a CUDA graph of 3 steps (its device time with no
+    host gaps)."""
+    from repro_torch.models import lm
+    prefill = lambda: lm.prefill(model, tokens, sv)
+    step = lambda: lm.decode_step(model, caches, tok, pos, sv)
+    return {"prefill": profile_batch(prefill, flash_counter()),
+            "decode_step": {**profile_batch(step, flash_counter(),
+                                            graph_fallback=True),
+                            "graph_step_ms": graph_ms(step, iters=3)}}
+
+
+def lm_gpu_vs_cpu(device, cfg, model) -> dict:
+    """The model's first LM_CHECK_LAYERS layers, on the same weights, on
+    the card and on the CPU (its plain versions): one LM_SEQ-token prefill
+    at batch 1 (the flash branch on both sides), the final hidden state
+    within LM_HIDDEN_TOL of its max |value|, the last logits' argmax
+    equal."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    small = dataclasses.replace(cfg, num_layers=LM_CHECK_LAYERS)
+    full = dict(model.named_parameters())
+    out = {}
+    tokens = torch.from_numpy(lm_inputs(cfg, 1, LM_SEQ, LM_SEED + 2))
+    for where in ("gpu", "cpu"):
+        dev = device if where == "gpu" else torch.device("cpu")
+        part = lm.LM(small, device=dev)
+        with torch.no_grad():
+            for name, p in part.named_parameters():
+                p.copy_(full[name])
+        x = tokens.to(dev)
+
+        def run():
+            with torch.no_grad():
+                pos = torch.arange(LM_SEQ, device=dev)
+                h, _, _ = lm._stack_forward(
+                    part, lm.embed_inputs(part, x, pos), mode="prefill",
+                    positions=pos)
+                return h, lm.unembed(part, h[:, -1:])
+        t0 = time.perf_counter()
+        if where == "gpu":
+            (h, logits), counts = counted(lambda: synced(run)[0])
+        else:
+            h, logits = run()
+            counts = None
+        out[where] = (h.float().cpu(), logits.float().cpu(),
+                      time.perf_counter() - t0, counts)
+        del part, h, logits
+    hg, lg, gpu_s, counts = out["gpu"]
+    hc, lc, cpu_s, _ = out["cpu"]
+    if counts["flash_attention"] != LM_CHECK_LAYERS:
+        raise AssertionError(f"lm gpu_vs_cpu: {counts['flash_attention']} "
+                             f"flash launches")
+    scale = float(hc.abs().max())
+    err = float((hg - hc).abs().max())
+    same_argmax = int(lg[0, -1].argmax()) == int(lc[0, -1].argmax())
+    if not err <= LM_HIDDEN_TOL * scale or not same_argmax:
+        raise AssertionError(f"lm gpu_vs_cpu: hidden err {err} (max "
+                             f"{scale}), argmax equal {same_argmax}")
+    return {"layers": LM_CHECK_LAYERS, "tokens": LM_SEQ,
+            "hidden_max_abs_err": err, "hidden_max_abs": scale,
+            "hidden_rel_err": err / scale, "tol": LM_HIDDEN_TOL,
+            "logits_max_abs_err": float((lg - lc).abs().max()),
+            "argmax": int(lc[0, -1].argmax()), "same_argmax": same_argmax,
+            "gpu_s": gpu_s, "cpu_s": cpu_s}
+
+
+def lm_consistency(device, arch: str, cut: bool) -> dict:
+    """One architecture at full width on the card (seeded CUDA init):
+    prefill(S) + LM_CONSIST_STEPS teacher-forced decode steps against
+    prefill(S + steps) at the last position, flash launches by routing
+    (flash_layers), the kernel held to its plain version at the first
+    flash call's inputs."""
+    import torch
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.models import lm
+    cfg = lm_config(arch, cut)
+    sv = ServeConfig()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (model, init_s) = synced(lambda: lm.init_params(
+        cfg, generator=torch.Generator(device=device).manual_seed(LM_SEED),
+        device=device))
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    s, steps = LM_SEQ, LM_CONSIST_STEPS
+    x = lm_inputs(cfg, 1, s + steps, LM_SEED + 3)
+    store = []
+    with first_flash_inputs(store):
+        ((logits, caches), prefill_s), pc = counted(
+            lambda: synced(lambda: lm.prefill(model, x[:, :s], sv)))
+    if pc["flash_attention"] != flash_layers(cfg, s):
+        raise AssertionError(f"{arch} prefill: {pc['flash_attention']} "
+                             f"flash launches, expected "
+                             f"{flash_layers(cfg, s)}")
+    kernel = flash_at(store) if store else None
+    store.clear()
+    caches = lm.pad_caches(caches, cfg, s + steps)
+    xt = torch.from_numpy(x).to(device)
+
+    def decode():
+        nonlocal logits, caches
+        for t in range(s, s + steps):
+            logits, caches = lm.decode_step(model, caches,
+                                            xt[:, t:t + 1], t, sv)
+    (_, decode_s), dc = counted(lambda: synced(decode))
+    del caches
+    (want, _), wc = counted(lambda: lm.prefill(model, xt, sv))
+    if dc["flash_attention"] != 0 \
+            or wc["flash_attention"] != flash_layers(cfg, s + steps):
+        raise AssertionError(f"{arch}: decode {dc['flash_attention']}, "
+                             f"prefill(S + {steps}) "
+                             f"{wc['flash_attention']} flash launches")
+    got, want = logits.float(), want.float()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    finite = bool(torch.isfinite(got).all() and torch.isfinite(want).all())
+    peak = torch.cuda.max_memory_allocated() - base
+    del model, logits, got, want, xt
+    free_cuda()
+    if not finite or not err <= LM_CONSIST_TOL * scale:
+        raise AssertionError(f"{arch}: prefill + decode against prefill(S + "
+                             f"{steps}): max |d| {err}, logits' max "
+                             f"{scale}, finite {finite}")
+    return {"arch": arch, "layers": cfg.num_layers,
+            "full_layers": lm_config(arch, False).num_layers,
+            "cut": ("one repeat of the scan pattern "
+                    f"{list(cfg.scan_pattern()[0])}") if cut else None,
+            "params": n_params, "weight_bytes": wbytes,
+            "param_dtype": cfg.param_dtype,
+            "compute_dtype": cfg.compute_dtype,
+            "moe_capacity_factor": cfg.moe_capacity_factor
+            if cfg.num_experts else None,
+            "init_s": init_s, "prefill_s": prefill_s,
+            "decode_s_per_token": decode_s / steps,
+            "flash_launches": {"prefill": pc["flash_attention"],
+                               "decode": dc["flash_attention"],
+                               "prefill_s_plus": wc["flash_attention"]},
+            "kernel_at_inputs": kernel, "max_abs_delta": err,
+            "logits_max_abs": scale, "rel_delta": err / scale,
+            "tol": LM_CONSIST_TOL, "peak_bytes": peak}
+
+
+def phase_lm(device) -> dict:
+    """The LM backbones' serving path on the card (ROADMAP A13a): llama3-8b
+    whole at full width (lm_serve; the flash kernel held to its plain
+    version at layer 0's own inputs and timed there, measure_flash), its
+    first two layers against the CPU (lm_gpu_vs_cpu), then every other
+    assigned architecture at full width (lm_consistency), each freed
+    before the next. Returns the record."""
+    import torch
+    from repro_torch.models import lm
+    t_phase = time.perf_counter()
+    cfg = lm_config(LM_ARCH, False)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    model, init_s = synced(lambda: lm.init_params(cfg, generator=gen,
+                                                  device=device))
+    n_params = sum(p.numel() for p in model.parameters())
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    serve, store = lm_serve(device, cfg, model)
+    peak = torch.cuda.max_memory_allocated() - base
+    kernel = measure_flash(*store[0][:3], causal=store[0][3])
+    store.clear()
+    check = lm_gpu_vs_cpu(device, cfg, model)
+    del model
+    free_cuda()
+    others = [lm_consistency(device, arch, cut) for arch, cut in LM_OTHERS]
+    res = {"phase": "lm", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+           "params": n_params, "weight_bytes": wbytes, "init_s": init_s,
+           "peak_bytes_above_start": peak, **serve,
+           "kernel_at_layer0": kernel, "gpu_vs_cpu": check,
+           "others": others, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 SERVE_N = 64                 # requests of the bitwise HTTP check
 SERVE_CLIENTS = 8
 SERVE_REPEATS = 16           # of them re-sent: cache hits
@@ -4765,14 +5173,15 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "quantized": phase_quantized_only,
         "sharded": phase_sharded_only,
         "serve": phase_serve_only,
-        "dino": phase_dino}
+        "dino": phase_dino,
+        "lm": phase_lm}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
-    quantized, sharded, serve and dino, the kernels are built and only
+    quantized, sharded, serve, dino and lm, the kernels are built and only
     those phases run: the FLASH_CASES rows, the 400x400 extraction, the
     box scans at the main path's inputs, zone_candidates on synthetic zone
     maps, l2dist at the knn path's inputs, the batched device fit at full
@@ -4781,7 +5190,9 @@ def main(argv) -> int:
     at its peak), the main path's warm wall, the quantized mirror and the
     sharded catalogs at full size, the serving layer over full_size's
     engine, DINO training of the ViT-T at 64x64 and 400x400 (with its own
-    16,384 synthetic patches to embed); for comparing two trees on one
+    16,384 synthetic patches to embed), the LM backbones' serving path
+    (llama3-8b at full width and depth, every other architecture at full
+    width); for comparing two trees on one
     card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
@@ -4834,6 +5245,7 @@ def main(argv) -> int:
     dino = phase_dino(dev, imgs, labels)
     del imgs
     ext400 = phase_extraction_400(dev)
+    lm_rec = phase_lm(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
     # the narrow route, at the use_fused=False batch's largest call
@@ -4890,7 +5302,16 @@ def main(argv) -> int:
                        "flash_attention"],
                    "dino_step_400": dino["train_400"]["launches_per_step"][
                        "flash_attention"],
-                   "dino_embed_catalog": dino["embed_flash_launches"]}}
+                   "dino_embed_catalog": dino["embed_flash_launches"],
+                   "lm_prefill_4096": lm_rec["prefill_launches"][
+                       "flash_attention"],
+                   "lm_decode_32_steps": lm_rec["decode_launches"][
+                       "flash_attention"],
+                   "lm_feature_fn_4x4096": lm_rec["feature_launches"][
+                       "flash_attention"],
+                   "lm_others_prefill_4096": {
+                       o["arch"]: o["flash_launches"]["prefill"]
+                       for o in lm_rec["others"]}}}
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
     # batch, its dense batch, knn, dtree + rforest and use_fused=False
     for name in KERNELS:
@@ -4942,6 +5363,9 @@ def main(argv) -> int:
                                  if f"{name}_kernel" in f}
     rows[-1]["sass"] = sass
     rows[-1]["extraction_400_flash_launches"] = ext400["flash_launches"]
+    # the LM's flash branch at llama3-8b's layer-0 inputs of a 4,096-token
+    # prefill (BH 8, S 4096, G 4, D 128, causal, bf16)
+    rows[-1]["lm"] = lm_rec["kernel_at_layer0"]
     # the plain backward under ops.flash_attention's autograd Function (no
     # kernel yet: ROADMAP B5b), at each DINO step's shapes
     rows[-1]["attention_backward"] = {

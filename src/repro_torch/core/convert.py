@@ -13,6 +13,12 @@ the same state itself.
 ``repro.features.vit``, or trained weights, with numpy leaves) into the
 port's ``ViT``; ``dino_state_from_numpy`` does the same for a whole
 reference ``DinoState`` (both ViTs, heads, centre, Adam's moments, step).
+
+``lm_from_numpy`` turns a reference LM parameter tree (``init_params`` of
+``repro.models.lm``, numpy leaves) into the port's ``LM``;
+``caches_from_numpy`` / ``caches_to_numpy`` carry prefill / decode caches
+between the reference's {"blocks", "tail"} tree and the port's per-layer
+list, so a decode on either side can start from the other's caches.
 """
 from __future__ import annotations
 
@@ -25,6 +31,9 @@ from repro_torch.core.segments import SegmentedCatalog
 from repro_torch.device import resolve_device
 from repro_torch.features.dino import DinoState
 from repro_torch.features.vit import ViT, load_arrays
+from repro_torch.models.lm import LM
+from repro_torch.models.rglru import LRUState
+from repro_torch.models.ssm import SSMState
 
 
 def index_from_arrays(dims, perm, rows, zlo, zhi, block: int, n_rows: int,
@@ -149,3 +158,121 @@ def dino_state_from_numpy(state, cfg: ModelConfig, *, image_size: int,
                 raise ValueError(f"moment {name} is missing or has another "
                                  f"shape than its parameter")
     return out
+
+
+def _tensor(a, device) -> torch.Tensor:
+    """A numpy array (bfloat16 ones too, as ``np.asarray`` of a JAX
+    array gives them) as a tensor of the same dtype on ``device``."""
+    a = np.array(a)           # a writable copy (JAX's arrays are not)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16))
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 comes back as float32 (numpy has no
+    bfloat16 of its own)."""
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.detach().cpu().numpy()
+
+
+def _leaves(tree, prefix: str = ""):
+    """(dotted path, leaf) of a nested dict tree, None leaves skipped."""
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _leaves(val, path + ".")
+        elif val is not None:
+            yield path, val
+
+
+def _layer_slots(cfg: ModelConfig):
+    """(layer index, where) for every layer: ("blocks", "slotN", block)
+    or ("tail", "layerN", None) in the reference's tree."""
+    pattern, nblocks, tail = cfg.scan_pattern()
+    n = len(pattern)
+    for i in range(nblocks * n):
+        yield i, ("blocks", f"slot{i % n}", i // n)
+    for ti in range(len(tail)):
+        yield nblocks * n + ti, ("tail", f"layer{ti}", None)
+
+
+def lm_arrays(params, cfg: ModelConfig) -> dict:
+    """A reference LM tree as {the port's parameter name: array}: the
+    scanned ``blocks/slotN`` leaves [nblocks, ...] unstacked, block b of
+    slot s becoming layer b * len(pattern) + s, then ``tail/layerN``."""
+    arrays = {k: params[k] for k in ("embed", "final_norm", "unembed")
+              if params.get(k) is not None}
+    for i, (part, key, block) in _layer_slots(cfg):
+        for path, leaf in _leaves(params[part][key]):
+            leaf = np.asarray(leaf)
+            arrays[f"layers.{i}.{path}"] = leaf if block is None \
+                else leaf[block]
+    return arrays
+
+
+def lm_from_numpy(params, cfg: ModelConfig, *, device=None) -> LM:
+    """The port's LM holding the reference tree ``params`` ({embed,
+    final_norm, unembed?, blocks: {slotN: stacked layer tree}, tail:
+    {layerN: layer tree}}, numpy leaves). ``device`` defaults to CUDA."""
+    model = LM(cfg, device=device)
+    load_arrays(model, lm_arrays(params, cfg))
+    return model
+
+
+def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:
+    """Copy a reference parameter tree (nested dicts, numpy leaves) of one
+    of the LM's modules (``init_mlp``, ``init_moe``, ``init_ssd``,
+    ``init_rglru``, a layer) into ``module``, key path for parameter
+    name; returns the module."""
+    load_arrays(module, dict(_leaves(tree)))
+    return module
+
+
+def caches_from_numpy(caches, cfg: ModelConfig, *, device=None) -> list:
+    """The reference's caches ({"blocks": {slotN: stacked}, "tail":
+    {layerN: ...}}, numpy leaves; SSM and LRU states as (conv, ssd) /
+    (conv, h) pairs) as the port's per-layer list on ``device`` (default
+    CUDA)."""
+    dev = resolve_device(device)
+    kinds = cfg.layer_kinds()
+    out = []
+    for i, (part, key, block) in _layer_slots(cfg):
+        c = caches[part][key]
+        pick = (lambda a: _tensor(a, dev)) if block is None \
+            else (lambda a, b=block: _tensor(np.asarray(a)[b], dev))
+        if kinds[i] == "S":
+            out.append(SSMState(pick(c[0]), pick(c[1])))
+        elif kinds[i] == "R":
+            out.append(LRUState(pick(c[0]), pick(c[1])))
+        else:
+            out.append({"k": pick(c["k"]), "v": pick(c["v"])})
+    return out
+
+
+def caches_to_numpy(caches: list, cfg: ModelConfig) -> dict:
+    """The port's per-layer caches in the reference's tree ({"blocks":
+    {slotN: leaves stacked over blocks}, "tail": {layerN: ...}}), numpy
+    leaves (bfloat16 as float32), SSM / LRU states as the port's
+    ``SSMState`` / ``LRUState`` (the reference's field names)."""
+    out = {"blocks": {}, "tail": {}}
+    stacks = {}
+    for i, (part, key, block) in _layer_slots(cfg):
+        c = caches[i]
+        leaves = c._asdict() if isinstance(c, tuple) else c
+        arrays = {name: _numpy(a) for name, a in leaves.items()}
+        if block is None:
+            out["tail"][key] = _rebuild(c, arrays)
+        else:
+            stacks.setdefault(key, (c, []))[1].append(arrays)
+    for key, (c, per_block) in stacks.items():
+        out["blocks"][key] = _rebuild(c, {
+            name: np.stack([a[name] for a in per_block])
+            for name in per_block[0]})
+    return out
+
+
+def _rebuild(like, arrays: dict):
+    return type(like)(**arrays) if isinstance(like, tuple) else arrays

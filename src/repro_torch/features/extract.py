@@ -2,9 +2,10 @@
 §3); counterpart of ``repro.features.extract``.
 
 Embeds the whole patch catalog with the extractor in fixed-size batches
-and returns a [N, F] float32 matrix that feeds the index builder. The
-paper's own ViT plugs in through ``vit_feature_fn``; the reference's LM
-feature head comes with the LM scaffolding (ROADMAP A13).
+and returns a [N, F] float32 matrix that feeds the index builder. Any
+backbone works as the extractor (DESIGN.md §5): the paper's own ViT
+plugs in through ``vit_feature_fn``, the assigned LM architectures
+through ``lm_feature_fn`` (mean-pooled final hidden state).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.features.vit import ViT, extract_features
+from repro_torch.models import lm
 
 
 def vit_feature_fn(model: ViT) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -27,10 +29,20 @@ def vit_feature_fn(model: ViT) -> Callable[[torch.Tensor], torch.Tensor]:
     return fn
 
 
-def lm_feature_fn(*args, **kwargs):
-    raise NotImplementedError(
-        "lm_feature_fn (mean-pooled LM hidden state) needs the LM "
-        "scaffolding, ROADMAP A13")
+def lm_feature_fn(model: lm.LM) -> Callable[[torch.Tensor], torch.Tensor]:
+    """tokens [B, S] on the model's device -> features [B, d_model] in
+    the compute dtype: the final hidden state (after the final norm) of
+    the causal LM, mean-pooled over the sequence — the arch-agnostic
+    feature head of the assigned architectures."""
+
+    def fn(tokens: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            x = lm.embed_inputs(model, tokens, positions)
+            x, _, _ = lm._stack_forward(model, x, mode="train",
+                                        positions=positions)
+            return x.mean(dim=1)
+    return fn
 
 
 def extract_catalog(inputs: np.ndarray, feature_fn: Callable, *,

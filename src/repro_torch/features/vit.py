@@ -171,9 +171,11 @@ def extract_features(model: ViT, images) -> torch.Tensor:
     return torch.cat([toks[:, 0], toks[:, 1:].mean(1)], dim=-1)
 
 
-def load_arrays(model: ViT, arrays: dict) -> None:
-    """Copy {parameter name: array} into ``model``; every parameter must
-    be given, with its exact shape."""
+def load_arrays(model: nn.Module, arrays: dict) -> None:
+    """Copy {parameter name: array} into ``model`` (a ViT, the LM or one
+    of its modules); every parameter must be given, with its exact shape.
+    Values pass through float32 into the parameter's dtype, exact for
+    float32 and bfloat16 arrays."""
     params = dict(model.named_parameters())
     if set(arrays) != set(params):
         raise ValueError(f"parameter names differ: missing "

@@ -218,6 +218,22 @@ def test_port_imports_neither_jax_nor_repro():
         "f = extract.extract_catalog(imgs, extract.vit_feature_fn(m), "
         "batch=4, device='cpu')\n"
         "assert f.shape == (5, 32)\n"
+        "from repro_torch.configs import get_reduced_config\n"
+        "from repro_torch.configs.base import ServeConfig\n"
+        "from repro_torch.models import lm\n"
+        "lcfg = get_reduced_config('qwen3-moe-235b-a22b')\n"
+        "sv = ServeConfig(cache_dtype='float32')\n"
+        "lmod = lm.init_params(lcfg, generator=torch.Generator()"
+        ".manual_seed(0), device='cpu')\n"
+        "toks = np.arange(12, dtype=np.int32).reshape(1, 12)\n"
+        "logits, caches = lm.prefill(lmod, toks[:, :11], sv)\n"
+        "caches = lm.pad_caches(caches, lcfg, 12)\n"
+        "logits, caches = lm.decode_step(lmod, caches, toks[:, 11:], 11, sv)\n"
+        "assert logits.shape == (1, 1, lcfg.padded_vocab)\n"
+        "assert bool(torch.isfinite(logits).all())\n"
+        "feat = extract.extract_catalog(toks, extract.lm_feature_fn(lmod), "
+        "batch=1, device='cpu')\n"
+        "assert feat.shape == (1, lcfg.d_model)\n"
         "import json, urllib.request\n"
         "from repro_torch.serve import HttpFrontEnd, QueryServer, "
         "ResultCache\n"

@@ -83,8 +83,9 @@ def test_config_matches_reference():
     assert _port_cfg(want) == got
     assert (got.resolved_head_dim, got.q_dim) == (want.resolved_head_dim,
                                                  want.q_dim)
-    with pytest.raises(NotImplementedError, match="A13"):
-        get_config("llama3-8b")
+    # the LM configs are ported too (tests/test_torch_lm.py holds all ten)
+    assert dataclasses.asdict(get_config("llama3-8b")) == \
+        dataclasses.asdict(jget_config("llama3-8b"))
 
 
 @pytest.mark.parametrize("case", ["small", "paper", "paper400"])
@@ -186,8 +187,30 @@ def test_extraction_throughput_reports_rate():
 
 
 def test_lm_feature_fn_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        textract.lm_feature_fn(None)
+    """(Named when the LM feature head was refused.) lm_feature_fn of
+    the port against the reference's at reduced internlm2, as
+    tests/test_serve_features.py drives it: [3, d] features within 1e-4
+    of the reference's largest, also through extract_catalog's padded
+    tail."""
+    from repro.configs import get_reduced_config as jreduced
+    from repro.models import lm as jlm
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.convert import lm_from_numpy
+    jc = jreduced("internlm2-1.8b")
+    params = jlm.init_params(jax.random.PRNGKey(0), jc)
+    model = lm_from_numpy(jax.tree_util.tree_map(np.asarray, params),
+                          get_reduced_config("internlm2-1.8b"), device="cpu")
+    toks = np.random.default_rng(0).integers(0, jc.vocab_size,
+                                             (3, 16)).astype(np.int32)
+    want = np.asarray(jextract.lm_feature_fn(jc, CTX)(params,
+                                                      jnp.asarray(toks)))
+    fn = textract.lm_feature_fn(model)
+    got = fn(torch.from_numpy(toks)).numpy()
+    assert got.shape == (3, jc.d_model)
+    tol = 1e-4 * max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got - want).max()) <= tol
+    feats = textract.extract_catalog(toks, fn, batch=2, device="cpu")
+    assert float(np.abs(feats - want).max()) <= tol
 
 
 @pytest.mark.parametrize("n,size,seed", [(300, 16, 0), (64, 64, 3)])

@@ -54,7 +54,15 @@ runs ``lm_feature_fn`` on 4 x 4,096 tokens; the kernel is held to its
 plain version at layer 0's inputs; its first two layers prefill on the
 card and on the CPU alike; and every other assigned architecture at full
 width (cut to one repeat of its layer pattern where it is large) checks
-prefill + 8 decode steps against a prefill of 8 more tokens. The flash library's SASS must hold
+prefill + 8 decode steps against a prefill of 8 more tokens. LM training
+(``lm_train``, ROADMAP A13b): internlm2-1.8b at full width and depth
+(1.89 B float32 parameters, bf16 compute) takes 2 + 5 steps of
+``Trainer.run`` at 2 x 4,096 tokens (remat "full": 48 flash launches and
+24 plain backward calls a step), one profiled step and one with remat
+"none"; two of its layers train one step on the card and on the CPU
+alike; the kernel and the plain backward are timed at the step's own
+attention inputs; a reduced model's checkpoint resumes bitwise. The
+flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
@@ -75,6 +83,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only serve       # the serving layer
     python3 chip_smoke.py --only dino        # DINO training of the ViT-T
     python3 chip_smoke.py --only lm          # the LM backbones' serving
+    python3 chip_smoke.py --only lm_train    # LM training (internlm2-1.8b)
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -1194,8 +1203,15 @@ def _range_kernels(events, name: str) -> list:
     return out
 
 
+def _top_kernels(per_name: dict, n: int) -> list:
+    """The ``n`` kernels of most device time in {name: [us, count]}."""
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:200], "class": _kernel_class(k), "ms": us * 1e-3,
+             "count": c} for k, (us, c) in top]
+
+
 def profile_batch(fn, counters=None, graph_fallback: bool = False,
-                  ranges=()) -> dict:
+                  ranges=(), top_by_class: int = 0) -> dict:
     """One more warm call of ``fn`` (a query batch, a batched fit, an
     extraction batch) under torch.profiler: device busy time (the sum of
     kernel self times on the card) against the host wall, and the kernels
@@ -1210,7 +1226,9 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False,
     CUDA graph of ``fn`` (only for a ``fn`` with no host sync). Each name
     in ``ranges`` is a record_function range inside ``fn``: the device
     time of the kernels launched under it is its own class in
-    ``device_ms_by_class``, taken out of the others."""
+    ``device_ms_by_class``, taken out of the others. ``top_by_class`` >
+    0 lists that many kernels of most device time in each class (outside
+    the ranges, under ``top_by_class``) and in each range."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1258,16 +1276,32 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False,
     by_class = {"flash_attention": 0.0, "cublas": 0.0, "other": 0.0}
     for us, k, _ in rows:
         by_class[_kernel_class(k)] += us * 1e-3
+    outside = {k: [us, c] for us, k, c in rows}
     in_range = {}
     for name in ranges:
         under = _range_kernels(prof.events(), name)
         mine = {c: 0.0 for c in ("flash_attention", "cublas", "other")}
+        per_name = {}
         for k, us in under:
             mine[_kernel_class(k)] += us * 1e-3
+            agg = per_name.setdefault(k, [0.0, 0])
+            agg[0] += us
+            agg[1] += 1
+            if k in outside:
+                outside[k][0] -= us
+                outside[k][1] -= 1
         for c, ms in mine.items():
             by_class[c] -= ms
         by_class[name] = sum(mine.values())
         in_range[name] = {"kernels": len(under), "device_ms_by_class": mine}
+        if top_by_class:
+            in_range[name]["top"] = _top_kernels(per_name, top_by_class)
+    tops = {}
+    if top_by_class:
+        for c in ("flash_attention", "cublas", "other"):
+            tops[c] = _top_kernels({k: v for k, v in outside.items()
+                                    if _kernel_class(k) == c and v[1] > 0},
+                                   top_by_class)
     return {"wall_s": wall, "device_busy_s": busy,
             "device_busy_by": busy_by,
             "device_idle_share": (1.0 - busy / wall
@@ -1280,6 +1314,7 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False,
             "all_recorded": all_recorded,
             "path_kernels": per_launch, "device_ms_by_class": by_class,
             **({"ranges": in_range} if ranges else {}),
+            **({"top_by_class": tops} if top_by_class else {}),
             "top_device": [{"name": k[:60], "ms": us * 1e-3, "count": c}
                            for us, k, c in rows[:8]]}
 
@@ -3362,7 +3397,7 @@ def plain_attention_watch():
         ref.flash_attention_ref, ref.flash_attention_bwd_ref = fwd, bwd
 
 
-def dino_launches(seen) -> dict:
+def attention_counts(seen) -> dict:
     """The flash kernel's launches, the backward calls and the plain
     forwards since zero_counts."""
     from repro_torch.kernels import flash_attention as fa
@@ -3411,7 +3446,7 @@ def dino_gpu_vs_cpu(device, cfg, x, size: int) -> dict:
         zero_counts()
         lg, cg, gg = step.loss_and_grads(sg, v1.to(device), v2.to(device))
         torch.cuda.synchronize()
-        counts = dino_launches(seen)
+        counts = attention_counts(seen)
     needs_dino_launches(counts, cfg.num_layers, f"dino step {size}x{size}")
     t0 = time.perf_counter()
     lc, cc, gc = step.loss_and_grads(sc, v1, v2)
@@ -3487,7 +3522,7 @@ def dino_train(device, cfg, imgs, size: int, batch: int, steps: int):
         zero_counts()
         state, _ = step(state, batches[1 % len(batches)], gen)
         torch.cuda.synchronize()
-        counts = dino_launches(seen)
+        counts = attention_counts(seen)
     needs_dino_launches(counts, cfg.num_layers,
                         f"dino_step {size}x{size} batch {batch}")
     torch.cuda.reset_peak_memory_stats()
@@ -3533,14 +3568,19 @@ def dino_profile(device, state, step, x):
     return prof, seen["bwd_inputs"]
 
 
-def dino_bwd_bound(bh: int, s: int, g: int, d: int):
+def attention_bwd_bound(bh: int, s: int, g: int, d: int, causal: bool,
+                        dtype: str):
     """The attention backward: q, k, v, dout read and dq, dk, dv written
     once, against its five products of 2 BH G S^2 D FLOPs each (the scores
-    again, dv, dp, dq, dk) at the 3xTF32 rate of the f32 forward
-    (flash_bound's convention)."""
-    byts = (3 * bh * s * g * d + 4 * bh * s * d) * 4
-    flops = 10 * bh * g * s * s * d
-    tb, to = byts / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS_PER_S
+    again, dv, dp, dq, dk), halved when causal (a kernel skips the masked
+    tiles), on the tensor cores by flash_bound's convention: bf16 inputs
+    at the bf16 peak, f32 as 3xTF32."""
+    item = 2 if dtype == "bfloat16" else 4
+    byts = (3 * bh * s * g * d + 4 * bh * s * d) * item
+    flops = 10 * bh * g * s * s * d / (2 if causal else 1)
+    tb = byts / HBM_BYTES_PER_S
+    to = (flops / BF16_FLOPS_PER_S if dtype == "bfloat16"
+          else 3 * flops / TF32_FLOPS_PER_S)
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
@@ -3594,7 +3634,9 @@ def attention_backward_times(args, kwargs) -> dict:
            "library_fwd_bwd_ms": time_ms(sdpa_fb, iters=10, warmup=2),
            "library_max_abs_diff": lib_err}
     fa.backward_calls = b0        # the timing's calls are not the path's
-    res["bound_ms"], res["bound_by"] = dino_bwd_bound(bh, s, g, d)
+    res["bound_ms"], res["bound_by"] = attention_bwd_bound(
+        bh, s, g, d, causal,
+        "bfloat16" if q.dtype == torch.bfloat16 else "float32")
     return res
 
 
@@ -4061,6 +4103,307 @@ def phase_lm(device) -> dict:
            "peak_bytes_above_start": peak, **serve,
            "kernel_at_layer0": kernel, "gpu_vs_cpu": check,
            "others": others, "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+# LM training (ROADMAP A13b): internlm2-1.8b whole at full width and depth
+# (24 AD layers, d 2048, 16 / 8 heads of 128, d_ff 8192, vocab 92,544;
+# float32 parameters, bf16 compute; 1.89 B parameters, ~30 GB with
+# gradients and AdamW's moments) drawn on the card from seed 0 and trained
+# by Trainer.run: TrainConfig's defaults (remat "full", z-loss 1e-4,
+# AdamW) with 1,024-token loss chunks, DataConfig(seq_len=4096,
+# global_batch=2) from TokenSource (4,096: the shortest sequence that
+# takes the flash branch)
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_SEQ = 4096
+TRAIN_BATCH = 2
+TRAIN_LOSS_CHUNK = 1024
+TRAIN_WARM_STEPS = 2
+TRAIN_STEPS = 5
+# the one step with remat "none" (to show one launch a layer) takes the
+# batch's first row: every activation is kept for the backward, ~1 GB a
+# layer a row beside the 30 GB state
+TRAIN_NONE_ROWS = 1
+# the profiled step lists this many kernels of most device time in each
+# class (flash, cuBLAS, the rest) and in each range
+TRAIN_TOP_KERNELS = 12
+# torch.profiler range around the step's clip and AdamW update
+TRAIN_OPT_RANGE = "clip_and_update"
+# card against CPU: the model's first two layers (with the embedding, the
+# final norm and the unembedding) on the same weights, batch 1 x 4,096,
+# both sides in bf16 summing in other orders: the loss within 5e-3
+# relative, grad_norm within 2e-2 relative, each parameter's gradient
+# within 5e-2 of its max |value|
+TRAIN_CHECK_LAYERS = 2
+TRAIN_LOSS_RTOL = 5e-3
+TRAIN_GNORM_RTOL = 2e-2
+TRAIN_GRAD_TOL = 5e-2
+# the checkpoint round trip, at the reduced internlm2 config: 3 steps and
+# a save, a new Trainer restores and takes step 4
+TRAIN_CKPT_DIR = ROOT / "build" / "lm_train_checkpoint"
+TRAIN_CKPT_STEPS = 3
+TRAIN_CKPT_DATA = dict(seq_len=256, global_batch=4)
+
+
+def lm_train_config():
+    """(model config, TrainConfig, DataConfig) of the timed run."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    cfg = get_config(TRAIN_ARCH)
+    return (cfg, TrainConfig(loss_chunk=TRAIN_LOSS_CHUNK),
+            DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       vocab_size=cfg.vocab_size, seed=LM_SEED))
+
+
+def needs_train_counts(counts: dict, cfg, steps: int, remat: str,
+                       what: str) -> None:
+    """A step launches the kernel once a flash layer at TRAIN_SEQ, twice
+    under a recomputing remat (the forward, then the backward's
+    recompute), and runs the plain backward once a layer; no forward
+    takes the plain version."""
+    n = flash_layers(cfg, TRAIN_SEQ) * steps
+    want = {"flash_attention": n * (1 if remat == "none" else 2),
+            "backward_calls": n, "plain_forward": 0}
+    if counts != want:
+        raise AssertionError(f"{what}: {counts}, expected {want}")
+
+
+def lm_train_gpu_vs_cpu(device, cfg, tc, model) -> dict:
+    """``model``'s first TRAIN_CHECK_LAYERS layers (its embedding, final
+    norm and unembedding with them), on the same weights, on the card and
+    on the CPU (the plain versions): forward_train and
+    torch.autograd.grad on one TRAIN_SEQ-token batch of 1 (the flash
+    branch on both sides; tc's remat, loss chunks and z-loss), the loss,
+    the gradients' global norm and every gradient to the TRAIN_*
+    tolerances."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import global_norm
+    small = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    full = dict(model.named_parameters())
+    tokens = lm_inputs(cfg, 1, TRAIN_SEQ + 1, LM_SEED + 4)
+    x, y = (torch.from_numpy(np.ascontiguousarray(a))
+            for a in (tokens[:, :-1], tokens[:, 1:]))
+    out = {}
+    for where in ("gpu", "cpu"):
+        dev = device if where == "gpu" else torch.device("cpu")
+        part = lm.LM(small, device=dev)
+        with torch.no_grad():
+            for name, p in part.named_parameters():
+                p.copy_(full[name])
+        part.requires_grad_(True)
+        params = dict(part.named_parameters())
+
+        def run():
+            loss, _ = lm.forward_train(
+                part, x.to(dev), y.to(dev), remat=tc.remat,
+                loss_chunk=tc.loss_chunk, z_loss=tc.z_loss)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            return loss.detach(), dict(zip(params, grads))
+        with plain_attention_watch() as seen:
+            zero_counts()
+            t0 = time.perf_counter()
+            loss, grads = run()
+            gnorm = global_norm(grads)
+            if where == "gpu":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = attention_counts(seen)
+        out[where] = (float(loss), float(gnorm),
+                      {k: g.float().cpu() for k, g in grads.items()},
+                      secs, counts)
+        del part, params, grads
+    lg, ng, gg, gpu_s, counts = out["gpu"]
+    lc, nc, gc, cpu_s, _ = out["cpu"]
+    needs_train_counts(counts, small, 1, tc.remat, "lm_train gpu_vs_cpu")
+    grad_err = {k: float((gg[k] - g).abs().max())
+                / max(float(g.abs().max()), 1e-30) for k, g in gc.items()}
+    worst = max(grad_err, key=grad_err.get)
+    res = {"layers": TRAIN_CHECK_LAYERS, "tokens": TRAIN_SEQ,
+           "loss": {"gpu": lg, "cpu": lc, "rel_err": abs(lg / lc - 1),
+                    "tol": TRAIN_LOSS_RTOL},
+           "grad_norm": {"gpu": ng, "cpu": nc, "rel_err": abs(ng / nc - 1),
+                         "tol": TRAIN_GNORM_RTOL},
+           "grad_max_err_of_max": grad_err[worst], "worst_grad": worst,
+           "grad_tol": TRAIN_GRAD_TOL, "gpu_launches": counts,
+           "gpu_s": gpu_s, "cpu_s": cpu_s}
+    if not (res["loss"]["rel_err"] <= TRAIN_LOSS_RTOL
+            and res["grad_norm"]["rel_err"] <= TRAIN_GNORM_RTOL
+            and grad_err[worst] <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"lm_train gpu_vs_cpu: {res}")
+    return res
+
+
+def lm_train_resume(device) -> dict:
+    """The checkpoint round trip on the card at the reduced config:
+    Trainer A takes TRAIN_CKPT_STEPS steps and saves; Trainer B restores
+    from the directory (``resumed_from``) and takes one step; Trainer C
+    runs TRAIN_CKPT_STEPS + 1 steps uninterrupted. B's loss must equal C's
+    last bitwise, and A's losses C's first."""
+    import shutil
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.train.trainer import Trainer
+    cfg = get_reduced_config(TRAIN_ARCH)
+    tc = TrainConfig(loss_chunk=64)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seed=LM_SEED,
+                    **TRAIN_CKPT_DATA)
+    shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    try:
+        a = Trainer(cfg, tc, dc, device=device, checkpoint_dir=TRAIN_CKPT_DIR,
+                    checkpoint_every=0)
+        state, rep_a = a.run(TRAIN_CKPT_STEPS, log_every=0)
+        a.ckpt.save(int(state.step), state)
+        files = sorted(p.name for p in (
+            TRAIN_CKPT_DIR / f"step_{TRAIN_CKPT_STEPS:08d}").iterdir())
+        b = Trainer(cfg, tc, dc, device=device, checkpoint_dir=TRAIN_CKPT_DIR)
+        _, rep_b = b.run(1, log_every=0)
+        c = Trainer(cfg, tc, dc, device=device)
+        _, rep_c = c.run(TRAIN_CKPT_STEPS + 1, log_every=0)
+    finally:
+        shutil.rmtree(TRAIN_CKPT_DIR, ignore_errors=True)
+    res = {"config": cfg.name, "steps_saved": TRAIN_CKPT_STEPS,
+           "leaf_files": len(files) - 1,
+           "resumed_from": rep_b.resumed_from,
+           "resumed_loss": rep_b.losses[0],
+           "uninterrupted_losses": rep_c.losses, "first_losses": rep_a.losses,
+           "bitwise": rep_b.losses[0] == rep_c.losses[-1]
+           and rep_a.losses == rep_c.losses[:TRAIN_CKPT_STEPS]}
+    if rep_b.resumed_from != TRAIN_CKPT_STEPS or not res["bitwise"]:
+        raise AssertionError(f"lm_train resume: {res}")
+    return res
+
+
+@contextlib.contextmanager
+def optimizer_range():
+    """While open, the train step's clip_by_global_norm and AdamW.update
+    run inside the torch.profiler range TRAIN_OPT_RANGE; restores both on
+    leaving."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.train.optimizer import AdamW
+    clip, update = steps.clip_by_global_norm, AdamW.update
+
+    def ranged(fn):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(TRAIN_OPT_RANGE):
+                return fn(*args, **kwargs)
+        return call
+    steps.clip_by_global_norm, AdamW.update = ranged(clip), ranged(update)
+    try:
+        yield
+    finally:
+        steps.clip_by_global_norm, AdamW.update = clip, update
+
+
+def phase_lm_train(device) -> dict:
+    """LM training on the card (ROADMAP A13b): internlm2-1.8b whole at full
+    width and depth trained by Trainer.run (TRAIN_WARM_STEPS warm-up
+    steps, TRAIN_STEPS timed), the flash kernel launched twice a layer a
+    step (the forward and the remat recompute) and the plain backward
+    once; finite losses and every parameter changed; one step under
+    torch.profiler; one step with remat "none" on TRAIN_NONE_ROWS rows
+    (once a layer); two layers
+    against the CPU (lm_train_gpu_vs_cpu, on the initial weights); the
+    kernel held to its plain version and timed at the training step's
+    attention inputs (measure_flash), the plain backward at its own
+    (attention_backward_times: a CUDA graph, SDPA's forward + backward,
+    the bound); the checkpoint round trip (lm_train_resume). Returns the
+    record."""
+    import dataclasses
+    import torch
+    from repro_torch.device import to_device_async
+    from repro_torch.launch.steps import derive_generator, make_train_step
+    from repro_torch.train.trainer import Trainer
+    t_phase = time.perf_counter()
+    cfg, tc, dc = lm_train_config()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = Trainer(cfg, tc, dc, device=device, step_deadline_s=600)
+    state, init_s = synced(lambda: tr.init_or_restore(tc.seed))
+    params = dict(state.model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        *params.values(), *state.opt.m.values(), *state.opt.v.values()))
+    check = lm_train_gpu_vs_cpu(device, cfg, tc, state.model)
+    free_cuda()
+    before = {k: p.detach().to("cpu", copy=True)
+              for k, p in params.items()}
+    state, warm = tr.run(TRAIN_WARM_STEPS, state=state, log_every=0)
+    torch.cuda.reset_peak_memory_stats()
+    store = []
+    with first_flash_inputs(store), plain_attention_watch() as seen:
+        zero_counts()
+        state, rep = tr.run(TRAIN_STEPS, state=state, log_every=0)
+        counts = attention_counts(seen)
+        bwd_in = seen["bwd_inputs"]
+    peak = torch.cuda.max_memory_allocated()
+    needs_train_counts(counts, cfg, TRAIN_STEPS, tc.remat, "lm_train")
+    losses = warm.losses + rep.losses
+    unchanged = [k for k, p in params.items()
+                 if torch.equal(p.detach().to("cpu"), before[k])]
+    del before
+    if not np.isfinite(losses).all() or unchanged:
+        raise AssertionError(f"lm_train: losses {losses}, parameters "
+                             f"unchanged {unchanged}")
+    # one more step under the profiler, then one with remat "none"
+    step = int(state.step)
+    batch = {k: to_device_async(v, device)
+             for k, v in tr.source.batch(step).items()}
+    gen = derive_generator(tc.seed ^ 0x5EED, step)
+    fn = lambda: tr.step_fn(state, batch, gen)
+    with plain_attention_watch(), optimizer_range():
+        prof = profile_batch(fn, flash_counter(),
+                             ranges=(DINO_BWD_RANGE, TRAIN_OPT_RANGE),
+                             top_by_class=TRAIN_TOP_KERNELS)
+    none_step = make_train_step(cfg, dataclasses.replace(tc, remat="none"))
+    rows = {k: v[:TRAIN_NONE_ROWS] for k, v in batch.items()}
+    torch.cuda.reset_peak_memory_stats()
+    with plain_attention_watch() as seen_none:
+        zero_counts()
+        (_, m_none), none_s = synced(lambda: none_step(state, rows, gen))
+        counts_none = attention_counts(seen_none)
+    needs_train_counts(counts_none, cfg, 1, "none", "lm_train remat none")
+    none_peak = torch.cuda.max_memory_allocated()
+    del state, params, tr, fn, none_step, batch
+    free_cuda()
+    kernel = measure_flash(*store[0][:3], causal=store[0][3])
+    store.clear()
+    bwd = attention_backward_times(*bwd_in)
+    del bwd_in
+    free_cuda()
+    resume = lm_train_resume(device)
+    step_s = TRAIN_STEPS * dc.global_batch * dc.seq_len \
+        / rep.tokens_per_s / TRAIN_STEPS
+    res = {"phase": "lm_train", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "head_dim": cfg.resolved_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "param_dtype": cfg.param_dtype,
+           "compute_dtype": cfg.compute_dtype, "params": n_params,
+           "state_bytes": state_bytes, "init_s": init_s,
+           "train_config": dataclasses.asdict(tc),
+           "batch": [dc.global_batch, dc.seq_len],
+           "warm_steps": TRAIN_WARM_STEPS, "timed_steps": TRAIN_STEPS,
+           "losses": losses, "s_per_step": step_s,
+           "tokens_per_s": rep.tokens_per_s,
+           "straggler_events": rep.straggler_events,
+           "peak_bytes": peak, "peak_bytes_above_start": peak - base,
+           "launches": counts,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in counts.items()},
+           "remat_none_step": {"rows": TRAIN_NONE_ROWS,
+                               "launches": counts_none, "s": none_s,
+                               "loss": float(m_none["loss"]),
+                               "peak_bytes": none_peak},
+           "profile_one_step": prof, "gpu_vs_cpu": check,
+           "kernel_at_train_inputs": kernel, "attention_backward": bwd,
+           "resume": resume, "phase_s": time.perf_counter() - t_phase}
     emit(res)
     return res
 
@@ -5174,14 +5517,16 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "sharded": phase_sharded_only,
         "serve": phase_serve_only,
         "dino": phase_dino,
-        "lm": phase_lm}
+        "lm": phase_lm,
+        "lm_train": phase_lm_train}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
-    quantized, sharded, serve, dino and lm, the kernels are built and only
+    quantized, sharded, serve, dino, lm and lm_train, the kernels are
+    built and only
     those phases run: the FLASH_CASES rows, the 400x400 extraction, the
     box scans at the main path's inputs, zone_candidates on synthetic zone
     maps, l2dist at the knn path's inputs, the batched device fit at full
@@ -5192,8 +5537,8 @@ def main(argv) -> int:
     engine, DINO training of the ViT-T at 64x64 and 400x400 (with its own
     16,384 synthetic patches to embed), the LM backbones' serving path
     (llama3-8b at full width and depth, every other architecture at full
-    width); for comparing two trees on one
-    card."""
+    width), LM training (internlm2-1.8b at full width and depth); for
+    comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -5246,6 +5591,7 @@ def main(argv) -> int:
     del imgs
     ext400 = phase_extraction_400(dev)
     lm_rec = phase_lm(dev)
+    train_rec = phase_lm_train(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
     # the narrow route, at the use_fused=False batch's largest call
@@ -5311,7 +5657,11 @@ def main(argv) -> int:
                        "flash_attention"],
                    "lm_others_prefill_4096": {
                        o["arch"]: o["flash_launches"]["prefill"]
-                       for o in lm_rec["others"]}}}
+                       for o in lm_rec["others"]},
+                   "lm_train_step": train_rec["launches_per_step"][
+                       "flash_attention"],
+                   "lm_train_step_remat_none": train_rec[
+                       "remat_none_step"]["launches"]["flash_attention"]}}
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
     # batch, its dense batch, knn, dtree + rforest and use_fused=False
     for name in KERNELS:
@@ -5366,6 +5716,9 @@ def main(argv) -> int:
     # the LM's flash branch at llama3-8b's layer-0 inputs of a 4,096-token
     # prefill (BH 8, S 4096, G 4, D 128, causal, bf16)
     rows[-1]["lm"] = lm_rec["kernel_at_layer0"]
+    # and at internlm2-1.8b's training step's (BH 16, S 4096, G 2, D 128,
+    # causal, bf16)
+    rows[-1]["lm_train"] = train_rec["kernel_at_train_inputs"]
     # the plain backward under ops.flash_attention's autograd Function (no
     # kernel yet: ROADMAP B5b), at each DINO step's shapes
     rows[-1]["attention_backward"] = {
@@ -5373,9 +5726,12 @@ def main(argv) -> int:
         "calls_per_step": {
             "dino_step": dino["train"]["launches_per_step"]["backward_calls"],
             "dino_step_400":
-                dino["train_400"]["launches_per_step"]["backward_calls"]},
+                dino["train_400"]["launches_per_step"]["backward_calls"],
+            "lm_train_step":
+                train_rec["launches_per_step"]["backward_calls"]},
         "dino_step": dino["attention_backward"],
-        "dino_step_400": dino["attention_backward_400"]}
+        "dino_step_400": dino["attention_backward_400"],
+        "lm_train_step": train_rec["attention_backward"]}
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,8 +19,18 @@ reference ``DinoState`` (both ViTs, heads, centre, Adam's moments, step).
 ``caches_from_numpy`` / ``caches_to_numpy`` carry prefill / decode caches
 between the reference's {"blocks", "tail"} tree and the port's per-layer
 list, so a decode on either side can start from the other's caches.
+
+``train_state_from_numpy`` / ``train_state_to_numpy`` carry a whole LM
+``TrainState`` across, both ways: the reference's {params, opt: {m, v,
+step}, step} with every layer leaf stacked over blocks, the port's model,
+AdamW moments by parameter name and steps. bfloat16 leaves travel as
+their bits in 2-byte void arrays (dtype ``V2``), which is what
+``np.asarray`` of a JAX bfloat16 array holds once ``np.save`` wrote and
+``np.load`` read it back (no ``ml_dtypes`` needed).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +44,9 @@ from repro_torch.features.vit import ViT, load_arrays
 from repro_torch.models.lm import LM
 from repro_torch.models.rglru import LRUState
 from repro_torch.models.ssm import SSMState
+
+# bfloat16 bits as numpy holds them without ml_dtypes
+BF16_BITS = np.dtype("V2")
 
 
 def index_from_arrays(dims, perm, rows, zlo, zhi, block: int, n_rows: int,
@@ -162,9 +175,10 @@ def dino_state_from_numpy(state, cfg: ModelConfig, *, image_size: int,
 
 def _tensor(a, device) -> torch.Tensor:
     """A numpy array (bfloat16 ones too, as ``np.asarray`` of a JAX
-    array gives them) as a tensor of the same dtype on ``device``."""
+    array gives them, or as their bits in ``BF16_BITS``) as a tensor of
+    the same dtype on ``device``."""
     a = np.array(a)           # a writable copy (JAX's arrays are not)
-    if a.dtype.name == "bfloat16":
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
         t = torch.from_numpy(a.view(np.uint16))
         return t.view(torch.bfloat16).to(device)
     return torch.from_numpy(a).to(device)
@@ -197,6 +211,24 @@ def _layer_slots(cfg: ModelConfig):
         yield i, ("blocks", f"slot{i % n}", i // n)
     for ti in range(len(tail)):
         yield nblocks * n + ti, ("tail", f"layer{ti}", None)
+
+
+def lm_stacks(names, cfg: ModelConfig) -> dict:
+    """{the reference's stacked leaf ``blocks.slotN.<path>``: the port's
+    parameter names that form it, in block order} for the port's
+    parameter ``names``: the optimizer's per-leaf rules read these
+    leaves (``train.optimizer``). Tail layers and the top-level tensors
+    are leaves of their own."""
+    where = {i: key for i, (part, key, block) in _layer_slots(cfg)
+             if block is not None}
+    stacks = {}
+    for name in names:
+        if name.startswith("layers."):
+            _, i, path = name.split(".", 2)
+            if int(i) in where:
+                stacks.setdefault(f"blocks.{where[int(i)]}.{path}",
+                                  []).append(name)
+    return stacks
 
 
 def lm_arrays(params, cfg: ModelConfig) -> dict:
@@ -276,3 +308,137 @@ def caches_to_numpy(caches: list, cfg: ModelConfig) -> dict:
 
 def _rebuild(like, arrays: dict):
     return type(like)(**arrays) if isinstance(like, tuple) else arrays
+
+
+# ----------------------------------------------------------------------
+# the LM's train state
+# ----------------------------------------------------------------------
+
+class AdamWArrays(NamedTuple):
+    """The reference's ``AdamWState`` with numpy leaves."""
+    m: dict
+    v: dict
+    step: np.ndarray
+
+
+class TrainStateArrays(NamedTuple):
+    """The reference's ``TrainState`` with numpy leaves: the field names
+    and order are its, so checkpoint leaf names match
+    (``params/blocks/slot0/attn/wq``, ``opt/m/...``, ``opt/step``,
+    ``step``)."""
+    params: dict
+    opt: AdamWArrays
+    step: np.ndarray
+
+
+def _field(tree, name: str):
+    return tree[name] if isinstance(tree, dict) else getattr(tree, name)
+
+
+def _leaf_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy copy; bfloat16 as its bits (``BF16_BITS``)."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
+
+
+def nest(flat: dict, sep: str = ".") -> dict:
+    """{"attn.wq": a, "norm1": b} -> {"attn": {"wq": a}, "norm1": b}
+    (paths split at ``sep``)."""
+    out = {}
+    for path, leaf in flat.items():
+        *head, last = path.split(sep)
+        d = out
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = leaf
+    return out
+
+
+def lm_tree(arrays: dict, cfg: ModelConfig) -> dict:
+    """{the port's parameter name: array} (parameters, or AdamW's moments
+    by parameter name) as the reference's LM tree: ``blocks/slotN``
+    leaves stacked over blocks, ``tail/layerN``, ``unembed`` only where
+    untied — the inverse of ``lm_arrays``."""
+    tree = {"embed": arrays.get("embed"), "final_norm": arrays["final_norm"]}
+    if "unembed" in arrays:
+        tree["unembed"] = arrays["unembed"]
+    per_layer = {}
+    for name, a in arrays.items():
+        if name.startswith("layers."):
+            _, i, path = name.split(".", 2)
+            per_layer.setdefault(int(i), {})[path] = a
+    slots, tail = {}, {}
+    for i, (part, key, block) in _layer_slots(cfg):
+        if block is None:
+            tail[key] = nest(per_layer[i])
+        else:
+            slots.setdefault(key, []).append(per_layer[i])
+    tree["blocks"] = {key: nest({path: np.stack([b[path] for b in blocks])
+                                 for path in blocks[0]})
+                      for key, blocks in slots.items()}
+    tree["tail"] = tail
+    return tree
+
+
+def train_state_to_numpy(state, cfg: ModelConfig) -> TrainStateArrays:
+    """The port's ``launch.steps.TrainState`` as the reference's, numpy
+    leaves (copies), bfloat16 as ``BF16_BITS``; the steps int32 0-d."""
+    named = lambda tree: lm_tree({k: _leaf_numpy(t)
+                                  for k, t in tree.items()}, cfg)
+    params = dict(state.model.named_parameters())
+    return TrainStateArrays(
+        named(params),
+        AdamWArrays(named(state.opt.m), named(state.opt.v),
+                    np.asarray(state.opt.step, np.int32)),
+        np.asarray(state.step, np.int32))
+
+
+def _copy_named(targets: dict, arrays: dict, what: str) -> None:
+    """Copy {name: array} into {name: tensor}: every name given, each of
+    the target's exact shape and dtype (nothing is cast)."""
+    if set(arrays) != set(targets):
+        raise ValueError(f"{what}: names differ: missing "
+                         f"{sorted(set(targets) - set(arrays))}, unknown "
+                         f"{sorted(set(arrays) - set(targets))}")
+    with torch.no_grad():
+        for name, t in targets.items():
+            a = _tensor(arrays[name], "cpu")
+            if tuple(a.shape) != tuple(t.shape) or a.dtype != t.dtype:
+                raise ValueError(
+                    f"{what} {name}: {a.dtype} {tuple(a.shape)}, expected "
+                    f"{t.dtype} {tuple(t.shape)} (no dtype is cast)")
+            t.copy_(a)
+
+
+def load_train_state_(target, state, cfg: ModelConfig):
+    """Copy a reference ``TrainState`` (numpy leaves; or the same as
+    nested dicts, as a checkpoint restores it) into the port's
+    ``target`` TrainState in place; returns the TrainState with the
+    loaded steps."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.train.optimizer import AdamWState
+    opt = _field(state, "opt")
+    _copy_named(dict(target.model.named_parameters()),
+                lm_arrays(_field(state, "params"), cfg), "params")
+    _copy_named(target.opt.m, lm_arrays(_field(opt, "m"), cfg), "opt.m")
+    _copy_named(target.opt.v, lm_arrays(_field(opt, "v"), cfg), "opt.v")
+    return TrainState(target.model,
+                      AdamWState(target.opt.m, target.opt.v,
+                                 int(np.asarray(_field(opt, "step")))),
+                      int(np.asarray(_field(state, "step"))))
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, tc, *,
+                           device=None):
+    """The port's TrainState holding a reference ``TrainState`` with numpy
+    leaves (``jax.tree_util.tree_map(np.asarray, state)``): parameters in
+    ``cfg.param_dtype``, moments in ``tc.opt_state_dtype`` (the arrays
+    must have those dtypes), the steps. ``device`` defaults to CUDA."""
+    from repro_torch.launch.steps import TrainState, make_optimizer
+    model = LM(cfg, device=resolve_device(device))
+    model.requires_grad_(True)
+    params = dict(model.named_parameters())
+    opt = make_optimizer(tc, lm_stacks(params, cfg)).init(params)
+    return load_train_state_(TrainState(model, opt, 0), state, cfg)

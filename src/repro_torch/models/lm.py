@@ -16,14 +16,16 @@ slot i % len(pattern) of the reference's scanned ``blocks``, then the
 
 Entry points:
     init_params(cfg, *, generator, device)        -> LM
+    forward_train(model, inputs, targets, ...)    -> (loss, metrics)
     prefill(model, inputs, serve)                 -> (last_logits, caches)
     decode_step(model, caches, token, pos, serve) -> (logits, caches)
 
 Caches are a list, one entry a layer: {"k", "v"} for attention,
 ``SSMState`` for S, ``LRUState`` for R. Attention layers whose sequence
 exceeds ``FLASH_THRESHOLD`` run ``attention.flash_attention``, the CUDA
-flash kernel on the card. Training (``forward_train``, the chunked
-loss) is ROADMAP A13b; the mesh (``ParallelCtx``'s modes) A13c.
+flash kernel on the card (in training its forward, with the plain
+backward under ``kernels.ops``' autograd Function). The mesh
+(``ParallelCtx``'s modes) is ROADMAP A13c.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import Dict, List, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig, ServeConfig
 from repro_torch.device import resolve_device
@@ -326,24 +329,86 @@ def unembed(model: LM, x: torch.Tensor) -> torch.Tensor:
 # stack
 # ======================================================================
 
+# the reference's remat policies (jax.checkpoint of each scanned block):
+# "full" recomputes a whole layer in the backward; "dots" keeps the
+# outputs of the products without batch dims (checkpoint_dots_with_no_
+# batch_dims: mm / addmm, not bmm) and recomputes the rest
+REMAT_MODES = ("none", "full", "dots")
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.matmul.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return _ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _layer_keys(cfg: ModelConfig) -> List[int]:
+    """Each layer's key for its jitter generator, the reference's
+    ``fold_in`` data: bi * 131 + si for slot si of scanned block bi,
+    7919 + ti for tail layer ti."""
+    pattern, nblocks, tail = cfg.scan_pattern()
+    n = len(pattern)
+    return ([bi * 131 + si for bi in range(nblocks) for si in range(n)]
+            + [7919 + ti for ti in range(len(tail))])
+
+
+def derive_seed(seed: int, key: int) -> int:
+    """A 63-bit seed from (seed, key): splitmix64's finaliser of their
+    mix, so nearby keys give unrelated streams."""
+    z = (seed * 0x9E3779B97F4A7C15 + key + 1) & (2 ** 64 - 1)
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & (2 ** 64 - 1)
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & (2 ** 64 - 1)
+    return (z ^ (z >> 31)) & (2 ** 63 - 1)
+
+
+def _layer_generator(layer: Layer, cfg: ModelConfig, seed: Optional[int],
+                     key: int, device):
+    """A MoE layer's own jitter generator (None without jitter or a step
+    seed), made inside the layer's (checkpointed) function so a recompute
+    draws the same."""
+    if seed is None or layer.kind != "AM" or not cfg.router_jitter:
+        return None
+    return torch.Generator(device=device).manual_seed(derive_seed(seed, key))
+
+
 def _stack_forward(model: LM, x: torch.Tensor, *, mode: str,
                    positions: torch.Tensor,
                    caches: Optional[List[Cache]] = None,
-                   pos: Optional[int] = None, rng=None,
-                   cache_dtype=torch.bfloat16):
+                   pos: Optional[int] = None, seed: Optional[int] = None,
+                   remat: str = "none", cache_dtype=torch.bfloat16):
     """Run the full layer stack, ``mode`` one of train / prefill / decode.
+    ``seed`` (train): the step's seed, from which each layer derives the
+    generator of its router jitter; ``remat`` (train): each layer under
+    ``torch.utils.checkpoint`` ("full") or its selective form ("dots").
     Returns (x after the final norm, new caches (prefill / decode) or
     None, aux sums)."""
     cfg = model.cfg
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
+    if remat not in REMAT_MODES:
+        raise ValueError(f"unknown remat {remat!r}: one of {REMAT_MODES}")
     lb, zz = 0.0, 0.0
     new_caches = [] if mode in ("prefill", "decode") else None
+    keys = _layer_keys(cfg)
     for i, layer in enumerate(model.layers):
         c = caches[i] if caches is not None else None
-        x, nc, aux = _apply_layer(layer, x, cfg, mode=mode,
-                                  positions=positions, cache=c, pos=pos,
-                                  rng=rng, cache_dtype=cache_dtype)
+
+        def run(x, layer=layer, c=c, key=keys[i]):
+            rng = _layer_generator(layer, cfg, seed, key, x.device)
+            return _apply_layer(layer, x, cfg, mode=mode,
+                                positions=positions, cache=c, pos=pos,
+                                rng=rng, cache_dtype=cache_dtype)
+        if remat == "none" or mode != "train":
+            x, nc, aux = run(x)
+        else:
+            ctx = {"context_fn": _dots_context} if remat == "dots" else {}
+            x, nc, aux = _ckpt.checkpoint(run, x, use_reentrant=False,
+                                          **ctx)
         lb = lb + aux["load_balance"]
         zz = zz + aux["router_z"]
         if new_caches is not None:
@@ -356,6 +421,79 @@ def _as_input(model: LM, inputs) -> torch.Tensor:
     if isinstance(inputs, torch.Tensor):
         return inputs.to(model.device)
     return torch.from_numpy(np.ascontiguousarray(inputs)).to(model.device)
+
+
+def _ce_chunk(model: LM, h: torch.Tensor, t: torch.Tensor,
+              pad_mask: torch.Tensor):
+    """(sum of -log p(target), sum of logsumexp^2) over one chunk, the
+    logits in float32 with the vocab padding at -1e30."""
+    logits = unembed(model, h).to(torch.float32)
+    logits = torch.where(pad_mask, -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    return (lse - gold).sum(), (lse ** 2).sum()
+
+
+def chunked_ce_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor,
+                    chunk: int = 0, z_loss: float = 0.0) -> torch.Tensor:
+    """Cross-entropy over the vocab in sequence chunks of ``chunk`` (the
+    whole sequence where it is 0 or does not divide S). Each chunk runs
+    under ``torch.utils.checkpoint``, so no chunk's [B, chunk, V] float32
+    logits are held for the backward; the sums go in float32 in chunk
+    order as the reference's scan. Returns the mean NLL plus ``z_loss``
+    times the mean logsumexp^2."""
+    b, s, _ = hidden.shape
+    if chunk <= 0 or s % chunk:
+        chunk = s
+    cfg = model.cfg
+    pad_mask = torch.arange(cfg.padded_vocab,
+                            device=hidden.device) >= cfg.vocab_size
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    zl = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        h, t = hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
+        if torch.is_grad_enabled():
+            n, z = _ckpt.checkpoint(_ce_chunk, model, h, t, pad_mask,
+                                    use_reentrant=False)
+        else:
+            n, z = _ce_chunk(model, h, t, pad_mask)
+        nll = nll + n
+        zl = zl + z
+    ntok = b * s
+    loss = nll / ntok
+    if z_loss:
+        loss = loss + z_loss * zl / ntok
+    return loss
+
+
+def forward_train(model: LM, inputs, targets, *,
+                  generator: Optional[torch.Generator] = None,
+                  remat: str = "none", loss_chunk: int = 0,
+                  z_loss: float = 0.0, lb_coef: float = 0.0):
+    """inputs / targets: token ids [B, S] (inputs may be embeddings [B, S,
+    d]), tensors or numpy arrays. Returns (loss, {"ce_loss",
+    "load_balance"}), 0-d float32 tensors; ``ce_loss`` is the loss (the
+    z and load-balance terms included), as the reference reports it.
+
+    ``generator``: the step's generator; each layer draws its router
+    jitter from its own generator seeded by (``generator.initial_seed()``,
+    the layer's key), so a recompute under remat draws the same, and the
+    step's generator is not advanced. The draws are torch's, not JAX's
+    threefry numbers. ``remat``: "none", "full" or "dots" (REMAT_MODES);
+    none changes a value."""
+    inputs, targets = _as_input(model, inputs), _as_input(model, targets)
+    s = inputs.shape[1]
+    positions = torch.arange(s, device=model.device)
+    x = embed_inputs(model, inputs, positions)
+    seed = None if generator is None else generator.initial_seed()
+    x, _, aux = _stack_forward(model, x, mode="train", positions=positions,
+                               seed=seed, remat=remat)
+    loss = chunked_ce_loss(model, x, targets, loss_chunk, z_loss)
+    lb = torch.as_tensor(aux["load_balance"], dtype=torch.float32,
+                         device=model.device)
+    if lb_coef and model.cfg.num_experts:
+        loss = loss + lb_coef * lb
+    return loss, {"ce_loss": loss, "load_balance": lb}
 
 
 @torch.no_grad()

@@ -12,13 +12,20 @@ reference's bit for bit: top-k takes the lower expert index on a tie, as
 promises no order), and segments start where ``searchsorted(side=
 "left")`` puts them. Expert weights are [E, d, ff]. One device: the
 reference's expert-parallel sharding constraints are the mesh's (ROADMAP
-A13c). Router jitter draws noise only in training (ROADMAP A13b); every
-config sets it to 0.
+A13c).
+
+Router jitter (training only: ``lm.forward_train`` passes each layer its
+own ``torch.Generator``; prefill and decode pass none and never draw)
+adds ``router_jitter * N(0, 1)`` to the router logits, one [T, E] draw a
+sequence chunk shared by the chunk's groups, as the reference's vmap
+shares one key among the groups and splits it over chunks. The numbers
+are torch's, not JAX's threefry draws; every config sets the jitter to
+0.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -95,16 +102,15 @@ def top_k(probs: torch.Tensor, k: int):
 
 
 def _dispatch_group(p: MoE, xt: torch.Tensor, *, k: int, c: int,
-                    router_jitter: float = 0.0, rng=None) -> Dispatch:
-    """Sort-based dispatch for ONE token group. xt: [T, d]."""
-    if router_jitter and rng is not None:
-        raise NotImplementedError(
-            "MoE router jitter draws noise only in training, ROADMAP A13b "
-            "(every config sets router_jitter = 0)")
+                    noise: Optional[torch.Tensor] = None) -> Dispatch:
+    """Sort-based dispatch for ONE token group. xt: [T, d]; ``noise``:
+    the router jitter [T, E] added to the logits, or None."""
     t, d = xt.shape
     e = p.w_in.shape[0]
     dev = xt.device
     logits = xt.to(torch.float32) @ p.router                   # [T, E]
+    if noise is not None:
+        logits = logits + noise
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = top_k(probs, k)                    # [T, k]
     gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
@@ -185,6 +191,8 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
             router_jitter: float = 0.0, rng=None, seq_chunk: int = 4096
             ) -> Tuple[torch.Tensor, dict]:
     """x: [B, S, d] -> (y [B, S, d], {"load_balance", "router_z"}).
+    ``rng``: a torch.Generator on x's device, drawn from (one [T, E]
+    draw a chunk, in chunk order) where ``router_jitter`` is non-zero.
 
     The reference's groups: one flat group of all B*S tokens where B*S
     <= 16384 or B == 1 (decode and short prefills), else one group per
@@ -206,11 +214,15 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
     tc = gs // chunks
     ys, lbs, rzs = [], [], []
     for ci in range(chunks):
+        noise = None
+        if router_jitter and rng is not None:
+            noise = router_jitter * torch.randn(
+                (tc, e), generator=rng, dtype=torch.float32,
+                device=x.device)
         yc, lbc, rzc = [], [], []
         for gi in range(groups):
             xt = xg[gi, ci * tc:(ci + 1) * tc]
-            disp = _dispatch_group(p, xt, k=k, c=c,
-                                   router_jitter=router_jitter, rng=rng)
+            disp = _dispatch_group(p, xt, k=k, c=c, noise=noise)
             out_b = _experts(p, disp.buckets, act_name)
             yc.append(_combine_group(out_b, disp, tc))
             lbc.append(disp.lb)

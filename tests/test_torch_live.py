@@ -602,8 +602,21 @@ def test_background_compaction_launches_nothing(monkeypatch):
     before = te.query(pos, neg, model="dbranch", max_results=50)
     calls = _counting_ops(monkeypatch)
     main = threading.get_ident()
+    # the merge thread swaps only after the query below has run, so that
+    # query always reads the old snapshot (else a quick merge could swap
+    # first and the query would build the merged segment's mirrors)
+    queried = threading.Event()
+    build = te._catalog._build_segment
+
+    def held_build(*a, **kw):
+        seg = build(*a, **kw)
+        if threading.get_ident() != main:
+            queried.wait(timeout=60)
+        return seg
+    monkeypatch.setattr(te._catalog, "_build_segment", held_build)
     t = te.compact(background=True)
     during = te.query(pos, neg, model="dbranch", max_results=50)
+    queried.set()
     t.join(timeout=60)
     assert not t.is_alive()
     assert calls and {tid for _, tid in calls} == {main}

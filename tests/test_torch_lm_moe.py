@@ -164,13 +164,25 @@ def test_moe_groups_and_chunks_as_the_reference():
 
 
 def test_moe_router_jitter_is_training_only():
+    """Jitter draws only from a given generator: the same seed draws the
+    same noise, rng=None (prefill and decode) draws nothing and equals the
+    jitter-free call bitwise."""
     params, p = _moe_pair(0, 8, 16, 4, 0)
-    x = torch.zeros(1, 4, 8)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tmoe.moe_mlp(p, x, experts_per_token=1, act_name="silu",
-                     router_jitter=0.1, rng=torch.Generator())
-    tmoe.moe_mlp(p, x, experts_per_token=1, act_name="silu",
-                 router_jitter=0.1, rng=None)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (1, 16, 8)).astype(np.float32))
+    kw = dict(experts_per_token=1, act_name="silu")
+    plain, _ = tmoe.moe_mlp(p, x, router_jitter=0.0, **kw)
+    none, _ = tmoe.moe_mlp(p, x, router_jitter=1.0, rng=None, **kw)
+    assert torch.equal(none, plain)
+    a, aux_a = tmoe.moe_mlp(p, x, router_jitter=1.0,
+                            rng=torch.Generator().manual_seed(5), **kw)
+    b, aux_b = tmoe.moe_mlp(p, x, router_jitter=1.0,
+                            rng=torch.Generator().manual_seed(5), **kw)
+    assert torch.equal(a, b)
+    assert torch.equal(aux_a["router_z"], aux_b["router_z"])
+    assert not torch.equal(aux_a["router_z"],
+                           tmoe.moe_mlp(p, x, router_jitter=0.0,
+                                        **kw)[1]["router_z"])
 
 
 @pytest.mark.parametrize("tokens,e,k,cf", [(1, 128, 8, 1.25),

@@ -61,7 +61,15 @@ prefill + 8 decode steps against a prefill of 8 more tokens. LM training
 24 plain backward calls a step), one profiled step and one with remat
 "none"; two of its layers train one step on the card and on the CPU
 alike; the kernel and the plain backward are timed at the step's own
-attention inputs; a reduced model's checkpoint resumes bitwise. The
+attention inputs; a reduced model's checkpoint resumes bitwise. The LM
+on a mesh (``lm_mesh``, ROADMAP A13c-1): one world of 4 processes on the
+one card (gloo; NCCL refuses two ranks on one device) serves
+internlm2-1.8b at full width and depth through make_prefill_step /
+make_decode_step / lm_feature_fn on (1, 4) in head mode (the flash kernel
+on each rank's 4 heads), on 3 ranks at (1, 3) in qseq mode, on (1, 4)
+with seq_parallel (ctxpar) and on (2, 2) with batch 2, and qwen3-moe cut
+to 2 layers with its experts split over 4 ranks, each against the
+single-rank run on the card. The
 flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
@@ -84,6 +92,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only dino        # DINO training of the ViT-T
     python3 chip_smoke.py --only lm          # the LM backbones' serving
     python3 chip_smoke.py --only lm_train    # LM training (internlm2-1.8b)
+    python3 chip_smoke.py --only lm_mesh     # the LM on a mesh (4 ranks)
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -99,6 +108,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -4408,6 +4418,511 @@ def phase_lm_train(device) -> dict:
     return res
 
 
+# the LM on a mesh, serving (ROADMAP A13c-1): internlm2-1.8b whole at
+# full width and depth (24 AD layers, d 2048, 16 / 8 heads of 128, d_ff
+# 8192, vocab 92,544), bf16 weights from seed 0 drawn alike by the
+# single-rank run and every rank (init_params(..., mesh=) draws each
+# module whole and keeps its shard), served through make_prefill_step /
+# make_decode_step / lm_feature_fn on four meshes of one world of 4 ranks
+# on the one card: a 1 x 4,096-token prefill (the flash branch), 8
+# teacher-forced decode steps over the sequence-sharded cache and
+# lm_feature_fn on 2 x 4,096 (the data x model mesh: batch 2 throughout)
+MESH_ARCH = "internlm2-1.8b"
+MESH_SEQ = 4096
+MESH_DECODE = 8
+MESH_FEATURE_BATCH = 2
+MESH_WARM_SEQ = 64             # a short prefill first: cuBLAS, gloo pairs
+MESH_WORLD = 4
+# (name, mesh shape over world ranks 0.., seq_parallel, batch): head on
+# (1, 4) (16 heads, 4 a rank: the flash kernel on each rank's heads); qseq
+# on a world of 3 at (1, 3) (16 % 3 != 0); ctxpar (seq_parallel); data x
+# model with batch 2
+MESH_MODES = (("head", (1, 4), False, 1), ("qseq", (1, 3), False, 1),
+              ("ctxpar", (1, 4), True, 1), ("data_model", (2, 2), False, 2))
+MESH_BACKEND = "gloo"
+MESH_BACKEND_WHY = ("every rank is a process on the one card: NCCL refuses "
+                    "two ranks on one device; gloo takes CUDA tensors "
+                    "(staged through host memory)")
+# limits set before the first run, against the single-rank run on the
+# card: the hidden state after the first two layers within 2e-2 of its
+# max |value| (the lm phase's), last-position and every decode step's
+# logits and the pooled features within 5e-2 of their max; MoE dispatch
+# counts bitwise
+MESH_CHECK_LAYERS = 2
+MESH_HIDDEN_TOL = 2e-2
+MESH_LOGITS_TOL = 5e-2
+# qwen3-moe-235b-a22b at full width, cut to 2 of its 94 layers (its bf16
+# weights, 470 GB whole, are what needs a mesh), its 128 experts split 32
+# a rank on (1, 4); the config's own capacity factor 1.25. Its compute in
+# float32: the dispatch counts are held bitwise, and in bf16 the row-
+# parallel all-reduce rounds the router's input other than one product
+# does (a last-bit difference moves a token's 8th expert now and then)
+MESH_MOE_ARCH = "qwen3-moe-235b-a22b"
+MESH_MOE_LAYERS = 2
+MESH_MOE_MESH = (1, 4)
+MESH_MOE_COMPUTE = "float32"
+MESH_JOIN_S = 900
+# the collectives the port's mesh calls (models/common.py's all_reduce,
+# sum over bf16 and f32 activations and the f32 flash-decoding partials,
+# max over the f32 running maxima; all_gather and DTensor's redistribute,
+# an all-gather into one tensor of bf16 and f32): a rank fails unless
+# gloo does each on the card's tensors; gloo_check's others are recorded
+MESH_COLLECTIVES = ("all_reduce_sum_f32", "all_reduce_sum_bf16",
+                    "all_reduce_max_f32", "all_gather_single",
+                    "all_gather_single_bf16")
+
+
+def mesh_config(arch: str, layers=None, compute: str = "bfloat16"):
+    """The arch's full-width config with bf16 weights, ``compute``
+    activations, cut to ``layers`` where given."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    over = {"param_dtype": "bfloat16", "compute_dtype": compute}
+    if layers:
+        over["num_layers"] = layers
+    return dataclasses.replace(get_config(arch), **over)
+
+
+@contextlib.contextmanager
+def layer_output(store: list, index: int):
+    """Records (whole, float32, numpy) the residual after layer
+    ``index`` of the first prefill made inside; on a mesh it is gathered
+    over the batch and sequence axes by a context of its own, so the
+    step's collective counts do not see it."""
+    import dataclasses
+    from repro_torch.models import lm
+    from repro_torch.models.common import CommStats, all_gather
+    raw = lm._apply_layer
+    seen = [0]
+
+    def hook(layer, x, cfg, **kw):
+        out = raw(layer, x, cfg, **kw)
+        if kw["mode"] == "prefill":
+            if seen[0] == index and not store:
+                h, ctx, lay = out[0], kw.get("ctx"), kw.get("lay")
+                if ctx is not None and ctx.mesh is not None:
+                    own = dataclasses.replace(ctx, comm=CommStats())
+                    h = all_gather(all_gather(h, own, lay.seq_axis, 1,
+                                              lay.s), own, lay.bax, 0)
+                store.append(h.float().cpu().numpy())
+            seen[0] += 1
+        return out
+    lm._apply_layer = hook
+    try:
+        yield store
+    finally:
+        lm._apply_layer = raw
+
+
+@contextlib.contextmanager
+def dispatch_counts(store: list):
+    """Records each MoE dispatch's top-k experts made inside (a copy on
+    the device, no sync) with the expert count; ``dispatch_lists`` turns
+    them into tokens per expert after the timed window."""
+    from repro_torch.models import moe
+    raw = moe._dispatch_group
+
+    def rec(p, xt, **kw):
+        d = raw(p, xt, **kw)
+        store.append((d.expert_idx.reshape(-1).clone(), p.router.shape[1]))
+        return d
+    moe._dispatch_group = rec
+    try:
+        yield store
+    finally:
+        moe._dispatch_group = raw
+
+
+def dispatch_lists(store: list) -> list:
+    """dispatch_counts' records as tokens per expert (bincount lists)."""
+    import torch
+    return [torch.bincount(i, minlength=e).tolist() for i, e in store]
+
+
+def kernel_inputs_np(store: list):
+    """first_flash_inputs' record as numpy for a queue (bf16 as its int16
+    bits), None where no flash call was made."""
+    import torch
+    if not store:
+        return None
+    q, k, v, causal = store[0]
+    bits = lambda t: (t.view(torch.int16) if t.dtype == torch.bfloat16
+                      else t).cpu().numpy()
+    return {"qkv": [bits(t) for t in (q, k, v)], "causal": causal,
+            "dtype": str(q.dtype).replace("torch.", "")}
+
+
+def kernel_inputs_of(rec: dict, device):
+    """kernel_inputs_np's record back as (q, k, v, causal) on ``device``."""
+    import torch
+    dt = getattr(torch, rec["dtype"])
+    q, k, v = (torch.from_numpy(a).to(device).view(dt) for a in rec["qkv"])
+    return q, k, v, rec["causal"]
+
+
+def mesh_serve(device, cfg, mesh, seq_parallel: bool, batch: int,
+               features: bool = True) -> dict:
+    """cfg served through the step factories on ``mesh`` (None: the one
+    rank): the model drawn from seed LM_SEED, a short warm prefill, an
+    untimed MESH_SEQ-token prefill for the checks (the residual after
+    layer MESH_CHECK_LAYERS gathered whole, the MoE dispatch counts, the
+    first flash call's inputs), then the timed MESH_SEQ-token prefill
+    with nothing of the checks inside (the whole last-position logits,
+    flash launches, collective bytes), pad_caches, MESH_DECODE teacher-
+    forced decode steps (each step's whole logits, copied out after its
+    timed window; the dispatch counts after the last) and, with
+    ``features``,
+    lm_feature_fn on MESH_FEATURE_BATCH x MESH_SEQ. Peak
+    memory is this process's, and above what it held at the start (the
+    single-rank run's process holds earlier phases' tensors)."""
+    import torch
+    from repro_torch.configs.base import ServeConfig
+    from repro_torch.features.extract import lm_feature_fn
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.models.common import gather_placed as whole
+    sv = ServeConfig(seq_parallel=seq_parallel)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    model, init_s = synced(lambda: lm.init_params(
+        cfg, generator=gen, device=device, mesh=mesh))
+    local_bytes = sum(p.to_local().numel() * p.element_size()
+                      if mesh is not None else p.numel() * p.element_size()
+                      for p in model.parameters())
+    prefill = steps.make_prefill_step(cfg, sv, mesh)
+    decode = steps.make_decode_step(cfg, sv, mesh)
+    x = torch.from_numpy(lm_inputs(cfg, batch, MESH_SEQ + MESH_DECODE,
+                                   LM_SEED + 4)).to(device)
+    synced(lambda: prefill(model, x[:, :MESH_WARM_SEQ]))
+    hidden, disp, flash_in = [], [], []
+    with layer_output(hidden, MESH_CHECK_LAYERS - 1), \
+            dispatch_counts(disp), first_flash_inputs(flash_in):
+        synced(lambda: prefill(model, x[:, :MESH_SEQ]))
+    out = {"hidden": hidden[0], "decode_logits": [],
+           "prefill_dispatch": dispatch_lists(disp),
+           "flash_inputs": kernel_inputs_np(flash_in) if mesh is not None
+           else None}
+    del disp, flash_in
+    prefill.ctx.comm.reset()
+    ((logits, caches), prefill_s), pc = counted(
+        lambda: synced(lambda: prefill(model, x[:, :MESH_SEQ])))
+    prefill_comm = prefill.ctx.comm.snapshot()
+    out["logits"] = whole(logits).float().cpu().numpy()
+    del logits
+    caches = lm.pad_caches(caches, cfg, MESH_SEQ + MESH_DECODE, prefill.ctx)
+    step_s, disp = [], []
+    zero_counts()
+    with dispatch_counts(disp):
+        for t in range(MESH_SEQ, MESH_SEQ + MESH_DECODE):
+            (lg, caches), s = synced(lambda: decode(model, caches,
+                                                    x[:, t:t + 1], t))
+            step_s.append(s)
+            out["decode_logits"].append(whole(lg).float().cpu().numpy())
+    dc = read_counts()
+    out["decode_dispatch"] = dispatch_lists(disp)
+    del caches
+    rec = {"batch": batch, "init_s": init_s,
+           "param_bytes_local": local_bytes, "prefill_tokens":
+           batch * MESH_SEQ, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": batch * MESH_SEQ / prefill_s,
+           "prefill_flash_launches": pc["flash_attention"],
+           "prefill_comm": prefill_comm, "decode_steps": MESH_DECODE,
+           "decode_s_per_token": float(np.median(step_s)),
+           "decode_s_first": step_s[0],
+           "decode_flash_launches": dc["flash_attention"],
+           "decode_comm": decode.ctx.comm.snapshot()}
+    if features:
+        fx = torch.from_numpy(lm_inputs(cfg, MESH_FEATURE_BATCH, MESH_SEQ,
+                                        LM_SEED + 5)).to(device)
+        fn = lm_feature_fn(model, prefill.ctx)
+        prefill.ctx.comm.reset()
+        (feats, feat_s), fc = counted(lambda: synced(lambda: fn(fx)))
+        out["features"] = feats.float().cpu().numpy()
+        rec.update({"feature_batch": [MESH_FEATURE_BATCH, MESH_SEQ],
+                    "feature_s": feat_s,
+                    "feature_flash_launches": fc["flash_attention"],
+                    "feature_comm": prefill.ctx.comm.snapshot()})
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["peak_bytes_above_start"] = rec["peak_bytes"] - base
+    rec["mode"] = lm.attn_parallel_mode(cfg, prefill.ctx)
+    del model
+    free_cuda()
+    return {"record": rec, "out": out}
+
+
+def gloo_check(world: int, dev) -> dict:
+    """Which collectives gloo takes on ``dev``'s tensors here (every rank
+    calls each; a value check beside): "ok", "wrong" or the error."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.compat import all_gather_single
+    one = lambda n=4, dt=torch.float32: torch.ones(n, dtype=dt, device=dev)
+
+    def gather_into(dt=torch.float32):
+        out = torch.empty(4 * world, dtype=dt, device=dev)
+        all_gather_single(out, one(4, dt), None)
+        return bool((out == 1).all())
+
+    def reduce_scatter():
+        out = torch.empty(4, device=dev)
+        rs = getattr(dist, "reduce_scatter_single", None) \
+            or dist.reduce_scatter_tensor
+        rs(out, one(4 * world))
+        return bool((out == world).all())
+
+    def all_to_all():
+        out = torch.empty(4 * world, device=dev)
+        dist.all_to_all_single(out, one(4 * world))
+        return bool((out == 1).all())
+
+    def reduce(op, dt):
+        t = one(4, dt)
+        dist.all_reduce(t, op=op)
+        return bool((t == (world if op == dist.ReduceOp.SUM else 1)).all())
+
+    def gather_list():
+        outs = [torch.empty(4, device=dev) for _ in range(world)]
+        dist.all_gather(outs, one())
+        return all(bool((o == 1).all()) for o in outs)
+
+    def broadcast():
+        t = one()
+        dist.broadcast(t, src=0)
+        return bool((t == 1).all())
+    checks = {"all_reduce_sum_f32": lambda: reduce(dist.ReduceOp.SUM,
+                                                   torch.float32),
+              "all_reduce_sum_bf16": lambda: reduce(dist.ReduceOp.SUM,
+                                                    torch.bfloat16),
+              "all_reduce_max_f32": lambda: reduce(dist.ReduceOp.MAX,
+                                                   torch.float32),
+              "all_gather": gather_list,
+              "all_gather_single": gather_into,
+              "all_gather_single_bf16": lambda: gather_into(torch.bfloat16),
+              "reduce_scatter_tensor": reduce_scatter,
+              "all_to_all_single": all_to_all, "broadcast": broadcast}
+    out = {}
+    for name, fn in checks.items():
+        try:
+            out[name] = "ok" if fn() else "wrong"
+        except Exception as e:    # a collective gloo lacks: its message
+            out[name] = f"{type(e).__name__}: {str(e)[:120]}"
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    return out
+
+
+def mesh_rank(rank: int, world: int, store_path: str, device_type: str,
+              q) -> None:
+    """One rank of the lm_mesh world with gloo, on cuda:0 (the one card)
+    for ``device_type`` "cuda": the collective check, then every
+    MESH_MODES mesh it belongs to, then the MoE mesh; puts (rank, record)
+    or (rank, traceback) on ``q``. A crash of the process writes its
+    Python stack to mesh_fault_path(rank)."""
+    import faulthandler
+    import traceback
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    fault = open(mesh_fault_path(rank), "w")
+    faulthandler.enable(fault)
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device(device_type)
+    try:
+        tmesh.init_process_group(MESH_BACKEND, rank=rank, world_size=world,
+                                 init_method=f"file://{store_path}",
+                                 device=dev)
+        res = {"collectives": gloo_check(world, dev)}
+        bad = {k: v for k, v in res["collectives"].items() if v != "ok"}
+        if bad.keys() & set(MESH_COLLECTIVES):
+            raise RuntimeError(f"gloo lacks a collective the mesh uses on "
+                               f"{dev.type} tensors: {bad}")
+        cfg = mesh_config(MESH_ARCH)
+        for name, shape, seqp, batch in MESH_MODES:
+            mesh = tmesh.mesh_of(shape, ("data", "model"), device_type)
+            if mesh.get_coordinate() is not None:
+                res[name] = mesh_serve(dev, cfg, mesh, seqp, batch)
+        mesh = tmesh.mesh_of(MESH_MOE_MESH, ("data", "model"), device_type)
+        res["moe"] = mesh_serve(dev, mesh_config(
+            MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_COMPUTE), mesh, False, 1,
+            features=False)
+        # numpy only through the queue (a tensor would travel as a file
+        # descriptor of a rank that may have exited); rank 0 sends the
+        # whole outputs
+        if rank != 0:
+            for v in res.values():
+                if isinstance(v, dict):
+                    v.pop("out", None)
+        q.put((rank, res))
+    except Exception:
+        q.put((rank, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_fault_path(rank: int) -> Path:
+    """Where lm_mesh's rank ``rank`` writes its stack if it crashes."""
+    return ROOT / "build" / f"lm_mesh_rank{rank}.fault"
+
+
+def run_mesh_world(device_type: str) -> dict:
+    """Spawn MESH_WORLD ranks (``spawn``, gloo, all on cuda:0 for "cuda")
+    on mesh_rank; {rank: record}. Every rank is joined under MESH_JOIN_S and
+    killed past it; a rank that dies without answering ends the wait at
+    once; a failed rank raises, with the stacks of any that crashed."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    store = ROOT / "build" / f"lm_mesh_store_{os.getpid()}"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(r, MESH_WORLD, str(store),
+                                                 device_type, q))
+             for r in range(MESH_WORLD)]
+    for p in procs:
+        p.start()
+    results, t0 = {}, time.perf_counter()
+    try:
+        while len(results) < MESH_WORLD \
+                and time.perf_counter() - t0 < MESH_JOIN_S:
+            try:
+                rank, res = q.get(timeout=5)
+                results[rank] = res
+            except queue_mod.Empty:
+                if any(p.exitcode for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=30)
+        store.unlink(missing_ok=True)
+    bad = {r: v for r, v in results.items() if isinstance(v, str)}
+    if bad:
+        raise AssertionError("lm_mesh ranks failed:\n" + "\n".join(
+            f"rank {r}:\n{v}" for r, v in sorted(bad.items())))
+    codes = [p.exitcode for p in procs]
+    if len(results) < MESH_WORLD or any(codes):
+        stacks = "".join(
+            f"\nrank {r}:\n{mesh_fault_path(r).read_text()[-3000:]}"
+            for r in range(MESH_WORLD) if mesh_fault_path(r).exists()
+            and mesh_fault_path(r).stat().st_size)
+        raise AssertionError(f"lm_mesh: ranks answered {sorted(results)}, "
+                             f"exit codes {codes}{stacks}")
+    return results
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want| (numpy arrays)."""
+    return float(np.abs(got - want).max()
+                 / max(float(np.abs(want).max()), 1e-30))
+
+
+def mesh_compare(single: dict, mesh: dict, what: str) -> dict:
+    """One mesh run's whole outputs against the single-rank run's, within
+    the limits; raises beyond them."""
+    s, m = single["out"], mesh["out"]
+    err = {"hidden": _rel_err(m["hidden"], s["hidden"]),
+           "prefill_logits": _rel_err(m["logits"], s["logits"]),
+           "decode_logits": [_rel_err(a, b) for a, b in
+                             zip(m["decode_logits"], s["decode_logits"])]}
+    if "features" in s:
+        err["features"] = _rel_err(m["features"], s["features"])
+    ok = (err["hidden"] <= MESH_HIDDEN_TOL
+          and err["prefill_logits"] <= MESH_LOGITS_TOL
+          and len(err["decode_logits"]) == MESH_DECODE
+          and max(err["decode_logits"]) <= MESH_LOGITS_TOL
+          and err.get("features", 0.0) <= MESH_LOGITS_TOL)
+    err["dispatch_equal"] = (m["prefill_dispatch"] == s["prefill_dispatch"]
+                             and m["decode_dispatch"]
+                             == s["decode_dispatch"])
+    if not ok or not err["dispatch_equal"]:
+        raise AssertionError(f"lm_mesh {what}: {err}")
+    return err
+
+
+def phase_lm_mesh(device) -> dict:
+    """The LM on a mesh (ROADMAP A13c-1): the single-rank runs on the card
+    (internlm2-1.8b at batch 1 and 2, qwen3-moe cut to 2 layers), then
+    one world of MESH_WORLD gloo ranks on the card runs each MESH_MODES
+    mesh and the MoE mesh; every mode within the limits against the
+    single-rank run, the flash kernel once a layer a prefill on each rank
+    in head mode, and held to its plain version (measure_flash, which
+    raises beyond FLASH_TOL) at rank 0's layer-0 inputs in head, data x
+    model and the MoE's float32 run. Returns the record."""
+    import torch
+    t_phase = time.perf_counter()
+    cfg = mesh_config(MESH_ARCH)
+    moe_cfg = mesh_config(MESH_MOE_ARCH, MESH_MOE_LAYERS, MESH_MOE_COMPUTE)
+    single = {b: mesh_serve(device, cfg, None, False, b)
+              for b in sorted({m[3] for m in MESH_MODES})}
+    single_moe = mesh_serve(device, moe_cfg, None, False, 1,
+                            features=False)
+    free_cuda()
+    world = run_mesh_world(device.type)
+    modes = {}
+    for name, shape, seqp, batch in MESH_MODES:
+        ranks = [r for r in sorted(world) if name in world[r]]
+        recs = [world[r][name]["record"] for r in ranks]
+        err = mesh_compare(single[batch], world[0][name], name)
+        want = cfg.num_layers if name in ("head", "data_model") else 0
+        launches = [r["prefill_flash_launches"] for r in recs]
+        flaunches = [r["feature_flash_launches"] for r in recs]
+        if launches != [want] * len(ranks) \
+                or flaunches != [want] * len(ranks) \
+                or any(r["decode_flash_launches"] for r in recs):
+            raise AssertionError(f"lm_mesh {name}: flash launches prefill "
+                                 f"{launches}, features {flaunches}, want "
+                                 f"{want} a rank")
+        modes[name] = {"mesh": list(shape), "seq_parallel": seqp,
+                       "batch": batch, "ranks": ranks,
+                       "attn_mode": recs[0]["mode"], "vs_single": err,
+                       "per_rank": recs}
+    # the kernel at the local heads the mesh gives it, after the world
+    # has exited (the card to this process alone)
+    kernel_at = {}
+    for name in ("head", "data_model", "moe"):
+        kin = world[0][name]["out"]["flash_inputs"]
+        if kin is None:
+            raise AssertionError(f"lm_mesh {name}: rank 0 made no flash "
+                                 f"call to check")
+        q, k, v, causal = kernel_inputs_of(kin, device)
+        kernel_at[name] = measure_flash(q, k, v, causal)
+        del q, k, v
+        free_cuda()
+    recs = [world[r]["moe"]["record"] for r in sorted(world)]
+    moe = {"arch": moe_cfg.name, "layers": moe_cfg.num_layers,
+           "full_layers": mesh_config(MESH_MOE_ARCH).num_layers,
+           "cut": f"depth {MESH_MOE_LAYERS} of "
+                  f"{mesh_config(MESH_MOE_ARCH).num_layers} layers",
+           "mesh": list(MESH_MOE_MESH), "experts": moe_cfg.num_experts,
+           "capacity_factor": moe_cfg.moe_capacity_factor,
+           "compute_dtype": moe_cfg.compute_dtype,
+           "vs_single": mesh_compare(single_moe, world[0]["moe"], "moe"),
+           "dispatch_counts_prefill": world[0]["moe"]["out"][
+               "prefill_dispatch"],
+           "per_rank": recs, "single": single_moe["record"]}
+    res = {"phase": "lm_mesh", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads,
+                                             cfg.num_kv_heads],
+           "param_dtype": cfg.param_dtype, "backend": MESH_BACKEND,
+           "backend_why": MESH_BACKEND_WHY, "world": MESH_WORLD,
+           "device": torch.cuda.get_device_name(0),
+           "collectives": {device.type: world[0]["collectives"]},
+           "tolerances": {"hidden": MESH_HIDDEN_TOL,
+                          "logits": MESH_LOGITS_TOL},
+           "single": {b: v["record"] for b, v in single.items()},
+           "modes": modes, "moe": moe,
+           "kernel_at_mesh_inputs": kernel_at,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
 SERVE_N = 64                 # requests of the bitwise HTTP check
 SERVE_CLIENTS = 8
 SERVE_REPEATS = 16           # of them re-sent: cache hits
@@ -5518,15 +6033,16 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "serve": phase_serve_only,
         "dino": phase_dino,
         "lm": phase_lm,
-        "lm_train": phase_lm_train}
+        "lm_train": phase_lm_train,
+        "lm_mesh": phase_lm_mesh}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
-    quantized, sharded, serve, dino, lm and lm_train, the kernels are
-    built and only
+    quantized, sharded, serve, dino, lm, lm_train and lm_mesh, the kernels
+    are built and only
     those phases run: the FLASH_CASES rows, the 400x400 extraction, the
     box scans at the main path's inputs, zone_candidates on synthetic zone
     maps, l2dist at the knn path's inputs, the batched device fit at full
@@ -5537,8 +6053,9 @@ def main(argv) -> int:
     engine, DINO training of the ViT-T at 64x64 and 400x400 (with its own
     16,384 synthetic patches to embed), the LM backbones' serving path
     (llama3-8b at full width and depth, every other architecture at full
-    width), LM training (internlm2-1.8b at full width and depth); for
-    comparing two trees on one card."""
+    width), LM training (internlm2-1.8b at full width and depth), the LM
+    on a mesh of 4 gloo ranks on the card (internlm2-1.8b and qwen3-moe
+    cut to 2 layers); for comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -5592,6 +6109,7 @@ def main(argv) -> int:
     ext400 = phase_extraction_400(dev)
     lm_rec = phase_lm(dev)
     train_rec = phase_lm_train(dev)
+    mesh_rec = phase_lm_mesh(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
     # the narrow route, at the use_fused=False batch's largest call
@@ -5661,7 +6179,21 @@ def main(argv) -> int:
                    "lm_train_step": train_rec["launches_per_step"][
                        "flash_attention"],
                    "lm_train_step_remat_none": train_rec[
-                       "remat_none_step"]["launches"]["flash_attention"]}}
+                       "remat_none_step"]["launches"]["flash_attention"],
+                   # each rank's launches of one 4,096-token prefill and
+                   # one lm_feature_fn call on the lm_mesh meshes (head
+                   # mode: its own heads; qseq / ctxpar: kvscan, none)
+                   "lm_mesh_prefill_per_rank": {
+                       name: [r["prefill_flash_launches"]
+                              for r in m["per_rank"]]
+                       for name, m in mesh_rec["modes"].items()},
+                   "lm_mesh_feature_fn_per_rank": {
+                       name: [r["feature_flash_launches"]
+                              for r in m["per_rank"]]
+                       for name, m in mesh_rec["modes"].items()},
+                   "lm_mesh_moe_prefill_per_rank": [
+                       r["prefill_flash_launches"]
+                       for r in mesh_rec["moe"]["per_rank"]]}}
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
     # batch, its dense batch, knn, dtree + rforest and use_fused=False
     for name in KERNELS:
@@ -5719,6 +6251,10 @@ def main(argv) -> int:
     # and at internlm2-1.8b's training step's (BH 16, S 4096, G 2, D 128,
     # causal, bf16)
     rows[-1]["lm_train"] = train_rec["kernel_at_train_inputs"]
+    # and at rank 0's layer-0 inputs on the lm_mesh meshes: internlm2's
+    # local heads in head (1, 4) and data x model (2, 2), bf16, and
+    # qwen3-moe's in float32 (G 16, D 128)
+    rows[-1]["lm_mesh"] = mesh_rec["kernel_at_mesh_inputs"]
     # the plain backward under ops.flash_attention's autograd Function (no
     # kernel yet: ROADMAP B5b), at each DINO step's shapes
     rows[-1]["attention_backward"] = {

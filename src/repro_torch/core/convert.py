@@ -41,7 +41,8 @@ from repro_torch.core.segments import SegmentedCatalog
 from repro_torch.device import resolve_device
 from repro_torch.features.dino import DinoState
 from repro_torch.features.vit import ViT, load_arrays
-from repro_torch.models.lm import LM
+from repro_torch.launch import sharding
+from repro_torch.models.lm import LM, place_param
 from repro_torch.models.rglru import LRUState
 from repro_torch.models.ssm import SSMState
 
@@ -245,13 +246,48 @@ def lm_arrays(params, cfg: ModelConfig) -> dict:
     return arrays
 
 
-def lm_from_numpy(params, cfg: ModelConfig, *, device=None) -> LM:
+def lm_from_numpy(params, cfg: ModelConfig, *, device=None, mesh=None,
+                  mode: str = "fsdp_tp") -> LM:
     """The port's LM holding the reference tree ``params`` ({embed,
     final_norm, unembed?, blocks: {slotN: stacked layer tree}, tail:
-    {layerN: layer tree}}, numpy leaves). ``device`` defaults to CUDA."""
-    model = LM(cfg, device=device)
-    load_arrays(model, lm_arrays(params, cfg))
+    {layerN: layer tree}}, numpy leaves). ``device`` defaults to CUDA.
+
+    ``mesh`` (a DeviceMesh): each parameter becomes this rank's shard, a
+    DTensor placed by ``launch.sharding.param_spec`` in ``mode``; only
+    the shard is converted and copied to ``device``, so no rank holds
+    the whole model."""
+    if mesh is None:
+        model = LM(cfg, device=device)
+        load_arrays(model, lm_arrays(params, cfg))
+        return model
+    dev = resolve_device(device)
+    arrays = lm_arrays(params, cfg)
+    model = LM(cfg, device="meta")
+    names = dict(model.named_parameters())
+    if set(arrays) != set(names):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(names) - set(arrays))}, unknown "
+                         f"{sorted(set(arrays) - set(names))}")
+    specs = sharding.lm_param_specs(model, cfg, mesh, mode)
+    for name, p in names.items():
+        a = np.asarray(arrays[name])
+        if a.shape != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{tuple(p.shape)}")
+        place_param(model, name, _F32View(a), specs[name], mesh,
+                    device=dev, dtype=p.dtype)
     return model
+
+
+class _F32View:
+    """A numpy array whose slices come out float32, as ``load_arrays``
+    converts: ``sharding.place`` cuts the shard before anything is."""
+
+    def __init__(self, a: np.ndarray):
+        self.a, self.shape = a, a.shape
+
+    def __getitem__(self, sl) -> np.ndarray:
+        return np.asarray(self.a[sl], np.float32)
 
 
 def load_tree(module: torch.nn.Module, tree) -> torch.nn.Module:

@@ -8,7 +8,8 @@ import torch
 def resolve_device(device=None) -> torch.device:
     """``None`` means CUDA. A CUDA device without CUDA raises: the port
     never carries on quietly on the CPU — pass ``device="cpu"`` for the
-    plain PyTorch versions."""
+    plain PyTorch versions. ``"meta"`` (shapes and dtypes only, nothing
+    allocated) is taken for the specs of ``launch.specs``."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -18,9 +19,9 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"repro_torch supports 'cuda' and 'cpu' devices, "
-                         f"got {dev}")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"repro_torch supports 'cuda' and 'cpu' devices "
+                         f"(and 'meta' for shapes), got {dev}")
     return dev
 
 

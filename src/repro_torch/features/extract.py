@@ -29,19 +29,18 @@ def vit_feature_fn(model: ViT) -> Callable[[torch.Tensor], torch.Tensor]:
     return fn
 
 
-def lm_feature_fn(model: lm.LM) -> Callable[[torch.Tensor], torch.Tensor]:
+def lm_feature_fn(model: lm.LM, ctx=None
+                  ) -> Callable[[torch.Tensor], torch.Tensor]:
     """tokens [B, S] on the model's device -> features [B, d_model] in
     the compute dtype: the final hidden state (after the final norm) of
     the causal LM, mean-pooled over the sequence — the arch-agnostic
-    feature head of the assigned architectures."""
+    feature head of the assigned architectures. ``ctx``: a
+    ``ParallelCtx`` with a mesh for a model placed on it; every rank
+    passes the whole batch and gets the whole [B, d_model]."""
 
     def fn(tokens: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
-            x = lm.embed_inputs(model, tokens, positions)
-            x, _, _ = lm._stack_forward(model, x, mode="train",
-                                        positions=positions)
-            return x.mean(dim=1)
+            return lm.features(model, tokens, ctx)
     return fn
 
 

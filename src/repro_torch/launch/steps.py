@@ -5,9 +5,12 @@ The factories close over the static config and return functions of
 (state or model, data), as the reference's do for its launchers. The
 train step runs eagerly (no ``torch.compile``) and updates the state in
 place: the model's parameters and the optimizer's moments are written by
-``AdamW.update`` under ``torch.no_grad()``. One device: a ``mesh`` other
-than None, and ``sharding_mode="zero3"``, are refused (the sharded LM is
-ROADMAP A13c).
+``AdamW.update`` under ``torch.no_grad()``.
+
+``make_parallel_ctx`` is the reference's, branch for branch, on a
+``DeviceMesh``. The prefill and decode steps run on a mesh (the model
+placed on it: ``lm.init_params(..., mesh=)``); the train step on a mesh
+and ``sharding_mode="zero3"`` are ROADMAP A13c-2 and are refused.
 """
 from __future__ import annotations
 
@@ -18,17 +21,38 @@ import torch
 from repro_torch.configs.base import ModelConfig, ServeConfig, TrainConfig
 from repro_torch.core.convert import lm_stacks
 from repro_torch.models import lm
-from repro_torch.models.common import torch_dtype
+from repro_torch.models.common import ParallelCtx, torch_dtype
 from repro_torch.train.optimizer import (AdamW, AdamWState,
                                          clip_by_global_norm,
                                          cosine_schedule)
 
 
-def _one_device(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the port's LM runs on one device; a mesh (sharded train, "
-            "prefill and decode steps, ParallelCtx's modes) is ROADMAP A13c")
+def make_parallel_ctx(mesh, tc: Optional[TrainConfig] = None,
+                      sv: Optional[ServeConfig] = None,
+                      cfg: Optional[ModelConfig] = None) -> ParallelCtx:
+    """The reference's context for ``mesh`` (a DeviceMesh or None):
+    ZeRO-3 (every axis data-parallel) for a zero3 train config on a mesh,
+    else tensor parallelism over `model`, context parallelism for
+    ``sv.seq_parallel`` on a dense, vlm or audio family."""
+    if tc is not None and tc.sharding_mode == "zero3" and mesh is not None:
+        # ZeRO-3: every mesh axis is data-parallel, no tensor parallelism
+        return ParallelCtx(
+            mesh=mesh,
+            dp_axes=tuple(mesh.mesh_dim_names),
+            tp_axis=None,
+            sequence_parallel=False,
+        )
+    seq_shard = bool(sv and sv.seq_parallel and cfg is not None
+                     and cfg.family in ("dense", "vlm", "audio"))
+    return ParallelCtx(
+        mesh=mesh,
+        dp_axes=tuple(a for a in (mesh.mesh_dim_names if mesh else ())
+                      if a in ("pod", "data")) or ("data",),
+        tp_axis="model",
+        sequence_parallel=bool(tc and tc.sequence_parallel),
+        decode_seq_parallel=(sv.decode_seq_parallel if sv else True),
+        seq_shard_acts=seq_shard,
+    )
 
 
 class TrainState(NamedTuple):
@@ -84,11 +108,11 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
     norm clipping and AdamW. ``metrics``: ``ce_loss`` and (M = 1 only, as
     the reference) ``load_balance``, then ``grad_norm`` and ``loss`` (=
     ``ce_loss``), 0-d tensors on the model's device (no host sync)."""
-    _one_device(mesh)
-    if tc.sharding_mode == "zero3":
+    if mesh is not None or tc.sharding_mode == "zero3":
         raise NotImplementedError(
-            "sharding_mode='zero3' shards the state over a mesh; the port "
-            "trains on one device (the mesh is ROADMAP A13c)")
+            "the train step on a mesh (and sharding_mode='zero3', which "
+            "shards the state over one) is ROADMAP A13c-2; the port trains "
+            "on one device")
     opt = None          # made at the first step: its stacks are the model's
     M = max(tc.microbatches, 1)
     acc_dt = torch_dtype(tc.grad_acc_dtype)
@@ -154,23 +178,29 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig,
 
 def make_prefill_step(cfg: ModelConfig, sv: ServeConfig,
                       mesh=None) -> Callable:
-    """prefill_step(model, inputs) -> (last logits, caches)."""
-    _one_device(mesh)
+    """prefill_step(model, inputs) -> (last logits, caches). On a mesh
+    the model is placed on it and every rank passes the whole batch;
+    ``prefill_step.ctx`` is the step's ParallelCtx (its ``comm`` counts
+    the collectives)."""
+    ctx = make_parallel_ctx(mesh, sv=sv, cfg=cfg)
 
     def prefill_step(model, inputs):
         if model.cfg != cfg:
             raise ValueError("the model was built for another config")
-        return lm.prefill(model, inputs, sv)
+        return lm.prefill(model, inputs, sv, ctx)
+    prefill_step.ctx = ctx
     return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, sv: ServeConfig,
                      mesh=None) -> Callable:
-    """decode_step(model, caches, token, pos) -> (logits, caches)."""
-    _one_device(mesh)
+    """decode_step(model, caches, token, pos) -> (logits, caches); on a
+    mesh as ``make_prefill_step``."""
+    ctx = make_parallel_ctx(mesh, sv=sv, cfg=cfg)
 
     def decode_step(model, caches, token, pos):
         if model.cfg != cfg:
             raise ValueError("the model was built for another config")
-        return lm.decode_step(model, caches, token, pos, sv)
+        return lm.decode_step(model, caches, token, pos, sv, ctx)
+    decode_step.ctx = ctx
     return decode_step

@@ -3,7 +3,7 @@
 
 Drives the Trainer with the real (full-size) config or the reduced one
 (--reduced, the CPU-friendly path), on one device: CUDA unless
-``--device cpu`` is given (a mesh is ROADMAP A13c). Checkpoints and
+``--device cpu`` is given (a mesh is ROADMAP A13c-2). Checkpoints and
 restarts work as the reference's; the printed line is the reference's.
 """
 from __future__ import annotations

@@ -12,16 +12,25 @@ runs its chunked online softmax (``kernels/flash_attention.py`` being
 hand-written CUDA kernel through ``kernels.ops.flash_attention`` (on the
 CPU, its plain version ``kernels/ref.flash_attention_ref``). The
 reference's routing is kept: a length that its (2048, 1024) chunks do
-not divide takes ``full_attention``. The reference's
-``flash_attention_kvscan`` (query-sequence-sharded tensor parallelism)
-belongs to the mesh, ROADMAP A13c.
+not divide takes ``full_attention``.
+
+On a mesh: ``flash_attention_kvscan`` is the reference's online softmax
+over KV chunks for the query rows this rank holds (query-sequence and
+context parallelism, ``lm.attn_parallel_mode`` "qseq" / "ctxpar"); the
+reference runs it as plain jnp, not Pallas, and the port as plain torch.
+``decode_attention`` over a KV cache sharded along the sequence
+(``seq_offset`` given) is flash-decoding: each rank's masked max, sum and
+weighted V over its slice, all-reduced in float32.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.kernels import ops
+from repro_torch.models.common import ParallelCtx, all_reduce
 
 NEG_INF = -1e30
 
@@ -79,6 +88,47 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return ops.flash_attention(q, k, v, causal=causal)
 
 
+def flash_attention_kvscan(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, causal: bool = True,
+                           kv_chunk: int = 1024,
+                           q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax over KV chunks with the query rows live: q [B, Sq,
+    Hq, D] at absolute positions ``q_offset`` .. ``q_offset + Sq - 1`` of
+    the sequence (the whole of it by default), k/v [B, S, Hkv, D] whole.
+    Every op is elementwise over query rows, so a rank that holds some
+    rows computes exactly their rows of the whole-q result. Where
+    ``kv_chunk`` does not divide S it takes ``full_attention`` (the
+    reference's routing)."""
+    b, sq, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if s % kv_chunk:
+        return full_attention(q, k, v, causal=causal, q_offset=q_offset)
+    f32 = torch.float32
+    qg = _group_heads(q, hkv).to(f32) * d ** -0.5          # [B,Sq,Hkv,G,D]
+    g = qg.shape[3]
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    acc = torch.zeros((b, hkv, g, sq, d), dtype=f32, device=q.device)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=f32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=f32, device=q.device)
+    for k0 in range(0, s, kv_chunk):
+        kc = k[:, k0:k0 + kv_chunk].to(f32)
+        vc = v[:, k0:k0 + kv_chunk].to(f32)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc)    # [B,H,G,Sq,kc]
+        if causal:
+            kpos = torch.arange(k0, k0 + kv_chunk, device=q.device)
+            sc = sc.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+        m_new = torch.maximum(m, sc.amax(-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                   p, vc)
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)       # [B,H,G,Sq,D]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, d)
+    return out.to(q.dtype)
+
+
 def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int, causal: bool = True) -> torch.Tensor:
     """Sliding-window attention via the two-block trick: position p
@@ -116,18 +166,34 @@ def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos, *,
+                     ctx: Optional[ParallelCtx] = None,
+                     seq_offset: Optional[int] = None) -> torch.Tensor:
     """q: [B, 1, Hq, D]; caches: [B, S, Hkv, D] valid up to ``pos``
-    (inclusive; a Python int, so the mask costs no host sync)."""
+    (inclusive; a Python int, so the mask costs no host sync).
+
+    ``seq_offset`` (on a mesh): the caches are this rank's slice, global
+    positions ``seq_offset`` .. ``seq_offset + S - 1``, of a cache sharded
+    along the sequence over ``ctx.tp_axis``; the scores' max and the
+    softmax's sum and weighted V are all-reduced over it in float32
+    (flash-decoding)."""
     b, _, hq, d = q.shape
     s, hkv = k_cache.shape[1], k_cache.shape[2]
+    sharded = ctx is not None and ctx.mesh is not None \
+        and seq_offset is not None
     qg = _group_heads(q, hkv)[:, 0]                  # [B, Hkv, G, D]
     scores = torch.einsum("bhgd,bkhd->bhgk", qg.to(torch.float32),
                           k_cache.to(torch.float32)) * d ** -0.5
-    valid = torch.arange(s, device=q.device) <= pos
-    scores = scores.masked_fill(~valid, NEG_INF)
+    kpos = torch.arange(s, device=q.device) + (seq_offset or 0)
+    scores = scores.masked_fill(~(kpos <= pos), NEG_INF)
     m = scores.amax(-1, keepdim=True)
+    if sharded:
+        m = all_reduce(m, ctx, ctx.tp_axis, "max")
     p = torch.exp(scores - m)
     out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.to(torch.float32))
-    out = out / p.sum(-1, keepdim=True)
+    denom = p.sum(-1, keepdim=True)
+    if sharded:
+        both = all_reduce(torch.cat([out, denom], -1), ctx, ctx.tp_axis)
+        out, denom = both[..., :d], both[..., d:]
+    out = out / denom
     return out.reshape(b, 1, hq, d).to(q.dtype)

@@ -1,18 +1,328 @@
 """Shared model building blocks (counterpart of ``repro.models.common``):
-the RMS norm, the MLP activations, RoPE and the initialisers.
+the distribution context, the RMS norm, the MLP activations, RoPE and
+the initialisers.
 
-The reference's ``ParallelCtx`` and ``mshard`` are no-ops on one device
-and are not ported: the port's LM runs on one device, and its mesh
-(sharded layers, ``ParallelCtx``'s modes) is ROADMAP A13c.
+``ParallelCtx`` has the reference's fields, holding a ``DeviceMesh`` (one
+process a mesh device, ``torch.distributed``) where the reference holds
+a ``jax.sharding.Mesh``; the reference's ``moe_impl`` and
+``moe_chunk_tokens`` are left out, since no layer of either package
+reads them. The reference's layers run under GSPMD: ``mshard`` is
+``with_sharding_constraint`` and XLA inserts the collectives, so a
+sharded run returns the single-device result. The port's layers
+compute on local shards with explicit collectives instead
+(``all_reduce``, ``all_gather``, ``gather_placed``), which ``ctx.comm``
+counts; ``mshard`` cuts this rank's shard out of a whole tensor. Without
+a mesh every one of them is a no-op and the layers run their single-
+device code.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from dataclasses import dataclass, field
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.compat import DeviceMesh, DTensor, Shard, all_gather_single
+from repro_torch.launch import sharding
+
+
+class CommStats:
+    """Calls and bytes of the collectives a context made on this rank,
+    by kind ("all_reduce", "all_gather"); a collective's bytes are those
+    of the buffer it fills on this rank."""
+
+    def __init__(self):
+        self.calls: Dict[str, int] = {}
+        self.bytes: Dict[str, int] = {}
+
+    def add(self, kind: str, t: torch.Tensor) -> None:
+        self.calls[kind] = self.calls.get(kind, 0) + 1
+        self.bytes[kind] = self.bytes.get(kind, 0) \
+            + t.numel() * t.element_size()
+
+    def reset(self) -> None:
+        self.calls.clear()
+        self.bytes.clear()
+
+    def snapshot(self) -> dict:
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes),
+                "total_bytes": sum(self.bytes.values())}
+
+
+@dataclass(frozen=True)
+class ParallelCtx:
+    """Distribution context threaded through every model call.
+
+    ``mesh is None`` means single-device: every collective and placement
+    is a no-op and the layers run their unsharded code."""
+
+    mesh: Optional[DeviceMesh] = None
+    dp_axes: Tuple[str, ...] = ("data",)
+    tp_axis: Optional[str] = "model"     # None => ZeRO-3 mode: the model
+    #                                      axis joins dp_axes; no tensor
+    #                                      parallelism, weights fully sharded
+    sequence_parallel: bool = False      # Megatron-SP residual sharding (train)
+    decode_seq_parallel: bool = True     # shard KV cache sequence over tp_axis
+    seq_shard_acts: bool = False         # context-parallel serving: shard
+    #                                      activations along SEQ over tp_axis
+    comm: CommStats = field(default_factory=CommStats, compare=False,
+                            repr=False)
+
+    @property
+    def dp(self) -> Optional[Tuple[str, ...]]:
+        return self.dp_axes if self.mesh is not None else None
+
+    @property
+    def tp_degree(self) -> int:
+        if self.mesh is None or self.tp_axis is None:
+            return 1
+        return self.size(self.tp_axis)
+
+    @property
+    def seq_axis(self) -> Optional[str]:
+        return self.tp_axis if self.seq_shard_acts else None
+
+    def _axes(self, axes) -> Tuple[str, ...]:
+        if axes is None or self.mesh is None:
+            return ()
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in axes if a in self.mesh.mesh_dim_names)
+
+    def size(self, axes) -> int:
+        """Ranks along ``axes`` (an axis name, a tuple of them, or None)."""
+        n = 1
+        for a in self._axes(axes):
+            n *= self.mesh.size(self.mesh.mesh_dim_names.index(a))
+        return n
+
+    def index(self, axes) -> int:
+        """This rank's index along ``axes``, the first axis major."""
+        i = 0
+        for a in self._axes(axes):
+            m = self.mesh.mesh_dim_names.index(a)
+            i = i * self.mesh.size(m) + self.mesh.get_local_rank(m)
+        return i
+
+
+class Layout(NamedTuple):
+    """Where a [B, S, ...] activation lives on the mesh: its global batch
+    ``b``, sharded over the axes ``bax`` (the largest prefix of the batch
+    axes that divides it, as ``sharding.batch_shardings`` places a
+    batch), its global length ``s``, sharded over ``seq_axis`` (or not)."""
+    b: int
+    bax: Tuple[str, ...]
+    s: int
+    seq_axis: Optional[str] = None
+
+
+def layout(ctx: ParallelCtx, b: int, s: int,
+           seq_axis: Optional[str] = None) -> Layout:
+    bax = sharding._dp_for(b, ctx.mesh) or ()
+    return Layout(b, tuple(a for a in bax if a in ctx.dp_axes), s,
+                  seq_axis if s > 1 else None)
+
+
+def rows(ctx: ParallelCtx, n: int, axes) -> Tuple[int, int]:
+    """[lo, hi) of this rank's block when ``n`` is split over ``axes``."""
+    return sharding.split(n, ctx.size(axes), ctx.index(axes))
+
+
+def mshard(x: torch.Tensor, ctx: ParallelCtx, *spec) -> torch.Tensor:
+    """This rank's block of ``x`` (the whole tensor, alike on every rank)
+    under ``spec`` (one entry a dim: None or the axes sharding it); ``x``
+    itself without a mesh."""
+    if ctx.mesh is None:
+        return x
+    for d, axes in enumerate(spec):
+        if axes is not None and ctx.size(axes) > 1:
+            lo, hi = rows(ctx, x.shape[d], axes)
+            x = x.narrow(d, lo, hi - lo)
+    return x
+
+
+def all_reduce(x: torch.Tensor, ctx: ParallelCtx, axes,
+               op: str = "sum") -> torch.Tensor:
+    """``x`` reduced ("sum" or "max") over the ranks along ``axes``."""
+    ax = [a for a in ctx._axes(axes) if ctx.size(a) > 1]
+    if not ax:
+        return x
+    x = x.contiguous()
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    for a in ax:
+        dist.all_reduce(x, op=red, group=ctx.mesh.get_group(a))
+        ctx.comm.add("all_reduce", x)
+    return x
+
+
+def _gather_axis(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int,
+                 total: Optional[int] = None,
+                 comm: Optional[CommStats] = None) -> torch.Tensor:
+    """The blocks of ``x`` of the ranks along mesh axis ``axis``
+    concatenated along ``dim`` by one all-gather into a tensor;
+    ``total``: the whole length, where the blocks are of
+    ``sharding.split``'s uneven sizes (each padded to the longest for the
+    collective, the pads dropped after)."""
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if n == 1:
+        return x
+    width, sizes = x.shape[dim], None
+    if total is not None and total % n:
+        sizes = [hi - lo for lo, hi in (sharding.split(total, n, r)
+                                        for r in range(n))]
+        width = max(sizes)
+    xt = x.movedim(dim, 0)
+    if xt.shape[0] < width:
+        pad = xt.new_zeros((width - xt.shape[0],) + tuple(xt.shape[1:]))
+        xt = torch.cat([xt, pad])
+    xt = xt.contiguous()
+    out = xt.new_empty((n * width,) + tuple(xt.shape[1:]))
+    all_gather_single(out, xt, mesh.get_group(axis))
+    if comm is not None:
+        comm.add("all_gather", out)
+    if sizes:
+        out = torch.cat([out[r * width:r * width + sizes[r]]
+                         for r in range(n)])
+    return out.movedim(0, dim)
+
+
+def all_gather(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int,
+               total: Optional[int] = None) -> torch.Tensor:
+    """The blocks of the ranks along ``axes`` concatenated along ``dim``
+    (the inverse of ``mshard``), minor axis first; ``total``: the whole
+    length, where the blocks are of ``sharding.split``'s uneven sizes."""
+    ax = [a for a in ctx._axes(axes) if ctx.size(a) > 1]
+    for a in reversed(ax):
+        x = _gather_axis(x, ctx.mesh, a, dim, total if len(ax) == 1
+                         else None, ctx.comm)
+    return x
+
+
+def local(t) -> torch.Tensor:
+    """A DTensor's shard on this rank (a plain tensor as it is)."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def gather_placed(t, ctx: Optional[ParallelCtx] = None,
+                  keep: Sequence[str] = ()) -> torch.Tensor:
+    """A DTensor placed by the rules (a parameter, a cache leaf, the
+    logits): its shard on this rank with the dims of every mesh axis not
+    in ``keep`` gathered, minor axis first — the FSDP all-gather around a
+    weight's use; with ``keep=()`` the whole tensor. ``ctx.comm`` (where
+    given) counts the collectives. A plain tensor passes through.
+
+    The gathers are the port's own all-gathers into a tensor, not
+    DTensor's ``redistribute`` / ``full_tensor``: those wait on
+    functional collectives, which crash the process under gloo on CUDA
+    tensors (torch 2.11, the card's), the backend of a world on one
+    card."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh, names = t.device_mesh, t.device_mesh.mesh_dim_names
+    x = t.to_local()
+    for m in reversed(range(len(names))):
+        pl = t.placements[m]
+        if names[m] in keep or not isinstance(pl, Shard):
+            continue
+        if any(names[k] in keep and t.placements[k] == pl
+               for k in range(m + 1, len(names))):
+            raise ValueError(f"cannot gather {names[m]} of dim {pl.dim} "
+                             f"while keeping a minor axis of it sharded")
+        x = _gather_axis(x, mesh, names[m], pl.dim,
+                         comm=None if ctx is None else ctx.comm)
+    return x
+
+
+def sharded_dim(p, axis: Optional[str]) -> Optional[int]:
+    """The tensor dim that mesh axis ``axis`` shards in DTensor ``p``
+    (None: replicated over it, or a plain tensor)."""
+    if not isinstance(p, DTensor) \
+            or axis not in p.device_mesh.mesh_dim_names:
+        return None
+    m = p.device_mesh.mesh_dim_names.index(axis)
+    pl = p.placements[m]
+    return pl.dim if pl.is_shard() else None
+
+
+def gathered(module: nn.Module, names: Sequence[str], ctx: ParallelCtx,
+             keep: Sequence[str] = ()):
+    """A stand-in for ``module`` whose attributes ``names`` are its
+    parameters gathered by ``gather_placed`` (None stays None), for the
+    layer functions that read ``p.<name>``."""
+    from types import SimpleNamespace
+    return SimpleNamespace(**{
+        n: None if getattr(module, n) is None
+        else gather_placed(getattr(module, n), ctx, keep) for n in names})
+
+
+def matmul(x: torch.Tensor, w, ctx: ParallelCtx) -> torch.Tensor:
+    """``x @ w`` for ``x`` alike on every rank of ``ctx.tp_axis`` and a
+    weight [K, N] placed by the rules; the result alike on every rank.
+    Where the rule shards w's columns over the model axis it is column-
+    parallel (each rank its columns, then an all-gather), where it shards
+    its rows row-parallel (each rank its rows of K, then an all-reduce);
+    a weight replicated over the axis is used whole."""
+    tp = ctx.tp_axis
+    d = sharded_dim(w, tp)
+    wl = gather_placed(w, ctx, keep=(tp,) if d is not None else ())
+    if d == 1:
+        return all_gather(x @ wl.to(x.dtype), ctx, tp, -1, w.shape[1])
+    if d == 0:
+        lo, hi = rows(ctx, w.shape[0], tp)
+        return all_reduce(x[..., lo:hi] @ wl.to(x.dtype), ctx, tp)
+    return x @ wl.to(x.dtype)
+
+
+def row_out(h: torch.Tensor, w, ctx: ParallelCtx) -> torch.Tensor:
+    """``h @ w`` for ``h`` [..., K] split along K over ``ctx.tp_axis``
+    (``rows``' blocks, as a column-parallel product leaves it) and a
+    weight [K, N] placed by the rules; the result alike on every rank.
+    A weight whose rows the rule shards over the axis is row-parallel
+    (an all-reduce). One whose columns it shards (the MLPs' ``w_out``) is
+    used by whichever moves fewer bytes: with fewer tokens than N, ``h``
+    is gathered and the product is column-parallel; else the weight is
+    gathered whole and its rows for this rank's block of K taken."""
+    tp = ctx.tp_axis
+    d = sharded_dim(w, tp)
+    k, n = w.shape
+    if d == 0:
+        wl = gather_placed(w, ctx, keep=(tp,))
+        return all_reduce(h @ wl.to(h.dtype), ctx, tp)
+    if d == 1 and h.numel() // h.shape[-1] < n:
+        hf = all_gather(h, ctx, tp, -1, k)
+        wl = gather_placed(w, ctx, keep=(tp,))
+        return all_gather(hf @ wl.to(h.dtype), ctx, tp, -1, n)
+    lo, hi = rows(ctx, k, tp)
+    wf = gather_placed(w, ctx)
+    return all_reduce(h @ wf[lo:hi].to(h.dtype), ctx, tp)
+
+
+def to_cache(t: torch.Tensor, name: str, ctx: ParallelCtx, b: int,
+             seq_parallel: bool = True) -> DTensor:
+    """A cache leaf ``name`` (k, v, conv, ssd or h) that holds this rank's
+    batch rows of a global batch ``b`` and is whole in every other dim, as
+    the DTensor ``sharding.cache_spec`` places it: the leaf's model-axis
+    block cut out."""
+    shape = (b,) + tuple(t.shape[1:])
+    spec = sharding.cache_spec(name, shape, ctx.mesh, seq_parallel)
+    sh = sharding.NamedSharding(ctx.mesh, spec)
+    for d in range(1, len(spec)):
+        if spec[d] is not None:
+            t = mshard(t, ctx, *([None] * d + [spec[d]]))
+    return sharding.from_local(t.contiguous(), sh, shape)
+
+
+def from_cache(t, ctx: ParallelCtx) -> torch.Tensor:
+    """A cache leaf's rows of this rank's batch, whole in every other dim
+    (``to_cache``'s inverse)."""
+    return gather_placed(t, ctx, ctx.dp_axes)
+
+
+# ----------------------------------------------------------------------
+# numerics
+# ----------------------------------------------------------------------
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)``, computed in float32

@@ -10,9 +10,16 @@ expert), as the reference's, so the integers of a dispatch
 reference's bit for bit: top-k takes the lower expert index on a tie, as
 ``lax.top_k`` does (a stable descending sort, where ``torch.topk``
 promises no order), and segments start where ``searchsorted(side=
-"left")`` puts them. Expert weights are [E, d, ff]. One device: the
-reference's expert-parallel sharding constraints are the mesh's (ROADMAP
-A13c).
+"left")`` puts them. Expert weights are [E, d, ff].
+
+On a mesh (``ctx.mesh``) the expert banks are sharded over the model
+axis (expert parallelism; the larger of their two matrix dims over the
+data axis, gathered around use). Every rank routes the same tokens the
+reference's group holds (a flat group of the whole batch is all-gathered
+over the data axes first), so the dispatch's integers are the single-
+device ones; each rank runs its own experts' buckets, and the combine
+sums each rank's experts' contributions by an all-reduce over the model
+axis. Banks the model axis does not divide run whole on every rank.
 
 Router jitter (training only: ``lm.forward_train`` passes each layer its
 own ``torch.Generator``; prefill and decode pass none and never draw)
@@ -30,7 +37,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.common import activation, fill_dense_, param
+from repro_torch.models.common import (Layout, ParallelCtx, activation,
+                                       all_gather, all_reduce, fill_dense_,
+                                       gathered, mshard, param, rows,
+                                       sharded_dim)
 from repro_torch.models.mlp import MLP, mlp as dense_mlp
 
 
@@ -103,10 +113,11 @@ def top_k(probs: torch.Tensor, k: int):
 
 def _dispatch_group(p: MoE, xt: torch.Tensor, *, k: int, c: int,
                     noise: Optional[torch.Tensor] = None) -> Dispatch:
-    """Sort-based dispatch for ONE token group. xt: [T, d]; ``noise``:
-    the router jitter [T, E] added to the logits, or None."""
+    """Sort-based dispatch for ONE token group. xt: [T, d]; ``p``: the
+    MoE (only its ``router`` [d, E] is read); ``noise``: the router
+    jitter [T, E] added to the logits, or None."""
     t, d = xt.shape
-    e = p.w_in.shape[0]
+    e = p.router.shape[1]
     dev = xt.device
     logits = xt.to(torch.float32) @ p.router                   # [T, E]
     if noise is not None:
@@ -145,12 +156,17 @@ def _dispatch_group(p: MoE, xt: torch.Tensor, *, k: int, c: int,
                     safe_rank, keep, expert_idx, lb, rz)
 
 
-def _combine_group(out_b: torch.Tensor, disp: Dispatch,
-                   t: int) -> torch.Tensor:
+def _combine_group(out_b: torch.Tensor, disp: Dispatch, t: int,
+                   e0: int = 0) -> torch.Tensor:
     """[E, C, d] expert outputs -> [T, d]: each kept (token, expert) pair
-    weighted by its gate, summed per token in sorted order."""
-    contrib = out_b[disp.sorted_expert, disp.safe_rank]        # [T*k, d]
-    contrib = contrib * (disp.sorted_gate * disp.keep)[:, None].to(
+    weighted by its gate, summed per token in sorted order. ``e0``: out_b
+    holds experts e0 .. e0 + len(out_b) - 1 only; the other experts'
+    pairs add 0."""
+    e = out_b.shape[0]
+    mine = (disp.sorted_expert >= e0) & (disp.sorted_expert < e0 + e)
+    idx = (disp.sorted_expert - e0).clamp(0, e - 1)
+    contrib = out_b[idx, disp.safe_rank]                       # [T*k, d]
+    contrib = contrib * (disp.sorted_gate * disp.keep * mine)[:, None].to(
         contrib.dtype)
     y = torch.zeros((t, out_b.shape[-1]), dtype=out_b.dtype,
                     device=out_b.device)
@@ -188,8 +204,9 @@ def _experts(p: MoE, buckets: torch.Tensor, act_name: str) -> torch.Tensor:
 
 def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
             act_name: str, capacity_factor: float = 1.25,
-            router_jitter: float = 0.0, rng=None, seq_chunk: int = 4096
-            ) -> Tuple[torch.Tensor, dict]:
+            router_jitter: float = 0.0, rng=None, seq_chunk: int = 4096,
+            ctx: Optional[ParallelCtx] = None,
+            lay: Optional[Layout] = None) -> Tuple[torch.Tensor, dict]:
     """x: [B, S, d] -> (y [B, S, d], {"load_balance", "router_z"}).
     ``rng``: a torch.Generator on x's device, drawn from (one [T, E]
     draw a chunk, in chunk order) where ``router_jitter`` is non-zero.
@@ -198,13 +215,30 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
     <= 16384 or B == 1 (decode and short prefills), else one group per
     batch row with S cut into ``seq_chunk`` chunks where it divides S.
     The capacity is the group's (or chunk's) own; the statistics are
-    means over groups and chunks."""
+    means over groups and chunks.
+
+    ``ctx`` / ``lay`` (a mesh): x is this rank's rows of a batch of
+    ``lay.b`` (B above is the global batch); a flat group is gathered
+    whole on every rank, the rows' own groups are routed where they
+    are; each rank runs its experts of the bank."""
     b, s, d = x.shape
+    mesh = ctx is not None and ctx.mesh is not None
+    big_b = lay.b if mesh else b
     e = p.w_in.shape[0]
     k = experts_per_token
-    if b * s <= 16384 or b == 1:
-        groups, gs, chunks = 1, b * s, 1
-        xg = x.reshape(1, b * s, d)
+    banks, router, e0 = p, p, 0
+    if mesh:
+        tp = ctx.tp_axis
+        names = ("w_in", "w_gate", "w_out")
+        banks = gathered(p, names, ctx, keep=(tp,))
+        if sharded_dim(p.w_in, tp) == 0:
+            e0 = rows(ctx, e, tp)[0]
+        router = gathered(p, ("router",), ctx)
+    flat = big_b * s <= 16384 or big_b == 1
+    if flat:
+        xa = all_gather(x, ctx, lay.bax, 0) if mesh else x
+        groups, gs, chunks = 1, big_b * s, 1
+        xg = xa.reshape(1, big_b * s, d)
     else:
         groups, gs = b, s
         xg = x
@@ -222,9 +256,10 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
         yc, lbc, rzc = [], [], []
         for gi in range(groups):
             xt = xg[gi, ci * tc:(ci + 1) * tc]
-            disp = _dispatch_group(p, xt, k=k, c=c, noise=noise)
-            out_b = _experts(p, disp.buckets, act_name)
-            yc.append(_combine_group(out_b, disp, tc))
+            disp = _dispatch_group(router, xt, k=k, c=c, noise=noise)
+            el = banks.w_in.shape[0]
+            out_b = _experts(banks, disp.buckets[e0:e0 + el], act_name)
+            yc.append(_combine_group(out_b, disp, tc, e0))
             lbc.append(disp.lb)
             rzc.append(disp.rz)
         ys.append(torch.stack(yc))                            # [G, Tc, d]
@@ -233,9 +268,14 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
     y = torch.cat(ys, dim=1) if chunks > 1 else ys[0]
     aux = {"load_balance": torch.stack(lbs).mean(),
            "router_z": torch.stack(rzs).mean()}
+    if mesh:
+        if banks.w_in.shape[0] < e:
+            y = all_reduce(y, ctx, ctx.tp_axis)
+        if flat:
+            y = mshard(y.reshape(big_b, s, d), ctx, lay.bax)
     y = y.reshape(b, s, d)
     if p.shared is not None:
-        y = y + dense_mlp(p.shared, x, act_name)
+        y = y + dense_mlp(p.shared, x, act_name, ctx)
     return y, aux
 
 

@@ -14,6 +14,13 @@ an inclusive scan of the pairs (a, b) under (a1, b1) . (a2, b2) = (a1 a2,
 a2 b1 + b2), as the reference's ``jax.lax.associative_scan``; the port
 combines in log2(S) doubling steps (Hillis-Steele), which associates the
 products in another order than the reference's tree. Decode is one step.
+
+On a mesh (``ctx.mesh``) the parameters and states are placed by the
+rules (the width over model, the input projections also over data), but
+the reference puts no sharding constraint inside the block, so the port
+gathers what the block needs: every parameter whole and the state whole
+for this rank's batch rows, computes the block replicated over the
+model axis, and places the new state back by the cache rule.
 """
 from __future__ import annotations
 
@@ -24,8 +31,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import (fill_dense_, fill_normal_,
-                                       fill_uniform_, gelu, param)
+from repro_torch.models.common import (Layout, ParallelCtx, fill_dense_,
+                                       fill_normal_, fill_uniform_,
+                                       from_cache, gathered, gelu, param,
+                                       to_cache)
 
 _C = 8.0
 
@@ -116,7 +125,7 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
-def rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+def _rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
                   state: Optional[LRUState] = None
                   ) -> Tuple[torch.Tensor, Optional[LRUState]]:
     """x: [B, S, d] -> (y [B, S, d], final state; None without a state
@@ -141,7 +150,7 @@ def rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
     return y, new_state
 
 
-def rglru_decode_step(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+def _rglru_decode_step(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
                       state: LRUState) -> Tuple[torch.Tensor, LRUState]:
     """x: [B, 1, d]."""
     gate = gelu(x @ p.w_gate.to(x.dtype))
@@ -162,3 +171,45 @@ def init_lru_state(cfg: ModelConfig, batch: int, dtype,
     return LRUState(
         conv=torch.zeros((batch, 3, w), dtype=dtype, device=device),
         h=torch.zeros((batch, w), dtype=torch.float32, device=device))
+
+
+def _gathered(p: RGLRU, state, ctx: ParallelCtx):
+    """The block's parameters whole, and its state whole for this rank's
+    batch rows."""
+    whole = gathered(p, tuple(n for n, _ in p.named_parameters()), ctx)
+    if state is not None:
+        state = LRUState(*(from_cache(t, ctx) for t in state))
+    return whole, state
+
+
+def _placed(state, ctx: ParallelCtx, lay: Layout):
+    if state is None:
+        return None
+    return LRUState(*(to_cache(t, n, ctx, lay.b)
+                    for n, t in zip(LRUState._fields, state)))
+
+
+def rglru_forward(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+                  state: Optional[LRUState] = None,
+                  ctx: Optional[ParallelCtx] = None,
+                  lay: Optional[Layout] = None):
+    """x: [B, S, d_model] -> (y, final state; None without a state in).
+    On a mesh (``ctx``, ``lay``): x is this rank's batch rows, the state
+    a placed one (or this rank's rows, whole)."""
+    if ctx is None or ctx.mesh is None:
+        return _rglru_forward(p, x, cfg, state)
+    whole, state = _gathered(p, state, ctx)
+    y, new = _rglru_forward(whole, x, cfg, state)
+    return y, _placed(new, ctx, lay)
+
+
+def rglru_decode_step(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
+                      state: LRUState, ctx: Optional[ParallelCtx] = None,
+                      lay: Optional[Layout] = None):
+    """x: [B, 1, d_model]; one step of the state. On a mesh as
+    ``rglru_forward``."""
+    if ctx is None or ctx.mesh is None:
+        return _rglru_decode_step(p, x, cfg, state)
+    whole, state = _gathered(p, state, ctx)
+    y, new = _rglru_decode_step(whole, x, cfg, state)
+    return y, _placed(new, ctx, lay)

@@ -4,6 +4,14 @@
 Chunked SSD for train / prefill (a loop over sequence chunks carrying
 the [B, nh, hd, N] state), O(S * L) with chunk L; O(1)-state
 single-token decode. ngroups = 1 (B/C shared across heads).
+
+On a mesh (``ctx.mesh``) the parameters and states are placed by the
+rules (``in_proj`` / ``out_proj`` over data and model, the state's
+channels and heads over model), but the reference puts no sharding
+constraint inside the block, so the port gathers what the block needs:
+every parameter whole and the state whole for this rank's batch rows,
+computes the block replicated over the model axis, and places the new
+state back by the cache rule.
 """
 from __future__ import annotations
 
@@ -14,7 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import fill_dense_, fill_normal_, param
+from repro_torch.models.common import (Layout, ParallelCtx, fill_dense_,
+                                       fill_normal_, from_cache, gathered,
+                                       param, to_cache)
 
 
 class SSMState(NamedTuple):
@@ -96,7 +106,7 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return (y * (1.0 + scale.to(torch.float32))).to(z.dtype)
 
 
-def ssd_forward(p: SSD, x: torch.Tensor, cfg: ModelConfig,
+def _ssd_forward(p: SSD, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[SSMState] = None
                 ) -> Tuple[torch.Tensor, Optional[SSMState]]:
     """x: [B, S, d_model] -> (y, final state; None without a state in).
@@ -173,7 +183,7 @@ def ssd_forward(p: SSD, x: torch.Tensor, cfg: ModelConfig,
     return out, new_state
 
 
-def ssd_decode_step(p: SSD, x: torch.Tensor, cfg: ModelConfig,
+def _ssd_decode_step(p: SSD, x: torch.Tensor, cfg: ModelConfig,
                     state: SSMState) -> Tuple[torch.Tensor, SSMState]:
     """x: [B, 1, d_model], O(1) state update."""
     b = x.shape[0]
@@ -206,3 +216,45 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype,
                          dtype=dtype, device=device),
         ssd=torch.zeros((batch, cfg.ssm_heads, cfg.ssm_head_dim,
                          cfg.ssm_state), dtype=torch.float32, device=device))
+
+
+def _gathered(p: SSD, state, ctx: ParallelCtx):
+    """The block's parameters whole, and its state whole for this rank's
+    batch rows."""
+    whole = gathered(p, tuple(n for n, _ in p.named_parameters()), ctx)
+    if state is not None:
+        state = SSMState(*(from_cache(t, ctx) for t in state))
+    return whole, state
+
+
+def _placed(state, ctx: ParallelCtx, lay: Layout):
+    if state is None:
+        return None
+    return SSMState(*(to_cache(t, n, ctx, lay.b)
+                    for n, t in zip(SSMState._fields, state)))
+
+
+def ssd_forward(p: SSD, x: torch.Tensor, cfg: ModelConfig,
+                state: Optional[SSMState] = None,
+                ctx: Optional[ParallelCtx] = None,
+                lay: Optional[Layout] = None):
+    """x: [B, S, d_model] -> (y, final state; None without a state in).
+    On a mesh (``ctx``, ``lay``): x is this rank's batch rows, the state
+    a placed one (or this rank's rows, whole)."""
+    if ctx is None or ctx.mesh is None:
+        return _ssd_forward(p, x, cfg, state)
+    whole, state = _gathered(p, state, ctx)
+    y, new = _ssd_forward(whole, x, cfg, state)
+    return y, _placed(new, ctx, lay)
+
+
+def ssd_decode_step(p: SSD, x: torch.Tensor, cfg: ModelConfig,
+                    state: SSMState, ctx: Optional[ParallelCtx] = None,
+                    lay: Optional[Layout] = None):
+    """x: [B, 1, d_model]; one step of the state. On a mesh as
+    ``ssd_forward``."""
+    if ctx is None or ctx.mesh is None:
+        return _ssd_decode_step(p, x, cfg, state)
+    whole, state = _gathered(p, state, ctx)
+    y, new = _ssd_decode_step(whole, x, cfg, state)
+    return y, _placed(new, ctx, lay)

@@ -14,7 +14,7 @@ smaller than float32.
 
 Trees are dicts {name: tensor}. The cross-pod mean
 (``compressed_cross_pod_mean``) reduces over a mesh axis and is ROADMAP
-A13c: the port trains on one device.
+A13c-2: the port trains on one device.
 """
 from __future__ import annotations
 
@@ -68,10 +68,10 @@ class Int8ErrorFeedback:
 def compressed_cross_pod_mean(grads: Tree, ef: Tree, mesh,
                               axis: str = "pod"):
     """The reference's shard_map mean over the ``pod`` axis: a mesh,
-    ROADMAP A13c."""
+    ROADMAP A13c-2."""
     raise NotImplementedError(
         "compressed_cross_pod_mean reduces over a mesh axis; the port "
-        "trains on one device (the mesh is ROADMAP A13c)")
+        "trains on one device (training on a mesh is ROADMAP A13c-2)")
 
 
 def compression_ratio(grads: Tree) -> float:

@@ -1,37 +1,80 @@
-"""Failure handling — counterpart of ``repro.train.elastic``.
+"""Elastic scaling + failure handling — counterpart of
+``repro.train.elastic``.
 
-Straggler / preemption utilities used by the Trainer:
+On node loss the job restarts on the surviving ranks: the mesh is
+rebuilt with ``elastic_mesh_shape`` over a sub-group of the world (world
+ranks 0 .. n - 1) and the latest checkpoint is resharded onto it.
+Because checkpoints are stored as full logical arrays (host tensors,
+topology-independent) the reshard is a placement, ``sharding.place``
+with the new mesh's shardings: each rank cuts its own shard, no per-shard
+stitching. The Trainer's use of it (a sharded restore) is ROADMAP A13c-2.
+
+Also here: straggler/preemption utilities used by the Trainer:
   * ``Heartbeat``   — per-step deadline monitor (straggler detection);
   * ``Preemption``  — SIGTERM-triggered save-and-exit flag.
-
-The elastic half (``remesh``, ``reshard_state``,
-``simulate_failure_and_restart``: rebuild a smaller mesh from the
-surviving devices and reshard the checkpoint onto it) needs a mesh, which
-is ROADMAP A13c; each raises NotImplementedError.
 """
 from __future__ import annotations
 
 import signal
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable, Tuple
 
-_MESH = ("{} rebuilds or reshards onto a device mesh; the port trains on "
-         "one device (the mesh is ROADMAP A13c)")
+import torch
 
-
-def remesh(n_devices: int, model_axis: int = 16):
-    raise NotImplementedError(_MESH.format("remesh"))
-
-
-def reshard_state(state, shardings):
-    raise NotImplementedError(_MESH.format("reshard_state"))
+from repro_torch.compat import DeviceMesh
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import elastic_mesh_shape, mesh_of
+from repro_torch.models.common import gather_placed
 
 
-def simulate_failure_and_restart(state, make_shardings, *, old_mesh,
-                                 surviving_devices: int,
-                                 model_axis: int = 1):
-    raise NotImplementedError(_MESH.format("simulate_failure_and_restart"))
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, lists and tuples (named
+    ones too), ``rest`` trees of the same structure alongside."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_tree_map(fn, v, *(r[i] for r in rest))
+               for i, v in enumerate(tree)]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    return fn(tree, *rest)
+
+
+def remesh(n_devices: int, model_axis: int = 16,
+           device_type: str = "cuda") -> DeviceMesh:
+    """The largest (data, model) mesh from the surviving ranks 0 ..
+    n_devices - 1 of the world (every rank of the world calls it)."""
+    return mesh_of(elastic_mesh_shape(n_devices, model_axis),
+                   ("data", "model"), device_type)
+
+
+def reshard_state(state: Any, shardings: Any) -> Any:
+    """Place a host-side (full logical) tree onto new shardings (a tree
+    of ``sharding.NamedSharding`` of the same structure) — the elastic-
+    restart data path. Leaves become DTensors on the shardings' mesh
+    (None on a rank outside it)."""
+    def put(x, sh):
+        return sharding.place(x, sh, device=torch.device(
+            sh.mesh.device_type))
+    return _tree_map(put, state, shardings)
+
+
+def simulate_failure_and_restart(
+    state: Any,
+    make_shardings: Callable[[DeviceMesh], Any],
+    *,
+    old_mesh: DeviceMesh,
+    surviving_devices: int,
+    model_axis: int = 1,
+) -> Tuple[DeviceMesh, Any]:
+    """Test harness for the elastic path: take a sharded state (a tree of
+    DTensors), 'lose' ranks, rebuild a smaller mesh and reshard. Returns
+    (mesh, state); every rank of the old mesh calls it."""
+    host_state = _tree_map(lambda x: gather_placed(x).cpu(), state)
+    new_mesh = remesh(surviving_devices, model_axis, old_mesh.device_type)
+    return new_mesh, reshard_state(host_state, make_shardings(new_mesh))
 
 
 class Preemption:

@@ -7,7 +7,7 @@ Composes the substrate:
   checkpoint.CheckpointManager (atomic, async)
   elastic.{Preemption, Heartbeat}
 
-One device (CUDA unless ``device="cpu"``); a mesh is ROADMAP A13c.
+One device (CUDA unless ``device="cpu"``); a mesh is ROADMAP A13c-2.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ after the prefill at S = 32 and 64 take each package's flash attention
 (the port's is the CUDA kernel's plain version on the CPU), counted in
 both. The clamped decode write (position S without ``pad_caches``
 overwrites slot S - 1 in both packages), ``make_prefill_step`` /
-``make_decode_step`` (a mesh is refused), caches handed both ways
+``make_decode_step`` (a model not placed on a step's mesh is refused),
+caches handed both ways
 between the packages, bf16 parameters carried across bitwise, the
 reference's prefill-then-decode consistency (tests/test_arch_smoke.py)
 run on the port, and the entry points refusing the CPU unless asked.
@@ -18,6 +19,8 @@ route on the card (``PYTHONPATH=src python -m pytest -m gpu
 tests/test_torch_lm_serve.py``).
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -206,9 +209,14 @@ def test_step_factories():
     want, _ = jlm.decode_step(params, jcaches, jnp.asarray(x[:, 9:]),
                               jnp.asarray(9), jc, CTX, JSV)
     _close(got, want)
-    for make in (steps.make_prefill_step, steps.make_decode_step):
-        with pytest.raises(NotImplementedError, match="A13c"):
-            make(tc, SV, mesh=object())
+    # a step made for a mesh refuses a model not placed on it (the mesh
+    # itself runs in tests/test_torch_mesh_serve.py)
+    stand_in = SimpleNamespace(mesh_dim_names=("data", "model"))
+    with pytest.raises(ValueError, match="not placed"):
+        steps.make_prefill_step(tc, SV, mesh=stand_in)(model, x[:, :9])
+    with pytest.raises(ValueError, match="not placed"):
+        steps.make_decode_step(tc, SV, mesh=stand_in)(model, caches,
+                                                      x[:, 9:], 9)
     other = tconfigs.get_reduced_config("llama3-8b")
     with pytest.raises(ValueError, match="another config"):
         steps.make_prefill_step(other, SV)(model, x)

@@ -360,9 +360,9 @@ def test_train_step_matches_reference(arch, m):
 
 def test_train_step_refuses_what_is_a13c():
     tc = tconfigs.get_reduced_config("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="A13c"):
+    with pytest.raises(NotImplementedError, match="A13c-2"):
         tsteps.make_train_step(tc, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A13c"):
+    with pytest.raises(NotImplementedError, match="A13c-2"):
         tsteps.make_train_step(tc, TrainConfig(sharding_mode="zero3"))
     step = tsteps.make_train_step(tc, TrainConfig(microbatches=3))
     state = tsteps.init_train_state(tc, TrainConfig(),

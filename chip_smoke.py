@@ -69,7 +69,14 @@ make_decode_step / lm_feature_fn on (1, 4) in head mode (the flash kernel
 on each rank's 4 heads), on 3 ranks at (1, 3) in qseq mode, on (1, 4)
 with seq_parallel (ctxpar) and on (2, 2) with batch 2, and qwen3-moe cut
 to 2 layers with its experts split over 4 ranks, each against the
-single-rank run on the card. The
+single-rank run on the card. LM training on that mesh (``lm_mesh_train``,
+ROADMAP A13c-2): the same world trains through ``Trainer(mesh=...)``
+internlm2-1.8b at full width (2 layers) in its own zero3 config on (2, 2)
+and in fsdp_tp on (2, 2), and qwen3-moe (2 layers, 32 experts a rank) on
+(1, 4), 2 timed steps each after a check step whose loss, grad norm and
+every gradient shard are held to the single rank's on the card (the
+MoE's dispatch counts bitwise); the flash kernel runs on every rank's
+heads and is held to its plain version at rank 0's training inputs. The
 flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
@@ -93,6 +100,7 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only lm          # the LM backbones' serving
     python3 chip_smoke.py --only lm_train    # LM training (internlm2-1.8b)
     python3 chip_smoke.py --only lm_mesh     # the LM on a mesh (4 ranks)
+    python3 chip_smoke.py --only lm_mesh_train  # LM training on the mesh
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -4767,9 +4775,9 @@ def mesh_fault_path(rank: int) -> Path:
     return ROOT / "build" / f"lm_mesh_rank{rank}.fault"
 
 
-def run_mesh_world(device_type: str) -> dict:
-    """Spawn MESH_WORLD ranks (``spawn``, gloo, all on cuda:0 for "cuda")
-    on mesh_rank; {rank: record}. Every rank is joined under MESH_JOIN_S and
+def run_world(target, args: tuple, join_s: float, what: str) -> dict:
+    """Spawn MESH_WORLD ranks (``spawn``) on ``target(rank, world, store,
+    *args, q)``; {rank: record}. Every rank is joined under ``join_s`` and
     killed past it; a rank that dies without answering ends the wait at
     once; a failed rank raises, with the stacks of any that crashed."""
     import multiprocessing as mp
@@ -4779,15 +4787,15 @@ def run_mesh_world(device_type: str) -> dict:
     store.unlink(missing_ok=True)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=mesh_rank, args=(r, MESH_WORLD, str(store),
-                                                 device_type, q))
+    procs = [ctx.Process(target=target, args=(r, MESH_WORLD, str(store),
+                                              *args, q))
              for r in range(MESH_WORLD)]
     for p in procs:
         p.start()
     results, t0 = {}, time.perf_counter()
     try:
         while len(results) < MESH_WORLD \
-                and time.perf_counter() - t0 < MESH_JOIN_S:
+                and time.perf_counter() - t0 < join_s:
             try:
                 rank, res = q.get(timeout=5)
                 results[rank] = res
@@ -4803,7 +4811,7 @@ def run_mesh_world(device_type: str) -> dict:
         store.unlink(missing_ok=True)
     bad = {r: v for r, v in results.items() if isinstance(v, str)}
     if bad:
-        raise AssertionError("lm_mesh ranks failed:\n" + "\n".join(
+        raise AssertionError(f"{what} ranks failed:\n" + "\n".join(
             f"rank {r}:\n{v}" for r, v in sorted(bad.items())))
     codes = [p.exitcode for p in procs]
     if len(results) < MESH_WORLD or any(codes):
@@ -4811,9 +4819,14 @@ def run_mesh_world(device_type: str) -> dict:
             f"\nrank {r}:\n{mesh_fault_path(r).read_text()[-3000:]}"
             for r in range(MESH_WORLD) if mesh_fault_path(r).exists()
             and mesh_fault_path(r).stat().st_size)
-        raise AssertionError(f"lm_mesh: ranks answered {sorted(results)}, "
+        raise AssertionError(f"{what}: ranks answered {sorted(results)}, "
                              f"exit codes {codes}{stacks}")
     return results
+
+
+def run_mesh_world(device_type: str) -> dict:
+    """The lm_mesh world: mesh_rank on every rank (run_world)."""
+    return run_world(mesh_rank, (device_type,), MESH_JOIN_S, "lm_mesh")
 
 
 def _rel_err(got, want) -> float:
@@ -4918,6 +4931,375 @@ def phase_lm_mesh(device) -> dict:
            "single": {b: v["record"] for b, v in single.items()},
            "modes": modes, "moe": moe,
            "kernel_at_mesh_inputs": kernel_at,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(res)
+    return res
+
+
+# the LM trained on a mesh (ROADMAP A13c-2): one world of 4 gloo ranks on
+# the one card trains through Trainer(mesh=...) / make_train_step(cfg, tc,
+# mesh), each run from seed LM_SEED drawn alike by the single-rank oracle
+# and every rank: internlm2-1.8b (f32 parameters, bf16 compute) at full
+# width in its own default_train_config (zero3, remat "full", loss chunks
+# of 512) on (2, 2) with a global batch of 4 x 4,096 (one row a rank),
+# the same in fsdp_tp on (2, 2), data x model (head mode: 8 heads a rank)
+# with 2 x 4,096, and qwen3-moe at the lm_mesh serving cut (2 of 94
+# layers, bf16 weights, f32 compute, 32 experts a rank on (1, 4)) with
+# 1 x 4,096 (its default_train_config with 1 microbatch: its default
+# splits train_4k's 256 rows into 16). Depth: MESH_TRAIN_LAYERS of
+# internlm2's 24, so the leg's gloo traffic (~0.5-0.7 GB/s a rank, PR 25)
+# keeps the whole script inside its limit
+MESH_TRAIN_ARCH = "internlm2-1.8b"
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_SEQ = 4096
+MESH_TRAIN_STEPS = 2
+# (name, arch, mesh shape, sharding mode, global batch of the timed run)
+MESH_TRAIN_RUNS = (("zero3", MESH_TRAIN_ARCH, (2, 2), "zero3", 4),
+                   ("fsdp_tp", MESH_TRAIN_ARCH, (2, 2), "fsdp_tp", 2),
+                   ("moe", MESH_MOE_ARCH, MESH_MOE_MESH, "fsdp_tp", 1))
+# the check: one step's loss_and_grads from the initial state on the
+# single rank (the oracle, before the world starts) and on the mesh, at
+# the check batch (internlm2: 4 x 4,096 for both of its runs; the MoE:
+# its own batch); limits set before the first run (PR 24's card limits):
+# loss and grad norm within 5e-3 relative, every gradient within 5e-2 of
+# its max |value| (each rank's shard against the oracle's slice of it:
+# the gathered gradient's error), the MoE dispatch counts bitwise
+MESH_TRAIN_CHECK_ROWS = {MESH_TRAIN_ARCH: 4, MESH_MOE_ARCH: 1}
+MESH_TRAIN_RTOL = 5e-3
+MESH_TRAIN_GRAD_TOL = 5e-2
+MESH_TRAIN_ORACLE = ROOT / "build" / "lm_mesh_train_oracle"
+MESH_TRAIN_JOIN_S = 900
+# the collectives the training world calls: the serving world's, and the
+# reduce-scatter of every all-gather's backward
+MESH_TRAIN_COLLECTIVES = MESH_COLLECTIVES + ("reduce_scatter_tensor",)
+
+
+def mesh_train_config(arch: str, mode: str, batch: int):
+    """(cfg, tc, dc) of a training run on the mesh: the arch's
+    default_train_config in ``mode`` with one microbatch; internlm2 at
+    full width cut to MESH_TRAIN_LAYERS, qwen3-moe as the lm_mesh serving
+    cut (mesh_config)."""
+    import dataclasses
+    from repro_torch.configs import default_train_config, get_config
+    from repro_torch.data.pipeline import DataConfig
+    if arch == MESH_MOE_ARCH:
+        cfg = mesh_config(arch, MESH_MOE_LAYERS, MESH_MOE_COMPUTE)
+    else:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=MESH_TRAIN_LAYERS)
+    tc = dataclasses.replace(default_train_config(arch), sharding_mode=mode,
+                             microbatches=1)
+    dc = DataConfig(seq_len=MESH_TRAIN_SEQ, global_batch=batch,
+                    vocab_size=cfg.vocab_size, seed=LM_SEED)
+    return cfg, tc, dc
+
+
+def mesh_train_check_batch(cfg, arch: str, device) -> dict:
+    """The check's batch: MESH_TRAIN_CHECK_ROWS[arch] rows of MESH_TRAIN_SEQ
+    seeded tokens, targets shifted by one."""
+    import torch
+    t = lm_inputs(cfg, MESH_TRAIN_CHECK_ROWS[arch], MESH_TRAIN_SEQ + 1,
+                  LM_SEED + 6)
+    return {"inputs": torch.from_numpy(np.ascontiguousarray(
+                t[:, :-1])).to(device),
+            "targets": torch.from_numpy(np.ascontiguousarray(
+                t[:, 1:])).to(device)}
+
+
+def grad_numpy(g):
+    """A gradient as numpy for the oracle's files (bf16 as its int16
+    bits)."""
+    import torch
+    g = g.detach()
+    return (g.view(torch.int16) if g.dtype == torch.bfloat16
+            else g).cpu().numpy()
+
+
+def mesh_train_oracle(device, arch: str) -> dict:
+    """The single rank's check step of ``arch`` (loss_and_grads from the
+    initial state at the check batch), its gradients written one file a
+    parameter under MESH_TRAIN_ORACLE/<arch>: the loss, the grad norm,
+    each gradient's max |value|, the dispatch counts."""
+    import shutil
+    import torch
+    from repro_torch.launch.steps import (TrainState, derive_generator,
+                                          make_train_step, trainable_)
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import global_norm
+    cfg, tc, _ = mesh_train_config(arch, "fsdp_tp", 1)
+    out_dir = MESH_TRAIN_ORACLE / arch
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    free_cuda()
+    gen = torch.Generator(device=device).manual_seed(LM_SEED)
+    model = trainable_(lm.init_params(cfg, generator=gen, device=device))
+    step = make_train_step(cfg, tc)
+    data = mesh_train_check_batch(cfg, arch, device)
+    disp = []
+    with dispatch_counts(disp), plain_attention_watch() as seen:
+        zero_counts()
+        (metrics, grads), secs = synced(lambda: step.loss_and_grads(
+            TrainState(model, None, 0), data,
+            derive_generator(tc.seed ^ 0x5EED, 0)))
+        counts = attention_counts(seen)
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"loss": float(metrics["ce_loss"]),
+           "grad_norm": float(global_norm(grads)), "s": secs,
+           "launches": counts, "peak_bytes": peak,
+           "dispatch": dispatch_lists(disp), "dir": str(out_dir),
+           "max": {}, "dtype": {}}
+    for k, g in grads.items():
+        rec["max"][k] = float(g.float().abs().max())
+        rec["dtype"][k] = str(g.dtype).replace("torch.", "")
+        np.save(out_dir / f"{k}.npy", grad_numpy(g))
+    del model, grads, step, data
+    free_cuda()
+    return rec
+
+
+def oracle_errors(grads: dict, params: dict, oracle: dict) -> dict:
+    """{parameter: max |this rank's gradient shard - the oracle's slice of
+    the whole gradient|}, the oracle read memory-mapped."""
+    import torch
+    from repro_torch.compat import DTensor
+    from repro_torch.launch.sharding import placed_slices
+    out = {}
+    for k, g in grads.items():
+        a = np.load(Path(oracle["dir"]) / f"{k}.npy", mmap_mode="r")
+        if isinstance(params[k], DTensor):
+            a = a[placed_slices(params[k])]
+        t = torch.from_numpy(np.array(a)).to(g.device)
+        if oracle["dtype"][k] == "bfloat16":
+            t = t.view(torch.bfloat16)
+        out[k] = float((g.float() - t.float()).abs().max())
+    return out
+
+
+def mesh_train_run(dev, mesh, name: str, arch: str, mode: str, batch: int,
+                   oracle: dict, rank: int) -> dict:
+    """One run on ``mesh``: a Trainer's state from LM_SEED, the check step
+    (loss_and_grads on the check batch against the oracle: loss, grad
+    norm, each shard's error, the dispatch counts, the first flash call's
+    inputs, the step's collectives forward and backward), then
+    MESH_TRAIN_STEPS steps of Trainer.run timed (s/step, tokens/s over
+    the global batch, peak memory, collectives, flash launches and plain
+    backward calls)."""
+    import torch
+    from repro_torch.launch.steps import derive_generator
+    from repro_torch.models import lm
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.trainer import Trainer
+    cfg, tc, dc = mesh_train_config(arch, mode, batch)
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tr = Trainer(cfg, tc, dc, mesh=mesh, device=dev, step_deadline_s=900)
+    state, init_s = synced(lambda: tr.init_or_restore(LM_SEED))
+    params = dict(state.model.named_parameters())
+    local_bytes = sum(t.to_local().numel() * t.element_size() for t in (
+        *params.values(), *state.opt.m.values(), *state.opt.v.values()))
+    data = mesh_train_check_batch(cfg, arch, dev)
+    comm = tr.step_fn.ctx.comm
+    disp, flash_in = [], []
+    comm.reset()
+    with dispatch_counts(disp), first_flash_inputs(flash_in), \
+            plain_attention_watch() as seen:
+        zero_counts()
+        (metrics, grads), check_s = synced(lambda: tr.step_fn.loss_and_grads(
+            state, data, derive_generator(tc.seed ^ 0x5EED, 0)))
+        check_counts = attention_counts(seen)
+    check_comm = comm.snapshot()
+    check_peak = torch.cuda.max_memory_allocated()
+    gnorm = float(global_norm(grads, params))
+    errs = oracle_errors(grads, params, oracle)
+    del grads, data
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    comm.reset()
+    with plain_attention_watch() as seen:
+        zero_counts()
+        state, rep = tr.run(MESH_TRAIN_STEPS, state=state, log_every=0)
+        counts = attention_counts(seen)
+    peak = torch.cuda.max_memory_allocated()
+    steps_comm = comm.snapshot()
+    tokens = dc.global_batch * dc.seq_len
+    rec = {"run": name, "arch": cfg.name, "layers": cfg.num_layers,
+           "mesh": list(mesh.shape), "sharding_mode": tc.sharding_mode,
+           "attn_mode": lm.attn_parallel_mode(cfg, tr.step_fn.ctx),
+           "init_s": init_s, "state_bytes_local": local_bytes,
+           "check": {"loss": float(metrics["ce_loss"]), "grad_norm": gnorm,
+                     "grad_abs_err": errs, "s": check_s,
+                     "peak_bytes": check_peak,
+                     "launches": check_counts, "comm": check_comm},
+           "batch": [dc.global_batch, dc.seq_len], "steps": MESH_TRAIN_STEPS,
+           "losses": rep.losses, "tokens_per_s": rep.tokens_per_s,
+           "s_per_step": tokens / rep.tokens_per_s,
+           "peak_bytes": peak, "peak_bytes_above_start": peak - base,
+           "launches": counts,
+           "launches_per_step": {k: v / MESH_TRAIN_STEPS
+                                 for k, v in counts.items()},
+           "comm_steps": steps_comm}
+    out = {"record": rec, "dispatch": dispatch_lists(disp),
+           "flash_inputs": kernel_inputs_np(flash_in) if rank == 0
+           else None}
+    del state, tr, params
+    free_cuda()
+    return out
+
+
+def mesh_train_rank(rank: int, world: int, store_path: str,
+                    device_type: str, oracles: dict, q) -> None:
+    """One rank of the training world (gloo, on cuda:0 for "cuda"): the
+    collective check, then every MESH_TRAIN_RUNS run; puts (rank, record)
+    or (rank, traceback) on ``q``; a crash writes its stack to
+    mesh_fault_path(rank). The rank's allocator grows its segments in
+    place (expandable_segments): four ranks' training peaks share the
+    card."""
+    import faulthandler
+    import traceback
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as tmesh
+    fault = open(mesh_fault_path(rank), "w")
+    faulthandler.enable(fault)
+    dev = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device(device_type)
+    try:
+        tmesh.init_process_group(MESH_BACKEND, rank=rank, world_size=world,
+                                 init_method=f"file://{store_path}",
+                                 device=dev)
+        res = {"collectives": gloo_check(world, dev),
+               "free_bytes_at_start": torch.cuda.mem_get_info(dev)[0]}
+        bad = {k: v for k, v in res["collectives"].items() if v != "ok"}
+        if bad.keys() & set(MESH_TRAIN_COLLECTIVES):
+            raise RuntimeError(f"gloo lacks a collective the training mesh "
+                               f"uses on {dev.type} tensors: {bad}")
+        for name, arch, shape, mode, batch in MESH_TRAIN_RUNS:
+            mesh = tmesh.mesh_of(shape, ("data", "model"), device_type)
+            res[name] = mesh_train_run(dev, mesh, name, arch, mode, batch,
+                                       oracles[arch], rank)
+        q.put((rank, res))
+    except Exception:
+        mem = ""
+        if dev.type == "cuda":
+            mem = (f"\nallocated {torch.cuda.memory_allocated()}, peak "
+                   f"{torch.cuda.max_memory_allocated()}, reserved "
+                   f"{torch.cuda.memory_reserved()}, free on the card "
+                   f"{torch.cuda.mem_get_info(dev)[0]}")
+        q.put((rank, traceback.format_exc() + mem))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_train_compare(oracle: dict, recs: list, what: str) -> dict:
+    """Every rank's check against the oracle within the limits: the loss
+    and the grad norm, each gradient's worst shard error over the
+    gradient's max |value|; raises beyond them."""
+    loss = [abs(r["check"]["loss"] / oracle["loss"] - 1) for r in recs]
+    gnorm = [abs(r["check"]["grad_norm"] / oracle["grad_norm"] - 1)
+             for r in recs]
+    grad = {k: max(r["check"]["grad_abs_err"][k] for r in recs)
+            / max(m, 1e-30) for k, m in oracle["max"].items()}
+    worst = max(grad, key=grad.get)
+    err = {"loss_rel": max(loss), "grad_norm_rel": max(gnorm),
+           "grad_max_err_of_max": grad[worst], "worst_grad": worst,
+           "tol": {"loss_and_grad_norm": MESH_TRAIN_RTOL,
+                   "grad": MESH_TRAIN_GRAD_TOL}}
+    if not (err["loss_rel"] <= MESH_TRAIN_RTOL
+            and err["grad_norm_rel"] <= MESH_TRAIN_RTOL
+            and grad[worst] <= MESH_TRAIN_GRAD_TOL):
+        raise AssertionError(f"lm_mesh_train {what}: {err}")
+    return err
+
+
+def needs_mesh_train_counts(counts: dict, cfg, steps: int,
+                            what: str) -> None:
+    """Each rank launches the kernel twice a flash layer a step (the
+    forward and remat's recompute, on its heads) and runs the plain
+    backward once; no forward takes the plain version."""
+    n = flash_layers(cfg, MESH_TRAIN_SEQ) * steps
+    want = {"flash_attention": 2 * n, "backward_calls": n,
+            "plain_forward": 0}
+    if n == 0 or counts != want:
+        raise AssertionError(f"{what}: {counts}, expected {want}")
+
+
+def phase_lm_mesh_train(device) -> dict:
+    """LM training on a mesh (ROADMAP A13c-2): the single-rank oracle of
+    each arch's check step on the card (before the world starts, its
+    gradients to files), then one world of MESH_WORLD gloo ranks on the
+    card runs each MESH_TRAIN_RUNS run (the check against the oracle
+    within the limits, the MoE's dispatch counts bitwise, then
+    MESH_TRAIN_STEPS timed Trainer steps); the flash kernel launched on
+    every rank twice a layer a step, held to its plain version
+    (measure_flash) at rank 0's layer-0 training inputs of each run once
+    the world has exited. The oracle's files are removed at the end.
+    Returns the record."""
+    import shutil
+    import torch
+    t_phase = time.perf_counter()
+    oracles = {}
+    for arch in dict.fromkeys(r[1] for r in MESH_TRAIN_RUNS):
+        oracles[arch] = mesh_train_oracle(device, arch)
+    free_cuda()
+    held = {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "free_on_card": torch.cuda.mem_get_info(device)[0]}
+    try:
+        world = run_world(mesh_train_rank, (device.type, oracles),
+                          MESH_TRAIN_JOIN_S, "lm_mesh_train")
+    finally:
+        shutil.rmtree(MESH_TRAIN_ORACLE, ignore_errors=True)
+    runs, kernel_at = {}, {}
+    for name, arch, shape, mode, batch in MESH_TRAIN_RUNS:
+        cfg = mesh_train_config(arch, mode, batch)[0]
+        recs = [world[r][name]["record"] for r in sorted(world)]
+        err = mesh_train_compare(oracles[arch], recs, name)
+        if cfg.num_experts:
+            err["dispatch_equal"] = all(
+                world[r][name]["dispatch"] == oracles[arch]["dispatch"]
+                for r in world)
+            if not err["dispatch_equal"]:
+                raise AssertionError(f"lm_mesh_train {name}: dispatch "
+                                     f"counts differ from the single rank")
+        for r, rec in zip(sorted(world), recs):
+            needs_mesh_train_counts(rec["check"]["launches"], cfg, 1,
+                                    f"lm_mesh_train {name} check rank {r}")
+            needs_mesh_train_counts(rec["launches"], cfg, MESH_TRAIN_STEPS,
+                                    f"lm_mesh_train {name} rank {r}")
+            if not np.isfinite(rec["losses"]).all():
+                raise AssertionError(f"lm_mesh_train {name} rank {r}: "
+                                     f"losses {rec['losses']}")
+        runs[name] = {"vs_single": err, "per_rank": recs,
+                      "losses_equal_on_ranks": all(
+                          r["losses"] == recs[0]["losses"] for r in recs)}
+    for name, *_ in MESH_TRAIN_RUNS:
+        kin = world[0][name]["flash_inputs"]
+        if kin is None:
+            raise AssertionError(f"lm_mesh_train {name}: rank 0 made no "
+                                 f"flash call to check")
+        q, k, v, causal = kernel_inputs_of(kin, device)
+        kernel_at[name] = measure_flash(q, k, v, causal)
+        del q, k, v
+        free_cuda()
+    res = {"phase": "lm_mesh_train", "backend": MESH_BACKEND,
+           "backend_why": MESH_BACKEND_WHY, "world": MESH_WORLD,
+           "device": torch.cuda.get_device_name(0),
+           "collectives": {device.type: world[0]["collectives"]},
+           "parent_bytes_during_world": held,
+           "free_bytes_at_rank_start": [world[r]["free_bytes_at_start"]
+                                        for r in sorted(world)],
+           "cuts": {"internlm2_layers": f"{MESH_TRAIN_LAYERS} of 24",
+                    "moe_layers": f"{MESH_MOE_LAYERS} of 94",
+                    "moe_microbatches": "1 (default: 16 of train_4k's 256 "
+                                        "rows)",
+                    "batch": "4 / 2 / 1 x 4,096 (train_4k: 256 x 4,096)"},
+           "oracle": {a: {k: v for k, v in o.items()
+                          if k not in ("max", "dtype", "dir")}
+                      for a, o in oracles.items()},
+           "runs": runs, "kernel_at_train_inputs": kernel_at,
            "phase_s": time.perf_counter() - t_phase}
     emit(res)
     return res
@@ -6034,15 +6416,16 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "dino": phase_dino,
         "lm": phase_lm,
         "lm_train": phase_lm_train,
-        "lm_mesh": phase_lm_mesh}
+        "lm_mesh": phase_lm_mesh,
+        "lm_mesh_train": phase_lm_mesh_train}
 
 
 def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
-    quantized, sharded, serve, dino, lm, lm_train and lm_mesh, the kernels
-    are built and only
+    quantized, sharded, serve, dino, lm, lm_train, lm_mesh and
+    lm_mesh_train, the kernels are built and only
     those phases run: the FLASH_CASES rows, the 400x400 extraction, the
     box scans at the main path's inputs, zone_candidates on synthetic zone
     maps, l2dist at the knn path's inputs, the batched device fit at full
@@ -6055,7 +6438,9 @@ def main(argv) -> int:
     (llama3-8b at full width and depth, every other architecture at full
     width), LM training (internlm2-1.8b at full width and depth), the LM
     on a mesh of 4 gloo ranks on the card (internlm2-1.8b and qwen3-moe
-    cut to 2 layers); for comparing two trees on one card."""
+    cut to 2 layers), LM training on that mesh (internlm2-1.8b in zero3
+    and fsdp_tp, qwen3-moe; each cut to 2 layers); for comparing two
+    trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
@@ -6110,6 +6495,7 @@ def main(argv) -> int:
     lm_rec = phase_lm(dev)
     train_rec = phase_lm_train(dev)
     mesh_rec = phase_lm_mesh(dev)
+    mesh_train_rec = phase_lm_mesh_train(dev)
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
     # the narrow route, at the use_fused=False batch's largest call
@@ -6193,7 +6579,14 @@ def main(argv) -> int:
                        for name, m in mesh_rec["modes"].items()},
                    "lm_mesh_moe_prefill_per_rank": [
                        r["prefill_flash_launches"]
-                       for r in mesh_rec["moe"]["per_rank"]]}}
+                       for r in mesh_rec["moe"]["per_rank"]],
+                   # each rank's launches a training step on the
+                   # lm_mesh_train meshes (the forward and remat's
+                   # recompute, on its heads)
+                   "lm_mesh_train_step_per_rank": {
+                       name: [r["launches_per_step"]["flash_attention"]
+                              for r in m["per_rank"]]
+                       for name, m in mesh_train_rec["runs"].items()}}}
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
     # batch, its dense batch, knn, dtree + rforest and use_fused=False
     for name in KERNELS:
@@ -6255,6 +6648,10 @@ def main(argv) -> int:
     # local heads in head (1, 4) and data x model (2, 2), bf16, and
     # qwen3-moe's in float32 (G 16, D 128)
     rows[-1]["lm_mesh"] = mesh_rec["kernel_at_mesh_inputs"]
+    # and at rank 0's layer-0 inputs of the lm_mesh_train runs' check
+    # step: zero3 (one row, 8 kv heads: BH 8, G 2), fsdp_tp head mode (two
+    # rows, 4 kv heads: BH 8, G 2), bf16; the MoE's float32 (BH 1, G 16)
+    rows[-1]["lm_mesh_train"] = mesh_train_rec["kernel_at_train_inputs"]
     # the plain backward under ops.flash_attention's autograd Function (no
     # kernel yet: ROADMAP B5b), at each DINO step's shapes
     rows[-1]["attention_backward"] = {
@@ -6264,7 +6661,11 @@ def main(argv) -> int:
             "dino_step_400":
                 dino["train_400"]["launches_per_step"]["backward_calls"],
             "lm_train_step":
-                train_rec["launches_per_step"]["backward_calls"]},
+                train_rec["launches_per_step"]["backward_calls"],
+            "lm_mesh_train_step_per_rank": {
+                name: [r["launches_per_step"]["backward_calls"]
+                       for r in m["per_rank"]]
+                for name, m in mesh_train_rec["runs"].items()}},
         "dino_step": dino["attention_backward"],
         "dino_step_400": dino["attention_backward_400"],
         "lm_train_step": train_rec["attention_backward"]}

@@ -4,9 +4,14 @@
 The port's mesh runs on two torch versions: 2.11 on the card, 2.13 on
 the CPU test box. What differs between them, and so goes through here:
 
-  * the name of the collective that gathers into one tensor: 2.13 calls
-    it ``all_gather_single`` and deprecates ``all_gather_into_tensor``,
-    2.11 has only the latter.
+  * the names of the collectives into and out of one tensor: 2.13 calls
+    them ``all_gather_single`` / ``reduce_scatter_single`` and deprecates
+    ``all_gather_into_tensor`` / ``reduce_scatter_tensor``, 2.11 has only
+    the latter;
+  * what ``DTensor.to_local()`` returns without grad: 2.13 gives a
+    parameter's local tensor as a fresh view, so the train step reads
+    the local tensor itself (``local_tensor``), the leaf it
+    differentiates against.
 
 The mesh's types are imported from here too, at the paths both versions
 share: ``DeviceMesh`` from ``torch.distributed.device_mesh``, ``DTensor`` / ``Shard`` /
@@ -33,10 +38,13 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = ["DTensor", "DeviceMesh", "Replicate", "Shard",
-           "all_gather_single"]
+           "all_gather_single", "like_placed", "local_tensor",
+           "reduce_scatter_single"]
 
 _GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 def all_gather_single(out: torch.Tensor, x: torch.Tensor, group) -> None:
@@ -44,3 +52,26 @@ def all_gather_single(out: torch.Tensor, x: torch.Tensor, group) -> None:
     along dim 0 in group-rank order (``all_gather_single`` on torch >=
     2.13, ``all_gather_into_tensor`` before)."""
     _GATHER(out, x, group=group)
+
+
+def reduce_scatter_single(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``out`` <- this rank's block along dim 0 of the sum over the ``n``
+    ranks' ``x`` [n * len(out), ...] (``reduce_scatter_single`` on torch
+    >= 2.13, ``reduce_scatter_tensor`` before)."""
+    _SCATTER(out, x, group=group)
+
+
+def local_tensor(t: DTensor) -> torch.Tensor:
+    """The DTensor's local shard: the same tensor object on every call
+    (its ``_local_tensor``), so a parameter's shard can be a leaf that
+    requires grad and is written in place, where ``to_local()`` may hand
+    out a new view of it."""
+    return t._local_tensor
+
+
+def like_placed(local: torch.Tensor, t: DTensor) -> DTensor:
+    """A DTensor of ``t``'s global shape, mesh and placements whose shard
+    on this rank is ``local`` (no communication)."""
+    return DTensor.from_local(local, t.device_mesh, t.placements,
+                              run_check=False, shape=t.shape,
+                              stride=t.stride())

@@ -23,7 +23,11 @@ list, so a decode on either side can start from the other's caches.
 ``train_state_from_numpy`` / ``train_state_to_numpy`` carry a whole LM
 ``TrainState`` across, both ways: the reference's {params, opt: {m, v,
 step}, step} with every layer leaf stacked over blocks, the port's model,
-AdamW moments by parameter name and steps. bfloat16 leaves travel as
+AdamW moments by parameter name and steps. A state placed on a mesh goes
+out as the same full arrays (each leaf gathered whole: every rank of the
+mesh takes part) and comes in as each rank's shard cut from them
+(``load_train_state_``), so a state saved on one mesh loads onto another
+or onto one device. bfloat16 leaves travel as
 their bits in 2-byte void arrays (dtype ``V2``), which is what
 ``np.asarray`` of a JAX bfloat16 array holds once ``np.save`` wrote and
 ``np.load`` read it back (no ``ml_dtypes`` needed).
@@ -35,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.compat import DTensor
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.index import ZoneMapIndex
 from repro_torch.core.segments import SegmentedCatalog
@@ -42,6 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.features.dino import DinoState
 from repro_torch.features.vit import ViT, load_arrays
 from repro_torch.launch import sharding
+from repro_torch.models.common import gather_placed, local
 from repro_torch.models.lm import LM, place_param
 from repro_torch.models.rglru import LRUState
 from repro_torch.models.ssm import SSMState
@@ -372,7 +378,12 @@ def _field(tree, name: str):
 
 
 def _leaf_numpy(t: torch.Tensor) -> np.ndarray:
-    """A tensor as a numpy copy; bfloat16 as its bits (``BF16_BITS``)."""
+    """A tensor as a numpy copy; bfloat16 as its bits (``BF16_BITS``). A
+    DTensor is gathered whole first (a collective: every rank of its mesh
+    calls this in the same order)."""
+    if isinstance(t, DTensor):
+        with torch.no_grad():
+            t = gather_placed(t)
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(BF16_BITS)
@@ -433,19 +444,25 @@ def train_state_to_numpy(state, cfg: ModelConfig) -> TrainStateArrays:
 
 def _copy_named(targets: dict, arrays: dict, what: str) -> None:
     """Copy {name: array} into {name: tensor}: every name given, each of
-    the target's exact shape and dtype (nothing is cast)."""
+    the target's exact shape and dtype (nothing is cast). A DTensor
+    target takes this rank's shard of the array (``sharding.
+    placed_slices``): only the shard is read and copied."""
     if set(arrays) != set(targets):
         raise ValueError(f"{what}: names differ: missing "
                          f"{sorted(set(targets) - set(arrays))}, unknown "
                          f"{sorted(set(arrays) - set(targets))}")
     with torch.no_grad():
         for name, t in targets.items():
-            a = _tensor(arrays[name], "cpu")
-            if tuple(a.shape) != tuple(t.shape) or a.dtype != t.dtype:
+            full = arrays[name]
+            shape = tuple(np.shape(full))
+            if isinstance(t, DTensor) and shape == tuple(t.shape):
+                full = full[sharding.placed_slices(t)]
+            a = _tensor(full, "cpu")
+            if shape != tuple(t.shape) or a.dtype != t.dtype:
                 raise ValueError(
-                    f"{what} {name}: {a.dtype} {tuple(a.shape)}, expected "
+                    f"{what} {name}: {a.dtype} {shape}, expected "
                     f"{t.dtype} {tuple(t.shape)} (no dtype is cast)")
-            t.copy_(a)
+            local(t).copy_(a)
 
 
 def load_train_state_(target, state, cfg: ModelConfig):
@@ -467,14 +484,33 @@ def load_train_state_(target, state, cfg: ModelConfig):
 
 
 def train_state_from_numpy(state, cfg: ModelConfig, tc, *,
-                           device=None):
+                           device=None, mesh=None):
     """The port's TrainState holding a reference ``TrainState`` with numpy
     leaves (``jax.tree_util.tree_map(np.asarray, state)``): parameters in
     ``cfg.param_dtype``, moments in ``tc.opt_state_dtype`` (the arrays
-    must have those dtypes), the steps. ``device`` defaults to CUDA."""
-    from repro_torch.launch.steps import TrainState, make_optimizer
-    model = LM(cfg, device=resolve_device(device))
-    model.requires_grad_(True)
+    must have those dtypes), the steps. ``device`` defaults to CUDA.
+    ``mesh``: each rank holds its shards, placed by the rules in
+    ``tc.sharding_mode`` (``launch.steps.init_train_state``'s
+    placement)."""
+    from repro_torch.launch.steps import (TrainState, check_mesh,
+                                          make_optimizer, trainable_)
+    check_mesh(mesh)
+    dev = resolve_device(device)
+    if mesh is None:
+        model = LM(cfg, device=dev)
+    else:
+        model = LM(cfg, device="meta")
+        specs = sharding.lm_param_specs(model, cfg, mesh, tc.sharding_mode)
+        for name, p in list(model.named_parameters()):
+            sh = sharding.NamedSharding(mesh, specs[name])
+            shard = torch.empty(sh.shard_shape(tuple(p.shape)),
+                                dtype=p.dtype, device=dev)
+            prefix, _, leaf = name.rpartition(".")
+            setattr(model.get_submodule(prefix), leaf, torch.nn.Parameter(
+                sharding.from_local(shard, sh, tuple(p.shape)),
+                requires_grad=False))
+        model.mesh = mesh
+    trainable_(model)
     params = dict(model.named_parameters())
     opt = make_optimizer(tc, lm_stacks(params, cfg)).init(params)
     return load_train_state_(TrainState(model, opt, 0), state, cfg)

@@ -149,14 +149,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _attention_probs(q: torch.Tensor, k: torch.Tensor,
                      causal: bool) -> torch.Tensor:
     """softmax(q k^T D^-0.5) [BH, G, S, S] in float32, the causal entries
-    set to -1e30 before the softmax."""
+    set to -1e30 before the softmax (scaled and masked in place: one
+    [BH, G, S, S] transient beside the result)."""
     s, d = q.shape[1], q.shape[3]
     scores = torch.einsum("bqgd,bkd->bgqk", q.to(torch.float32),
-                          k.to(torch.float32)) * d ** -0.5
+                          k.to(torch.float32)).mul_(d ** -0.5)
     if causal:
         pos = torch.arange(s, device=q.device)
         mask = pos[:, None] >= pos[None, :]
-        scores = scores.masked_fill(~mask, -1e30)
+        scores.masked_fill_(~mask, -1e30)
     return torch.softmax(scores, dim=-1)
 
 
@@ -186,7 +187,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     p = _attention_probs(q, k, causal)                         # [BH,G,S,S]
     dv = torch.einsum("bgqk,bqgd->bkd", p, dof)
     dp = torch.einsum("bqgd,bkd->bgqk", dof, vf)
-    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    # ds = p (dp - delta), in dp's memory
+    ds = dp.sub_((p * dp).sum(-1, keepdim=True)).mul_(p)
     dq = torch.einsum("bgqk,bkd->bqgd", ds, kf) * scale
     dk = torch.einsum("bgqk,bqgd->bkd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -97,3 +97,26 @@ def elastic_mesh_shape(n_devices: int,
     while model_axis > 1 and n_devices % model_axis:
         model_axis //= 2
     return (n_devices // model_axis, model_axis)
+
+
+def mesh_barrier(mesh: DeviceMesh) -> None:
+    """Every rank of ``mesh`` waits until each of its ranks has reached
+    this call: a one-element all-reduce over each axis in turn (a rank
+    leaves the last only after every rank entered the first). Every rank
+    of the mesh calls it."""
+    dev = "cpu" if mesh.device_type == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device())
+    t = torch.zeros(1, device=dev)
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(t, group=mesh.get_group(name))
+
+
+def any_rank(flag: bool, mesh: DeviceMesh) -> bool:
+    """Whether ``flag`` holds on any rank of ``mesh`` (a max over each
+    axis); every rank of the mesh calls it."""
+    dev = "cpu" if mesh.device_type == "cpu" else torch.device(
+        "cuda", torch.cuda.current_device())
+    t = torch.tensor([float(flag)], device=dev)
+    for name in mesh.mesh_dim_names:
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(name))
+    return bool(t.item())

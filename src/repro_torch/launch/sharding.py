@@ -263,6 +263,26 @@ def mesh_coord(mesh: DeviceMesh) -> Optional[Dict[str, int]]:
     return None if c is None else dict(zip(mesh.mesh_dim_names, c))
 
 
+def placed_slices(t: DTensor) -> Optional[tuple]:
+    """The slices of ``t``'s global shape that this rank's shard holds,
+    read off its placements (each dim's sharding axes in mesh order, major
+    first, as ``NamedSharding.shard_slices`` cuts); None off its mesh."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    if coord is None:
+        return None
+    out = []
+    for d, n in enumerate(t.shape):
+        parts, idx = 1, 0
+        for m, pl in enumerate(t.placements):
+            if isinstance(pl, Shard) and pl.dim == d:
+                parts, idx = parts * mesh.size(m), idx * mesh.size(m) \
+                    + coord[m]
+        lo, hi = split(n, parts, idx)
+        out.append(slice(lo, hi))
+    return tuple(out)
+
+
 def from_local(local: torch.Tensor, sharding: NamedSharding,
                shape) -> DTensor:
     """The DTensor of global ``shape`` whose shard on this rank is

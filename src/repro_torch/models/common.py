@@ -14,6 +14,27 @@ compute on local shards with explicit collectives instead
 counts; ``mshard`` cuts this rank's shard out of a whole tensor. Without
 a mesh every one of them is a no-op and the layers run their single-
 device code.
+
+Gradients on a mesh: the train step differentiates each rank's program
+from its loss times ``loss_scale(ctx)`` (1 / the mesh's size), so that
+the sum over the ranks of what they differentiate is the loss. A
+tensor's gradient on a rank is then this rank's part of it: where a
+tensor is alike on several ranks (a replica), each rank's gradient is
+the part that flows through its own use of it, and the parts add up
+where the replicas were made. Every collective's backward is its
+adjoint under that sum: ``all_reduce``'s an all-reduce of the gradient,
+an all-gather's (``all_gather``, ``gather_placed``) a reduce-scatter
+(each rank keeps its block of the sum over the ranks), ``mshard``'s (a
+narrow) the gradient in place with zeros around it. So a weight's FSDP
+gather sums its rows' gradients over the data ranks into this rank's
+block, an activation gathered over the model axis gives each rank back
+the sum of its block's parts, and an input alike over the model axis
+that enters a column- or row-parallel product gets its parts summed by
+the all-reduce or reduce-scatter that made it alike. A parameter's
+gradient is thus its shard's over the axes that shard it; over an axis
+it is replicated on, the train step adds the replicas' parts
+(``sum_replicas``). ``ctx.comm`` counts the backward's collectives apart
+(``CommStats.backward``); a remat recompute's are forward ones.
 """
 from __future__ import annotations
 
@@ -25,20 +46,28 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.compat import DeviceMesh, DTensor, Shard, all_gather_single
+from repro_torch.compat import (DeviceMesh, DTensor, Replicate, Shard,
+                                all_gather_single, local_tensor,
+                                reduce_scatter_single)
 from repro_torch.launch import sharding
 
 
 class CommStats:
-    """Calls and bytes of the collectives a context made on this rank,
-    by kind ("all_reduce", "all_gather"); a collective's bytes are those
-    of the buffer it fills on this rank."""
+    """Calls and bytes of the collectives a context made on this rank, by
+    kind ("all_reduce", "all_gather", "reduce_scatter"), those of the
+    backward apart (``backward``, a CommStats of its own). A collective's
+    bytes are those of its larger buffer on this rank: all_reduce's
+    tensor, all_gather's output, reduce_scatter's input."""
 
-    def __init__(self):
+    def __init__(self, _backward: bool = False):
         self.calls: Dict[str, int] = {}
         self.bytes: Dict[str, int] = {}
+        self.backward = None if _backward else CommStats(True)
 
-    def add(self, kind: str, t: torch.Tensor) -> None:
+    def add(self, kind: str, t: torch.Tensor, backward: bool = False) -> None:
+        if backward:
+            self.backward.add(kind, t)
+            return
         self.calls[kind] = self.calls.get(kind, 0) + 1
         self.bytes[kind] = self.bytes.get(kind, 0) \
             + t.numel() * t.element_size()
@@ -46,10 +75,15 @@ class CommStats:
     def reset(self) -> None:
         self.calls.clear()
         self.bytes.clear()
+        if self.backward is not None:
+            self.backward.reset()
 
     def snapshot(self) -> dict:
-        return {"calls": dict(self.calls), "bytes": dict(self.bytes),
-                "total_bytes": sum(self.bytes.values())}
+        out = {"calls": dict(self.calls), "bytes": dict(self.bytes),
+               "total_bytes": sum(self.bytes.values())}
+        if self.backward is not None:
+            out["backward"] = self.backward.snapshot()
+        return out
 
 
 @dataclass(frozen=True)
@@ -120,7 +154,10 @@ class Layout(NamedTuple):
 
 def layout(ctx: ParallelCtx, b: int, s: int,
            seq_axis: Optional[str] = None) -> Layout:
-    bax = sharding._dp_for(b, ctx.mesh) or ()
+    """Under ZeRO-3 (no ``tp_axis``) the batch axes are every mesh axis,
+    as ``sharding.batch_shardings(..., "zero3")`` places a batch."""
+    mode = "zero3" if ctx.tp_axis is None else "fsdp_tp"
+    bax = sharding._dp_for(b, ctx.mesh, mode) or ()
     return Layout(b, tuple(a for a in bax if a in ctx.dp_axes), s,
                   seq_axis if s > 1 else None)
 
@@ -143,18 +180,115 @@ def mshard(x: torch.Tensor, ctx: ParallelCtx, *spec) -> torch.Tensor:
     return x
 
 
+def _groups(ctx: ParallelCtx, axes) -> list:
+    """The process groups of ``axes``' axes of more than one rank."""
+    return [ctx.mesh.get_group(a) for a in ctx._axes(axes)
+            if ctx.size(a) > 1]
+
+
+def _differentiated(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllReduce(torch.autograd.Function):
+    """A sum over ``groups`` whose backward is the same sum of the
+    gradient (the adjoint: every rank's input reaches every rank's
+    output)."""
+
+    @staticmethod
+    def forward(fctx, x, groups, comm):
+        fctx.groups, fctx.comm = groups, comm
+        y = x.contiguous().clone()
+        for g in groups:
+            dist.all_reduce(y, op=dist.ReduceOp.SUM, group=g)
+            comm.add("all_reduce", y)
+        return y
+
+    @staticmethod
+    def backward(fctx, grad):
+        grad = grad.contiguous().clone()
+        for g in fctx.groups:
+            dist.all_reduce(grad, op=dist.ReduceOp.SUM, group=g)
+            fctx.comm.add("all_reduce", grad, backward=True)
+        return grad, None, None
+
+
 def all_reduce(x: torch.Tensor, ctx: ParallelCtx, axes,
                op: str = "sum") -> torch.Tensor:
-    """``x`` reduced ("sum" or "max") over the ranks along ``axes``."""
-    ax = [a for a in ctx._axes(axes) if ctx.size(a) > 1]
-    if not ax:
+    """``x`` reduced ("sum" or "max") over the ranks along ``axes``. A sum
+    of a tensor that requires grad is differentiable (its backward an
+    all-reduce of the gradient) and leaves ``x`` as it was; otherwise the
+    reduction is in place. A max carries no gradient (the result is
+    detached): it serves as a shift, as a log-sum-exp's."""
+    groups = _groups(ctx, axes)
+    if not groups:
         return x
-    x = x.contiguous()
+    if op == "sum" and _differentiated(x):
+        return _AllReduce.apply(x, groups, ctx.comm)
+    x = x.detach().contiguous()
     red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
-    for a in ax:
-        dist.all_reduce(x, op=red, group=ctx.mesh.get_group(a))
+    for g in groups:
+        dist.all_reduce(x, op=red, group=g)
         ctx.comm.add("all_reduce", x)
     return x
+
+
+def _gather_plan(n: int, width: int, total: Optional[int]):
+    """(block width, the blocks' true sizes or None) of an all-gather of
+    ``n`` blocks of ``width``; ``total``: the whole length, where the
+    blocks are of ``sharding.split``'s uneven sizes (each padded to the
+    longest for the collective)."""
+    if total is not None and total % n:
+        sizes = [hi - lo for lo, hi in (sharding.split(total, n, r)
+                                        for r in range(n))]
+        return max(sizes), sizes
+    return width, None
+
+
+def _gather0(xt: torch.Tensor, n: int, width: int, sizes, group,
+             comm: Optional[CommStats]) -> torch.Tensor:
+    """The all-gather along dim 0 of ``xt`` (this rank's block), padded to
+    ``width`` for the collective and the pads dropped after."""
+    if xt.shape[0] < width:
+        pad = xt.new_zeros((width - xt.shape[0],) + tuple(xt.shape[1:]))
+        xt = torch.cat([xt, pad])
+    xt = xt.contiguous()
+    out = xt.new_empty((n * width,) + tuple(xt.shape[1:]))
+    all_gather_single(out, xt, group)
+    if comm is not None:
+        comm.add("all_gather", out)
+    if sizes:
+        out = torch.cat([out[r * width:r * width + sizes[r]]
+                         for r in range(n)])
+    return out
+
+
+class _GatherAxis(torch.autograd.Function):
+    """``_gather0`` whose backward is the adjoint reduce-scatter: each rank
+    keeps its block of the gradient summed over the ranks."""
+
+    @staticmethod
+    def forward(fctx, xt, n, width, sizes, group, comm):
+        fctx.plan = (n, width, sizes, group, comm, xt.shape[0])
+        return _gather0(xt, n, width, sizes, group, comm)
+
+    @staticmethod
+    def backward(fctx, grad):
+        n, width, sizes, group, comm, own = fctx.plan
+        if sizes:
+            full = grad.new_zeros((n * width,) + tuple(grad.shape[1:]))
+            off = 0
+            for r in range(n):
+                full[r * width:r * width + sizes[r]] = \
+                    grad[off:off + sizes[r]]
+                off += sizes[r]
+            grad = full
+        grad = grad.contiguous()
+        out = grad.new_empty((width,) + tuple(grad.shape[1:]))
+        reduce_scatter_single(out, grad, group)
+        if comm is not None:
+            comm.add("reduce_scatter", grad, backward=True)
+        return out[:own], None, None, None, None, None
 
 
 def _gather_axis(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int,
@@ -164,27 +298,18 @@ def _gather_axis(x: torch.Tensor, mesh: DeviceMesh, axis: str, dim: int,
     concatenated along ``dim`` by one all-gather into a tensor;
     ``total``: the whole length, where the blocks are of
     ``sharding.split``'s uneven sizes (each padded to the longest for the
-    collective, the pads dropped after)."""
+    collective, the pads dropped after). Differentiable (a reduce-scatter
+    backward) where ``x`` requires grad."""
     n = mesh.size(mesh.mesh_dim_names.index(axis))
     if n == 1:
         return x
-    width, sizes = x.shape[dim], None
-    if total is not None and total % n:
-        sizes = [hi - lo for lo, hi in (sharding.split(total, n, r)
-                                        for r in range(n))]
-        width = max(sizes)
+    width, sizes = _gather_plan(n, x.shape[dim], total)
     xt = x.movedim(dim, 0)
-    if xt.shape[0] < width:
-        pad = xt.new_zeros((width - xt.shape[0],) + tuple(xt.shape[1:]))
-        xt = torch.cat([xt, pad])
-    xt = xt.contiguous()
-    out = xt.new_empty((n * width,) + tuple(xt.shape[1:]))
-    all_gather_single(out, xt, mesh.get_group(axis))
-    if comm is not None:
-        comm.add("all_gather", out)
-    if sizes:
-        out = torch.cat([out[r * width:r * width + sizes[r]]
-                         for r in range(n)])
+    group = mesh.get_group(axis)
+    if _differentiated(xt):
+        out = _GatherAxis.apply(xt, n, width, sizes, group, comm)
+    else:
+        out = _gather0(xt, n, width, sizes, group, comm)
     return out.movedim(0, dim)
 
 
@@ -200,9 +325,69 @@ def all_gather(x: torch.Tensor, ctx: ParallelCtx, axes, dim: int,
     return x
 
 
+def loss_scale(ctx: Optional[ParallelCtx]) -> float:
+    """What each rank's loss is scaled by before its backward: 1 / the
+    mesh's ranks, so the ranks' parts add up to the loss's gradient (the
+    module's convention); 1 without a mesh."""
+    if ctx is None or ctx.mesh is None:
+        return 1.0
+    return 1.0 / ctx.mesh.size()
+
+
+def placed_axes(p, kind) -> Tuple[str, ...]:
+    """The axes of more than one rank on which DTensor ``p``'s placement
+    is of ``kind`` (``Shard`` or ``Replicate``); () for a plain tensor."""
+    if not isinstance(p, DTensor):
+        return ()
+    mesh = p.device_mesh
+    return tuple(a for m, a in enumerate(mesh.mesh_dim_names)
+                 if isinstance(p.placements[m], kind) and mesh.size(m) > 1)
+
+
+def sum_over(tensors: Sequence[torch.Tensor], mesh: DeviceMesh, axes,
+             comm: Optional[CommStats] = None,
+             backward: bool = False) -> None:
+    """Each of ``tensors`` (one dtype and device) <- its sum over the ranks
+    along ``axes``, in place, by one all-reduce an axis over the tensors
+    laid end to end."""
+    axes = [a for a in axes if mesh.size(mesh.mesh_dim_names.index(a)) > 1]
+    if not tensors or not axes:
+        return
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    for a in axes:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
+        if comm is not None:
+            comm.add("all_reduce", flat, backward)
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+@torch.no_grad()
+def sum_replicas(grads: Dict[str, torch.Tensor], params,
+                 comm: Optional[CommStats] = None) -> None:
+    """Each gradient (of a DTensor parameter's local shard) <- the sum of
+    its replicas' parts over the axes the parameter is replicated on, in
+    place: one all-reduce an axis for the gradients of the same axes and
+    dtype, counted as the backward's."""
+    groups: Dict[tuple, list] = {}
+    mesh = None
+    for name, p in params.items():
+        axes = placed_axes(p, Replicate)
+        if axes:
+            mesh = p.device_mesh
+            groups.setdefault((axes, grads[name].dtype), []).append(
+                grads[name])
+    for (axes, _), ts in groups.items():
+        sum_over(ts, mesh, axes, comm, backward=True)
+
+
 def local(t) -> torch.Tensor:
-    """A DTensor's shard on this rank (a plain tensor as it is)."""
-    return t.to_local() if isinstance(t, DTensor) else t
+    """A DTensor's shard on this rank, the same tensor object every call
+    (``compat.local_tensor``: a parameter's shard is the leaf the train
+    step differentiates against); a plain tensor as it is."""
+    return local_tensor(t) if isinstance(t, DTensor) else t
 
 
 def gather_placed(t, ctx: Optional[ParallelCtx] = None,
@@ -221,7 +406,7 @@ def gather_placed(t, ctx: Optional[ParallelCtx] = None,
     if not isinstance(t, DTensor):
         return t
     mesh, names = t.device_mesh, t.device_mesh.mesh_dim_names
-    x = t.to_local()
+    x = local(t)
     for m in reversed(range(len(names))):
         pl = t.placements[m]
         if names[m] in keep or not isinstance(pl, Shard):

@@ -29,12 +29,16 @@ backward under ``kernels.ops``' autograd Function).
 On a mesh (``ctx``, a ``ParallelCtx`` holding a ``DeviceMesh``; one
 process a mesh device) the parameters are DTensors placed by
 ``launch.sharding`` (``init_params(..., mesh=)``,
-``core.convert.lm_from_numpy(..., mesh=)``), and prefill, decode and the
-feature pass compute on each rank's shards with explicit collectives,
-the single-device result as the reference's GSPMD gives it. The
+``core.convert.lm_from_numpy(..., mesh=)``), and prefill, decode, the
+feature pass and ``forward_train`` compute on each rank's shards with
+explicit collectives, the single-device result as the reference's GSPMD
+gives it (in training, with the gradients of ``models.common``'s
+convention: the vocab-sharded loss by ``_ce_chunk``). The
 activations are this rank's batch rows (``Layout``); the attention's
 mode is the reference's ``attn_parallel_mode``:
 
+    none    no model axis (ZeRO-3 training): every weight gathered
+            whole, each rank its batch rows;
     head    query heads split over `model`: each rank its heads (the
             flash kernel on them), K/V whole, ``wo`` row-parallel;
     qseq    heads the model axis does not divide: each rank its query
@@ -493,7 +497,8 @@ def _apply_layer(layer: Layer, x: torch.Tensor, cfg: ModelConfig, *,
         y, aux = moe_mlp(layer.moe, h, experts_per_token=cfg.experts_per_token,
                          act_name=cfg.mlp_activation,
                          capacity_factor=cfg.moe_capacity_factor,
-                         router_jitter=cfg.router_jitter, rng=rng, **on)
+                         router_jitter=cfg.router_jitter, rng=rng,
+                         global_aux=mesh and mode == "train", **on)
     else:
         y = mlp(layer.mlp, h, cfg.mlp_activation, ctx,
                 seq_sharded=mesh and lay.seq_axis is not None)
@@ -561,20 +566,29 @@ def embed_inputs(model: LM, inputs: torch.Tensor, positions: torch.Tensor,
     return x
 
 
+def _unembed_weight(model: LM, ctx: Optional[ParallelCtx] = None):
+    """(the unembedding [d, V_local] in the parameter dtype, the vocab
+    index of its first column): the whole table without a mesh; on a mesh
+    this rank's vocab block where the rule shards the vocab over the model
+    axis, gathered over every other axis."""
+    cfg = model.cfg
+    if ctx is None or ctx.mesh is None:
+        return (model.embed.T if cfg.tie_embeddings else model.unembed), 0
+    keep = (ctx.tp_axis,)
+    w = gather_placed(model.embed, ctx, keep).T if cfg.tie_embeddings \
+        else gather_placed(model.unembed, ctx, keep)
+    v0 = 0 if w.shape[1] == cfg.padded_vocab \
+        else rows(ctx, cfg.padded_vocab, ctx.tp_axis)[0]
+    return w, v0
+
+
 def unembed(model: LM, x: torch.Tensor,
             ctx: Optional[ParallelCtx] = None) -> torch.Tensor:
     """[..., d] -> logits [..., padded_vocab] in the compute dtype (the
     pad columns are not masked). On a mesh: this rank's block of the
     vocab where the rule shards it over the model axis."""
     cdt = torch_dtype(model.cfg.compute_dtype)
-    if ctx is not None and ctx.mesh is not None:
-        keep = (ctx.tp_axis,)
-        w = gather_placed(model.embed, ctx, keep).T \
-            if model.cfg.tie_embeddings \
-            else gather_placed(model.unembed, ctx, keep)
-        return x @ w.to(cdt)
-    w = model.embed.T if model.cfg.tie_embeddings else model.unembed
-    return x @ w.to(cdt)
+    return x @ _unembed_weight(model, ctx)[0].to(cdt)
 
 
 def _logits(model: LM, x: torch.Tensor, ctx: ParallelCtx,
@@ -707,43 +721,71 @@ def _as_input(model: LM, inputs) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(inputs)).to(model.device)
 
 
-def _ce_chunk(model: LM, h: torch.Tensor, t: torch.Tensor,
-              pad_mask: torch.Tensor):
-    """(sum of -log p(target), sum of logsumexp^2) over one chunk, the
-    logits in float32 with the vocab padding at -1e30."""
-    logits = unembed(model, h).to(torch.float32)
-    logits = torch.where(pad_mask, -1e30, logits)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+def _ce_chunk(w: torch.Tensor, h: torch.Tensor, t: torch.Tensor, v0: int,
+              cfg: ModelConfig, ctx: Optional[ParallelCtx] = None):
+    """(sum of -log p(target), sum of logsumexp^2) over one chunk of rows
+    ``h``, the logits (``h @ w``, vocab columns [v0, v0 + w.shape[1]))
+    in float32 with the vocab padding at -1e30. Where ``w`` is a block of
+    the vocab (a mesh), the log-sum-exp takes the max over the model axis
+    (a shift, no gradient) and the sum of exp by an all-reduce, and the
+    gold logit comes from the rank whose block holds the target (zeros
+    elsewhere, an all-reduce)."""
+    vl = w.shape[1]
+    logits = (h @ w.to(h.dtype)).to(torch.float32)
+    col = torch.arange(v0, v0 + vl, device=h.device)
+    logits = torch.where(col >= cfg.vocab_size, -1e30, logits)
+    if vl == cfg.padded_vocab:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+        return (lse - gold).sum(), (lse ** 2).sum()
+    tp = ctx.tp_axis
+    m = all_reduce(logits.detach().amax(-1), ctx, tp, "max")
+    se = all_reduce(torch.exp(logits - m[..., None]).sum(-1), ctx, tp)
+    lse = m + torch.log(se)
+    idx = t.long() - v0
+    mine = (idx >= 0) & (idx < vl)
+    g = torch.gather(logits, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+    gold = all_reduce(torch.where(mine, g, torch.zeros_like(g)), ctx, tp)
     return (lse - gold).sum(), (lse ** 2).sum()
 
 
 def chunked_ce_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor,
-                    chunk: int = 0, z_loss: float = 0.0) -> torch.Tensor:
+                    chunk: int = 0, z_loss: float = 0.0,
+                    ctx: Optional[ParallelCtx] = None,
+                    lay: Optional[Layout] = None) -> torch.Tensor:
     """Cross-entropy over the vocab in sequence chunks of ``chunk`` (the
     whole sequence where it is 0 or does not divide S). Each chunk runs
     under ``torch.utils.checkpoint``, so no chunk's [B, chunk, V] float32
     logits are held for the backward; the sums go in float32 in chunk
     order as the reference's scan. Returns the mean NLL plus ``z_loss``
-    times the mean logsumexp^2."""
+    times the mean logsumexp^2.
+
+    On a mesh (``ctx``, ``lay``): ``hidden`` / ``targets`` are this rank's
+    rows, the unembedding is fetched once (its vocab block where the rule
+    shards the vocab over the model axis: ``_ce_chunk``), and the sums
+    are all-reduced over the batch axes, so the loss is the global
+    batch's mean on every rank."""
     b, s, _ = hidden.shape
     if chunk <= 0 or s % chunk:
         chunk = s
     cfg = model.cfg
-    pad_mask = torch.arange(cfg.padded_vocab,
-                            device=hidden.device) >= cfg.vocab_size
+    mesh = ctx is not None and ctx.mesh is not None
+    w, v0 = _unembed_weight(model, ctx)
+    chunk_fn = lambda h, t: _ce_chunk(w, h, t, v0, cfg, ctx)
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     zl = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
         h, t = hidden[:, c0:c0 + chunk], targets[:, c0:c0 + chunk]
         if torch.is_grad_enabled():
-            n, z = _ckpt.checkpoint(_ce_chunk, model, h, t, pad_mask,
-                                    use_reentrant=False)
+            n, z = _ckpt.checkpoint(chunk_fn, h, t, use_reentrant=False)
         else:
-            n, z = _ce_chunk(model, h, t, pad_mask)
+            n, z = chunk_fn(h, t)
         nll = nll + n
         zl = zl + z
     ntok = b * s
+    if mesh:
+        nll, zl = all_reduce(torch.stack([nll, zl]), ctx, lay.bax)
+        ntok = lay.b * s
     loss = nll / ntok
     if z_loss:
         loss = loss + z_loss * zl / ntok
@@ -753,7 +795,8 @@ def chunked_ce_loss(model: LM, hidden: torch.Tensor, targets: torch.Tensor,
 def forward_train(model: LM, inputs, targets, *,
                   generator: Optional[torch.Generator] = None,
                   remat: str = "none", loss_chunk: int = 0,
-                  z_loss: float = 0.0, lb_coef: float = 0.0):
+                  z_loss: float = 0.0, lb_coef: float = 0.0,
+                  ctx: Optional[ParallelCtx] = None):
     """inputs / targets: token ids [B, S] (inputs may be embeddings [B, S,
     d]), tensors or numpy arrays. Returns (loss, {"ce_loss",
     "load_balance"}), 0-d float32 tensors; ``ce_loss`` is the loss (the
@@ -764,15 +807,28 @@ def forward_train(model: LM, inputs, targets, *,
     the layer's key), so a recompute under remat draws the same, and the
     step's generator is not advanced. The draws are torch's, not JAX's
     threefry numbers. ``remat``: "none", "full" or "dots" (REMAT_MODES);
-    none changes a value."""
+    none changes a value.
+
+    ``ctx`` with a mesh (the model placed on it): ``inputs`` / ``targets``
+    are the whole batch on every rank, each rank computes its rows (the
+    batch split over ``sharding.batch_shardings``' axes), and the loss and
+    the load-balance term are the global batch's on every rank. Its
+    gradients follow ``models.common``'s convention: differentiate
+    ``loss * common.loss_scale(ctx)`` on every rank."""
     inputs, targets = _as_input(model, inputs), _as_input(model, targets)
-    s = inputs.shape[1]
+    b, s = inputs.shape[:2]
     positions = torch.arange(s, device=model.device)
-    x = embed_inputs(model, inputs, positions)
     seed = None if generator is None else generator.initial_seed()
+    lay = None
+    if _on_mesh(model, ctx):
+        lay = layout(ctx, b, s)
+        targets = mshard(targets, ctx, lay.bax)
+    else:
+        ctx = None
+    x = embed_inputs(model, inputs, positions, ctx, lay)
     x, _, aux = _stack_forward(model, x, mode="train", positions=positions,
-                               seed=seed, remat=remat)
-    loss = chunked_ce_loss(model, x, targets, loss_chunk, z_loss)
+                               seed=seed, remat=remat, ctx=ctx, lay=lay)
+    loss = chunked_ce_loss(model, x, targets, loss_chunk, z_loss, ctx, lay)
     lb = torch.as_tensor(aux["load_balance"], dtype=torch.float32,
                          device=model.device)
     if lb_coef and model.cfg.num_experts:

@@ -206,7 +206,8 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
             act_name: str, capacity_factor: float = 1.25,
             router_jitter: float = 0.0, rng=None, seq_chunk: int = 4096,
             ctx: Optional[ParallelCtx] = None,
-            lay: Optional[Layout] = None) -> Tuple[torch.Tensor, dict]:
+            lay: Optional[Layout] = None,
+            global_aux: bool = False) -> Tuple[torch.Tensor, dict]:
     """x: [B, S, d] -> (y [B, S, d], {"load_balance", "router_z"}).
     ``rng``: a torch.Generator on x's device, drawn from (one [T, E]
     draw a chunk, in chunk order) where ``router_jitter`` is non-zero.
@@ -220,7 +221,10 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
     ``ctx`` / ``lay`` (a mesh): x is this rank's rows of a batch of
     ``lay.b`` (B above is the global batch); a flat group is gathered
     whole on every rank, the rows' own groups are routed where they
-    are; each rank runs its experts of the bank."""
+    are; each rank runs its experts of the bank. ``global_aux``
+    (training): the statistics are the means over the global batch's
+    groups on every rank (a rank's own groups' means averaged over the
+    batch axes); a flat group's are so already."""
     b, s, d = x.shape
     mesh = ctx is not None and ctx.mesh is not None
     big_b = lay.b if mesh else b
@@ -268,6 +272,9 @@ def moe_mlp(p: MoE, x: torch.Tensor, *, experts_per_token: int,
     y = torch.cat(ys, dim=1) if chunks > 1 else ys[0]
     aux = {"load_balance": torch.stack(lbs).mean(),
            "router_z": torch.stack(rzs).mean()}
+    if mesh and global_aux and not flat and ctx.size(lay.bax) > 1:
+        n = ctx.size(lay.bax)
+        aux = {k: all_reduce(v, ctx, lay.bax) / n for k, v in aux.items()}
     if mesh:
         if banks.w_in.shape[0] < e:
             y = all_reduce(y, ctx, ctx.tp_axis)

@@ -19,6 +19,15 @@ port's ``launch.steps.TrainState`` is saved as the reference's
 ``TrainState`` (``core.convert.train_state_to_numpy``: leaves stacked
 over blocks, e.g. ``params/blocks/slot0/attn/wq``) and restored into one.
 
+On a mesh (``mesh=``, a state placed on it): every rank of the mesh
+calls ``save`` / ``save_async`` / ``wait`` / ``restore`` at the same
+points. A save gathers every leaf to its full logical array (every rank
+takes part), the mesh's first rank writes the files, and the ranks wait
+for it (``launch.mesh.mesh_barrier``) before any of them goes on; a
+restore reads the files memory-mapped and each rank copies its shard
+only. The files are the single device's: a state saved on one mesh
+restores onto another, or onto one device.
+
 A bfloat16 leaf: the reference's ``np.save`` of an ml_dtypes bfloat16
 array writes the descr ``'<V2'`` and the raw 2-byte bits, and its
 manifest says ``"bfloat16"``; the port writes the same bytes from the
@@ -120,32 +129,49 @@ class CheckpointManager:
     files."""
 
     def __init__(self, directory, *, keep: int = 3, shard_id: int = 0,
-                 num_shards: int = 1):
+                 num_shards: int = 1, mesh=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.shard_id = shard_id
         self.num_shards = num_shards
+        self.mesh = mesh
+        coord = None if mesh is None else mesh.get_coordinate()
+        self.writer = mesh is None or (coord is not None
+                                       and not any(coord))
         self._pending: Optional[threading.Thread] = None
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import mesh_barrier
+            mesh_barrier(self.mesh)
 
     # ------------------------------------------------------------------
     def save(self, step: int, tree) -> Path:
         """Synchronous atomic save."""
-        return self._write(step, _host_tree(tree))
+        host_tree = _host_tree(tree)
+        final = self._write(step, host_tree) if self.writer \
+            else self.dir / f"step_{step:08d}"
+        self._barrier()
+        return final
 
     def save_async(self, step: int, tree) -> None:
         """Snapshot now (a host copy), write in the background. Joins any
         previous pending write first (at most one in flight)."""
         self.wait()
         host_tree = _host_tree(tree)
-        self._pending = threading.Thread(
-            target=self._write, args=(step, host_tree), daemon=True)
-        self._pending.start()
+        if self.writer:
+            self._pending = threading.Thread(
+                target=self._write, args=(step, host_tree), daemon=True)
+            self._pending.start()
 
     def wait(self) -> None:
+        """Join the pending write; on a mesh every rank then waits for
+        the writer."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        self._barrier()
 
     # ------------------------------------------------------------------
     def _write(self, step: int, host_tree) -> Path:
@@ -199,8 +225,9 @@ class CheckpointManager:
 
     def restore(self, tree_like, step: Optional[int] = None):
         """Restore into the structure of ``tree_like``; a port TrainState
-        is loaded in place (shapes and dtypes must match: nothing is cast)
-        and returned with the checkpoint's steps. A bfloat16 leaf comes
+        is loaded in place (shapes and dtypes must match: nothing is cast;
+        on a mesh each rank reads its shards) and returned with the
+        checkpoint's steps. A bfloat16 leaf comes
         back as its bits (``BF16_BITS``) in a numpy tree. Raises
         FileNotFoundError if nothing exists."""
         if step is None:
@@ -211,6 +238,7 @@ class CheckpointManager:
         load = lambda name: np.load(d / _leaf_file(name))
         from repro_torch.launch.steps import TrainState
         if isinstance(tree_like, TrainState):
+            load = lambda name: np.load(d / _leaf_file(name), mmap_mode="r")
             manifest = json.loads((d / "manifest.json").read_text())
             tree = nest({n: load(n) for n in manifest["leaves"]}, "/")
             return load_train_state_(tree_like, tree, tree_like.model.cfg)

@@ -12,15 +12,18 @@ smaller than float32.
     grads_q, ef = comp.compress(grads, ef)
     grads = comp.decompress(grads_q)
 
-Trees are dicts {name: tensor}. The cross-pod mean
-(``compressed_cross_pod_mean``) reduces over a mesh axis and is ROADMAP
-A13c-2: the port trains on one device.
+Trees are dicts {name: tensor}. ``compressed_cross_pod_mean`` is the
+reference's shard_map body on a ``DeviceMesh``: each rank quantises its
+tree, the dequantised values are all-reduced over the ``pod`` axis's
+group and divided by its size. As in the reference, the train step does
+not call it (``TrainConfig.grad_compression`` is read nowhere).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Tuple
 
 import torch
+import torch.distributed as dist
 
 Tree = Dict[str, torch.Tensor]
 _INT8_MAX = 127.0
@@ -66,12 +69,32 @@ class Int8ErrorFeedback:
 
 
 def compressed_cross_pod_mean(grads: Tree, ef: Tree, mesh,
-                              axis: str = "pod"):
-    """The reference's shard_map mean over the ``pod`` axis: a mesh,
-    ROADMAP A13c-2."""
-    raise NotImplementedError(
-        "compressed_cross_pod_mean reduces over a mesh axis; the port "
-        "trains on one device (training on a mesh is ROADMAP A13c-2)")
+                              axis: str = "pod") -> Tuple[Tree, Tree]:
+    """Mean-reduce gradients across ``axis`` of ``mesh`` (a DeviceMesh)
+    with int8 payloads: each rank quantises its tree with error feedback
+    (``Int8ErrorFeedback.compress``), then the dequantised values are
+    summed over the axis's ranks and divided by their number (the per-
+    pod scales differ, so the reference reduces the values, not the
+    payloads). Returns (the mean tree, float32, the new error feedback);
+    every rank of the mesh calls it."""
+    from repro_torch.compat import DeviceMesh
+    if not isinstance(mesh, DeviceMesh):
+        raise ValueError(f"mesh: a torch DeviceMesh, not "
+                         f"{type(mesh).__name__}")
+    if axis not in mesh.mesh_dim_names:
+        raise ValueError(f"the mesh {mesh.mesh_dim_names} has no axis "
+                         f"{axis!r}")
+    comp = Int8ErrorFeedback()
+    qtree, ef = comp.compress(grads, ef)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    group = mesh.get_group(axis)
+    out = {}
+    for k, z in qtree.items():
+        val = _dequantize(z)
+        if n > 1:
+            dist.all_reduce(val, op=dist.ReduceOp.SUM, group=group)
+        out[k] = val / float(n)
+    return out, ef
 
 
 def compression_ratio(grads: Tree) -> float:

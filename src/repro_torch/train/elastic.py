@@ -7,7 +7,11 @@ ranks 0 .. n - 1) and the latest checkpoint is resharded onto it.
 Because checkpoints are stored as full logical arrays (host tensors,
 topology-independent) the reshard is a placement, ``sharding.place``
 with the new mesh's shardings: each rank cuts its own shard, no per-shard
-stitching. The Trainer's use of it (a sharded restore) is ROADMAP A13c-2.
+stitching. A whole ``launch.steps.TrainState`` takes the same path: its
+leaves gathered to the reference's full arrays
+(``core.convert.train_state_to_numpy``) and loaded into a state placed
+on the new mesh, each rank its shards (as ``Trainer.init_or_restore``
+restores a checkpoint onto any mesh).
 
 Also here: straggler/preemption utilities used by the Trainer:
   * ``Heartbeat``   — per-step deadline monitor (straggler detection);
@@ -54,7 +58,15 @@ def reshard_state(state: Any, shardings: Any) -> Any:
     """Place a host-side (full logical) tree onto new shardings (a tree
     of ``sharding.NamedSharding`` of the same structure) — the elastic-
     restart data path. Leaves become DTensors on the shardings' mesh
-    (None on a rank outside it)."""
+    (None on a rank outside it). A TrainState's host arrays
+    (``train_state_to_numpy``'s) go into ``shardings`` given as a
+    TrainState placed on the new mesh (``init_train_state(..., mesh=)``),
+    each rank its shards; that state is returned with their steps."""
+    from repro_torch.launch.steps import TrainState
+    if isinstance(shardings, TrainState):
+        from repro_torch.core.convert import load_train_state_
+        return load_train_state_(shardings, state, shardings.model.cfg)
+
     def put(x, sh):
         return sharding.place(x, sh, device=torch.device(
             sh.mesh.device_type))
@@ -70,8 +82,20 @@ def simulate_failure_and_restart(
     model_axis: int = 1,
 ) -> Tuple[DeviceMesh, Any]:
     """Test harness for the elastic path: take a sharded state (a tree of
-    DTensors), 'lose' ranks, rebuild a smaller mesh and reshard. Returns
-    (mesh, state); every rank of the old mesh calls it."""
+    DTensors, or a TrainState), 'lose' ranks, rebuild a smaller mesh and
+    reshard. Returns (mesh, state); every rank of the old mesh calls it.
+    For a TrainState ``make_shardings(new_mesh)`` gives the placed state
+    to load into (``reshard_state``), and a rank outside the new mesh
+    gets None."""
+    from repro_torch.launch.steps import TrainState
+    if isinstance(state, TrainState):
+        from repro_torch.core.convert import train_state_to_numpy
+        host_state = train_state_to_numpy(state, state.model.cfg)
+        new_mesh = remesh(surviving_devices, model_axis,
+                          old_mesh.device_type)
+        if new_mesh.get_coordinate() is None:
+            return new_mesh, None
+        return new_mesh, reshard_state(host_state, make_shardings(new_mesh))
     host_state = _tree_map(lambda x: gather_placed(x).cpu(), state)
     new_mesh = remesh(surviving_devices, model_axis, old_mesh.device_type)
     return new_mesh, reshard_state(host_state, make_shardings(new_mesh))

@@ -20,6 +20,16 @@ in no stack is a leaf of its own. The per-leaf rules read the leaf: its
 rank (a stacked tensor's ``dim() + 1``) decides AdamW's weight decay and
 Adafactor's factoring, and Adafactor's statistics and RMS clip run over
 the whole stacked leaf.
+
+On a mesh the parameters and moments are DTensors (the moments placed
+as their parameters) and the gradients plain tensors of each rank's
+shard (``launch.steps``' train step: the replicas' parts already summed).
+Every update is elementwise on the local shards, written in place; a
+reduction that spans a sharded dim sums the local shards and all-reduces
+over the axes that shard it (never over an axis the tensor is replicated
+on): the global norm (each element's square once over the world),
+Adafactor's row and column means and its RMS clip. No DTensor op runs:
+the collectives are the port's own (``models.common.sum_over``).
 """
 from __future__ import annotations
 
@@ -28,7 +38,9 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models.common import torch_dtype
+from repro_torch.compat import DTensor, Shard, like_placed
+from repro_torch.models.common import (CommStats, local, placed_axes,
+                                       sum_over, torch_dtype)
 
 Tree = Dict[str, torch.Tensor]
 Stacks = Dict[str, List[str]]
@@ -65,24 +77,71 @@ def cosine_schedule(lr: float, warmup: int, total: int,
     return schedule
 
 
-def global_norm(tree: Tree) -> torch.Tensor:
+def _mesh_of(like) -> Optional[object]:
+    for t in (like or {}).values():
+        if isinstance(t, DTensor):
+            return t.device_mesh
+    return None
+
+
+def global_norm(tree: Tree, like: Optional[Tree] = None,
+                comm: Optional[CommStats] = None) -> torch.Tensor:
     """sqrt of the sum of every tensor's float32 sum of squares: a 0-d
-    float32 tensor on the tensors' device (no host sync)."""
-    leaves = [torch.sum(torch.square(x.to(torch.float32)))
-              for x in tree.values()]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    float32 tensor on the tensors' device (no host sync). ``like``: the
+    tensors' parameters ({name: DTensor}) where ``tree`` holds local
+    shards: each shard's sum is all-reduced over the axes sharding its
+    parameter, grouped by those axes, so each element counts once."""
+    sums = {k: torch.sum(torch.square(x.to(torch.float32)))
+            for k, x in tree.items()}
+    mesh = _mesh_of(like)
+    if mesh is None:
+        return torch.sqrt(torch.sum(torch.stack(list(sums.values()))))
+    groups: Dict[tuple, list] = {}
+    for k, v in sums.items():
+        groups.setdefault(placed_axes(like[k], Shard), []).append(v)
+    parts = []
+    for axes, vals in groups.items():
+        part = torch.sum(torch.stack(vals)).reshape(1)
+        sum_over([part], mesh, axes, comm)
+        parts.append(part)
+    return torch.sqrt(torch.sum(torch.cat(parts)))
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Tree, max_norm: float
+def clip_by_global_norm(grads: Tree, max_norm: float,
+                        like: Optional[Tree] = None,
+                        comm: Optional[CommStats] = None
                         ) -> Tuple[Tree, torch.Tensor]:
     """Scales every gradient by min(1, max_norm / max(norm, 1e-9)) in
-    float32, in place (cast back to its dtype). Returns (grads, norm)."""
-    norm = global_norm(grads)
+    float32, in place (cast back to its dtype). Returns (grads, norm).
+    ``like``: as ``global_norm``'s."""
+    norm = global_norm(grads, like, comm)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads.values():
         g.copy_(g.to(torch.float32) * scale)
     return grads, norm
+
+
+# elements of one slice of AdamW's update: its float32 temporaries (some
+# eight a slice) stay within 2 GiB however large a tensor is; every op is
+# elementwise, so the slices give the whole tensor's numbers
+UPDATE_CHUNK_ELEMS = 1 << 26
+
+
+def _chunks(t: torch.Tensor) -> list:
+    """``t`` as views along its first dim, each at most UPDATE_CHUNK_ELEMS
+    elements (``t`` itself where it is smaller, or 0-d)."""
+    if t.dim() == 0 or t.numel() <= UPDATE_CHUNK_ELEMS:
+        return [t]
+    rows = max(1, UPDATE_CHUNK_ELEMS // max(t[0].numel(), 1))
+    return list(torch.split(t, rows))
+
+
+def _zeros_placed(p, dtype) -> torch.Tensor:
+    """Zeros of ``p``'s shape in ``dtype`` on its device; a DTensor
+    placed as ``p`` where it is one."""
+    z = torch.zeros(local(p).shape, dtype=dtype, device=p.device)
+    return like_placed(z, p) if isinstance(p, DTensor) else z
 
 
 class AdamW:
@@ -99,8 +158,7 @@ class AdamW:
         self.stacked = _stacked(stacks)
 
     def init(self, params: Tree) -> AdamWState:
-        zeros = lambda p: torch.zeros(p.shape, dtype=self.state_dtype,
-                                      device=p.device)
+        zeros = lambda p: _zeros_placed(p, self.state_dtype)
         return AdamWState(m={k: zeros(p) for k, p in params.items()},
                           v={k: zeros(p) for k, p in params.items()},
                           step=0)
@@ -114,21 +172,23 @@ class AdamW:
         stepf = _f32(step)
         bc1 = float(1 - _f32(b1) ** stepf)
         bc2 = float(1 - _f32(b2) ** stepf)
-        for name, p in params.items():
-            g32 = grads[name].to(torch.float32)
-            m, v = state.m[name], state.v[name]
-            m32 = m.to(torch.float32) * b1 + g32 * (1 - b1)
-            v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1 - b2)
-            mhat = m32 / bc1
-            vhat = v32 / bc2
-            delta = mhat / (torch.sqrt(vhat) + self.eps)
+        for name, pp in params.items():
             # decoupled weight decay (skip 1-d leaves: unstacked norms,
             # biases)
-            if p.dim() + (name in self.stacked) >= 2:
-                delta = delta + self.wd * p.to(torch.float32)
-            p.copy_(p.to(torch.float32) - lr * delta)
-            m.copy_(m32)
-            v.copy_(v32)
+            decay = pp.dim() + (name in self.stacked) >= 2
+            for g, p, m, v in zip(*(_chunks(local(t)) for t in (
+                    grads[name], pp, state.m[name], state.v[name]))):
+                g32 = g.to(torch.float32)
+                m32 = m.to(torch.float32) * b1 + g32 * (1 - b1)
+                v32 = v.to(torch.float32) * b2 + torch.square(g32) * (1 - b2)
+                mhat = m32 / bc1
+                vhat = v32 / bc2
+                delta = mhat / (torch.sqrt(vhat) + self.eps)
+                if decay:
+                    delta = delta + self.wd * p.to(torch.float32)
+                p.copy_(p.to(torch.float32) - lr * delta)
+                m.copy_(m32)
+                v.copy_(v32)
         return params, AdamWState(state.m, state.v, step)
 
 
@@ -155,12 +215,13 @@ class Adafactor:
         yield from ((n, [n]) for n in params if n not in stacked)
 
     def _leaf(self, tree: Tree, key: str, names: List[str]) -> torch.Tensor:
-        return torch.stack([tree[n] for n in names]) \
-            if key in self.stacks else tree[key]
+        """The leaf's local tensor: a stack's layers' shards stacked."""
+        return torch.stack([local(tree[n]) for n in names]) \
+            if key in self.stacks else local(tree[key])
 
     def init(self, params: Tree) -> dict:
         def f(names, key):
-            p = params[names[0]]
+            p = local(params[names[0]])
             shape = ((len(names),) if key in self.stacks else ()) + \
                 tuple(p.shape)
             z = lambda shape: torch.zeros(shape, dtype=torch.float32,
@@ -173,6 +234,44 @@ class Adafactor:
                              for k, names in self._leaves(params)},
                 "step": 0}
 
+    @staticmethod
+    def _reducer(first, stacked: bool, ndim: int):
+        """(mean over a leaf dim, whole-leaf mean of a tensor's square) of
+        the leaf whose first parameter is ``first``: a local mean where
+        the dim is whole on this rank, else the local sums all-reduced
+        over the axes sharding it, over its global length."""
+        off = 1 if stacked else 0
+        if not isinstance(first, DTensor):
+            return (lambda x, d, leaf_dim=None, keepdim=False:
+                    x.mean(d, keepdim=keepdim),
+                    lambda x: torch.mean(torch.square(x)))
+        mesh, names = first.device_mesh, first.device_mesh.mesh_dim_names
+        shape = ((1,) if stacked else ()) + tuple(first.shape)
+
+        def axes(d):
+            d = d % ndim - off
+            return tuple(a for m, a in enumerate(names)
+                         if first.placements[m] == Shard(d)
+                         and mesh.size(m) > 1) if d >= 0 else ()
+
+        def mean(x, d, leaf_dim=None, keepdim=False):
+            """x's mean over its dim d, which spans the leaf's dim
+            ``leaf_dim`` (default d)."""
+            ld = d if leaf_dim is None else leaf_dim
+            ax = axes(ld)
+            if not ax:
+                return x.mean(d, keepdim=keepdim)
+            t = x.sum(d, keepdim=keepdim)
+            sum_over([t], mesh, ax)
+            return t / shape[ld % ndim]
+
+        def sq_mean(x):
+            t = torch.sum(torch.square(x)).reshape(1)
+            sum_over([t], mesh, placed_axes(first, Shard))
+            n = x.shape[0] if stacked else 1
+            return (t / (n * first.numel()))[0]
+        return mean, sq_mean
+
     @torch.no_grad()
     def update(self, grads: Tree, state: dict, params: Tree):
         step = state["step"] + 1
@@ -181,14 +280,18 @@ class Adafactor:
         for key, names in self._leaves(params):
             s = state["factored"][key]
             p = self._leaf(params, key, names)
-            g32 = self._leaf(grads, key, names).to(torch.float32)
+            mean, sq_mean = self._reducer(params[names[0]],
+                                          key in self.stacks, p.dim())
+            g32 = torch.stack([grads[n] for n in names]).to(torch.float32) \
+                if key in self.stacks else grads[key].to(torch.float32)
             g2 = torch.square(g32) + self.eps
             if p.dim() >= 2:
-                vr = beta * s["vr"] + (1 - beta) * g2.mean(-1)
-                vc = beta * s["vc"] + (1 - beta) * g2.mean(-2)
+                vr = beta * s["vr"] + (1 - beta) * mean(g2, -1)
+                vc = beta * s["vc"] + (1 - beta) * mean(g2, -2)
                 denom = torch.sqrt(
                     vr[..., None] * vc[..., None, :]
-                    / torch.clamp(vr.mean(-1, keepdim=True)[..., None],
+                    / torch.clamp(mean(vr, -1, leaf_dim=-2,
+                                       keepdim=True)[..., None],
                                   min=self.eps))
                 s["vr"].copy_(vr)
                 s["vc"].copy_(vc)
@@ -197,12 +300,12 @@ class Adafactor:
                 denom = torch.sqrt(v)
                 s["v"].copy_(v)
             u = g32 / torch.clamp(denom, min=self.eps)
-            rms = torch.sqrt(torch.mean(torch.square(u)))
+            rms = torch.sqrt(sq_mean(u))
             u = u / torch.clamp(rms / self.clip, min=1.0)
             newp = p.to(torch.float32) - lr * u
             if key in self.stacks:
                 for n, row in zip(names, newp):
-                    params[n].copy_(row)
+                    local(params[n]).copy_(row)
             else:
-                p.copy_(newp)
+                local(params[key]).copy_(newp)
         return params, {"factored": state["factored"], "step": step}

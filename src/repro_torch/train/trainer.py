@@ -7,7 +7,14 @@ Composes the substrate:
   checkpoint.CheckpointManager (atomic, async)
   elastic.{Preemption, Heartbeat}
 
-One device (CUDA unless ``device="cpu"``); a mesh is ROADMAP A13c-2.
+One device (CUDA unless ``device="cpu"``), or a mesh (``mesh=``, a
+DeviceMesh; one process a mesh device, each on ``device``): the state is
+placed on it by the rules of ``tc.sharding_mode``
+(``init_train_state(..., mesh=)``), every rank is fed the global batch,
+which the step splits over the batch axes, checkpoints are saved by the
+mesh's first rank and restored onto any mesh, and ``tokens_per_s``
+counts the global batch's tokens. Every rank of the mesh runs the same
+loop; a preemption on any rank stops them all at the same step.
 """
 from __future__ import annotations
 
@@ -42,9 +49,9 @@ class TrainerReport:
 
 
 class Trainer:
-    """The reference's Trainer on one device. Step ``s`` runs with the
-    generator ``derive_generator(tc.seed ^ 0x5EED, s)`` (the reference
-    folds ``s`` into ``PRNGKey(tc.seed ^ 0x5EED)``)."""
+    """The reference's Trainer, on one device or a mesh. Step ``s`` runs
+    with the generator ``derive_generator(tc.seed ^ 0x5EED, s)`` (the
+    reference folds ``s`` into ``PRNGKey(tc.seed ^ 0x5EED)``)."""
 
     def __init__(
         self,
@@ -64,7 +71,7 @@ class Trainer:
         self.device = resolve_device(device)
         self.step_fn = make_train_step(cfg, tc, mesh)
         self.source = source or TokenSource(dc)
-        self.ckpt = (CheckpointManager(checkpoint_dir)
+        self.ckpt = (CheckpointManager(checkpoint_dir, mesh=mesh)
                      if checkpoint_dir else None)
         self.checkpoint_every = checkpoint_every
         self.step_deadline_s = step_deadline_s
@@ -73,11 +80,13 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_or_restore(self, seed: int = 0) -> TrainState:
         """A fresh state drawn from a generator seeded ``seed`` on the
-        trainer's device, then the latest checkpoint loaded into it where
-        one exists."""
+        trainer's device (placed on the mesh, where there is one), then
+        the latest checkpoint loaded into it where one exists (on a mesh,
+        each rank its shards: a checkpoint of any mesh or of one
+        device)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
         state = init_train_state(self.cfg, self.tc, generator=gen,
-                                 device=self.device)
+                                 device=self.device, mesh=self.mesh)
         self._resumed_from = None
         if self.ckpt is not None and self.ckpt.latest_step() is not None:
             state = self.ckpt.restore(state)
@@ -119,7 +128,7 @@ class Trainer:
                 if (self.ckpt is not None and self.checkpoint_every
                         and (step + 1) % self.checkpoint_every == 0):
                     self.ckpt.save_async(step + 1, state)
-                if preempt.requested:
+                if self._preempted(preempt):
                     report.preempted = True
                     if self.ckpt is not None:
                         self.ckpt.save(step + 1, state)
@@ -137,6 +146,14 @@ class Trainer:
             else float("nan")
         report.tokens_per_s = report.steps_run * tokens / max(dt, 1e-9)
         return state, report
+
+    def _preempted(self, preempt: Preemption) -> bool:
+        """The preemption flag; on a mesh, whether any rank has it (so
+        every rank saves and stops at the same step)."""
+        if self.mesh is None:
+            return preempt.requested
+        from repro_torch.launch.mesh import any_rank
+        return any_rank(preempt.requested, self.mesh)
 
     def _on_straggler(self, report: TrainerReport, dt: float) -> None:
         report.straggler_events += 1

@@ -359,11 +359,16 @@ def test_train_step_matches_reference(arch, m):
 
 
 def test_train_step_refuses_what_is_a13c():
+    """The step takes a torch DeviceMesh or None (anything else is a
+    ValueError; the mesh step is tests/test_torch_mesh_train.py); zero3
+    without a mesh is the single-device step, as the reference's
+    make_parallel_ctx has it; a batch the microbatches do not divide is
+    refused."""
     tc = tconfigs.get_reduced_config("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="A13c-2"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tsteps.make_train_step(tc, TrainConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="A13c-2"):
-        tsteps.make_train_step(tc, TrainConfig(sharding_mode="zero3"))
+    zero3 = tsteps.make_train_step(tc, TrainConfig(sharding_mode="zero3"))
+    assert zero3.ctx.mesh is None and zero3.ctx.tp_axis == "model"
     step = tsteps.make_train_step(tc, TrainConfig(microbatches=3))
     state = tsteps.init_train_state(tc, TrainConfig(),
                                     generator=torch.Generator(),

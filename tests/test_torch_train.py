@@ -19,8 +19,10 @@ compression and trainer tests, which stay as they are).
   Trainer's; a resume reproduces the data order and ``resumed_from``;
   the loss decreases; ``launch.train --reduced --device cpu`` prints the
   reference's line.
-- Training on a mesh (ROADMAP A13c-2) raises NotImplementedError naming
-  it; the elastic placements run in tests/test_torch_mesh_serve.py.
+- The mesh pieces (the cross-pod mean, a Trainer) take a DeviceMesh, in
+  a world of one rank here, and refuse anything else with a ValueError;
+  training on meshes of 3 and 4 ranks is tests/test_torch_mesh_train.py,
+  the elastic placements also tests/test_torch_mesh_serve.py.
 On the CPU.
 """
 from __future__ import annotations
@@ -379,20 +381,46 @@ def test_compression_ratio_matches_reference():
     assert 0.24 < tcomp.compression_ratio({"w": torch.zeros(1000)}) < 0.27
 
 
-def test_mesh_pieces_refuse_naming_a13c():
-    """Training on a mesh is A13c-2: the cross-pod mean and a Trainer with
-    a mesh refuse naming it. The elastic remesh and reshard are placements
-    (A13c-1) and run in tests/test_torch_mesh_serve.py's gloo world; with
-    no process group they raise torch.distributed's own error."""
-    with pytest.raises(NotImplementedError, match="A13c-2"):
+def test_mesh_pieces_refuse_naming_a13c(tmp_path):
+    """Training on a mesh (A13c-2) takes a torch DeviceMesh: the cross-
+    pod mean and a Trainer refuse anything else with a ValueError, and in
+    a world of one rank accept a (1, 1) mesh (the mean is the dequantised
+    gradient, with the error feedback of ``compress``; the Trainer takes
+    a step). The elastic remesh needs a process group: without one it
+    raises torch.distributed's own error."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_process_group, mesh_of
+    with pytest.raises(ValueError, match="DeviceMesh"):
         tcomp.compressed_cross_pod_mean({}, {}, mesh=object())
     with pytest.raises((RuntimeError, ValueError)):
         telastic.remesh(8, device_type="cpu")
     assert telastic.reshard_state({}, {}) == {}
     cfg = tconfigs.get_reduced_config("internlm2-1.8b")
-    with pytest.raises(NotImplementedError, match="A13c-2"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         Trainer(cfg, TrainConfig(), DataConfig(), mesh=object(),
                 device="cpu")
+    init_process_group("gloo", rank=0, world_size=1,
+                       init_method=f"file://{tmp_path / 'store'}")
+    try:
+        mesh = mesh_of((1, 1), ("pod", "data"), "cpu")
+        comp = tcomp.Int8ErrorFeedback()
+        g = {"w": torch.from_numpy(np.random.default_rng(0).normal(
+            0, 1, (16, 16)).astype(np.float32))}
+        out, ef = tcomp.compressed_cross_pod_mean(g, comp.init(g), mesh)
+        q, want_ef = comp.compress(g, comp.init(g))
+        assert torch.equal(out["w"], comp.decompress(q)["w"])
+        assert torch.equal(ef["w"], want_ef["w"])
+        with pytest.raises(ValueError, match="no axis 'pod'"):
+            tcomp.compressed_cross_pod_mean(
+                g, ef, mesh_of((1, 1), ("data", "model"), "cpu"))
+        tr = Trainer(cfg, TrainConfig(), DataConfig(
+            seq_len=16, global_batch=2, vocab_size=cfg.vocab_size),
+            mesh=mesh_of((1, 1), ("data", "model"), "cpu"), device="cpu")
+        state, rep = tr.run(1, log_every=0)
+        assert rep.steps_run == 1 and np.isfinite(rep.losses).all()
+        assert state.model.mesh is tr.mesh
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_package_exports_the_reference_names():

@@ -77,7 +77,21 @@ and in fsdp_tp on (2, 2), and qwen3-moe (2 layers, 32 experts a rank) on
 every gradient shard are held to the single rank's on the card (the
 MoE's dispatch counts bitwise); the flash kernel runs on every rank's
 heads and is held to its plain version at rank 0's training inputs. The
-flash library's SASS must hold
+dry-run tools (``dryrun``, ROADMAP A13d): ``launch/dryrun.py`` predicts
+those three check steps on meta tensors in a fake world of 4 ranks (each
+rank's collective calls and bytes by kind, forward and backward, and its
+state bytes must equal the measured ones) and lm_train's step (its
+dispatched FLOPs and its model FLOPs against the measured s/step: the
+hardware- and model-FLOPs shares of the bf16 peak), and traces
+internlm2-1.8b train_4k on the 16 x 16 fake world; the paper catalog's
+local search steps (``launch/search_dryrun.py``) run for real with the
+boxes the engine's trainers fit for the main path's batch:
+``pruned_local_step`` over 90,429,772 rows x 6 dims in build_index's
+order on one card (held bitwise to its plain version and to the
+unpruned zone_hits + box_scan counts) and the full scan of a 16-card
+shard (the main path's rows tiled to 5,652,480 x 384, 128 rforest
+boxes; bitwise box_scan_ref), each timed beside its bound and the
+reference's kernel model. The flash library's SASS must hold
 wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
 scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
@@ -101,6 +115,8 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only lm_train    # LM training (internlm2-1.8b)
     python3 chip_smoke.py --only lm_mesh     # the LM on a mesh (4 ranks)
     python3 chip_smoke.py --only lm_mesh_train  # LM training on the mesh
+    python3 chip_smoke.py --only dryrun      # the dry-run tools
+    python3 chip_smoke.py --only lm_train,lm_mesh_train,dryrun  # held
 
 Phases print one JSON line each. The line before the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
@@ -1824,7 +1840,7 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
         raise AssertionError(f"a scan/knn kernel never launched: {launches}")
     # right by the repo's own means: the scan scores are the host
     # oracle's box counts; knn equals the same search on the CPU
-    lo_rf, hi_rf = rforest_boxes(eng, pos, neg)
+    lo_rf, hi_rf = rforest_boxes(eng.x, pos, neg)
     r = res["rforest"]
     if r.n_found == 0 or not np.array_equal(
             r.scores, boxes_contain(eng.x[r.ids], lo_rf, hi_rf)):
@@ -3019,11 +3035,12 @@ def phase_fit(device, eng=None, reqs=None, main_fit=None) -> None:
     emit(res)
 
 
-def rforest_boxes(eng, pos, neg):
-    """The boxes of the rforest query's forest (25 trees, depth 12)."""
+def rforest_boxes(x, pos, neg):
+    """The boxes of the rforest query's forest (25 trees, depth 12) over
+    the catalog ``x``."""
     from repro_torch.core.trees import fit_random_forest
     forest = fit_random_forest(
-        np.concatenate([eng.x[pos], eng.x[neg]]),
+        np.concatenate([x[pos], x[neg]]),
         np.concatenate([np.ones(len(pos)), np.zeros(len(neg))]),
         n_trees=25, max_depth=12, seed=0)
     return forest.boxes()
@@ -3042,7 +3059,7 @@ def phase_box_scan(device) -> None:
     probe = largest_probe(probe_inputs(eng, reqs))
     pos, neg = reqs[0]["pos_ids"], reqs[0]["neg_ids"]
     scan_in = (eng._device_features(), *(torch.from_numpy(a).to(eng.device)
-                                         for a in rforest_boxes(eng, pos,
+                                         for a in rforest_boxes(eng.x, pos,
                                                                 neg)))
     qi_in = largest_query_index(eng, reqs)
     res = measure_kernels(*probe)
@@ -6384,6 +6401,458 @@ def phase_sharded_only(device) -> None:
     phase_sharded(device, eng, reqs)
 
 
+# ----------------------------------------------------------------------
+# the dry-run tools (ROADMAP A13d)
+# ----------------------------------------------------------------------
+
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+DRYRUN_CELL = ("internlm2-1.8b", "train_4k")     # one production cell
+# the paper catalog's local search steps (paper §3: 90,429,772 rows in
+# blocks of 1,024) over the main path's distribution (full_engine's
+# clustered catalog, its 1,024 centres) and the boxes the engine's
+# trainers fit for the main path's batch of 8 requests (search_fits):
+# index_query on one card (the catalog whole, ordered and zone-mapped as
+# build_index does it), full_scan on one card's shard of a 16-card world
+# (the main path's rows tiled)
+SEARCH_BLOCK = 1024
+SEARCH_SELECTIVITY = 0.02
+SCAN_SHARDS = 16
+SEARCH_SEED = 17
+
+def mesh_train_predictions() -> dict:
+    """The dry run of each MESH_TRAIN_RUNS run's check step
+    (``loss_and_grads`` at the check batch, the run's cuts) in a fake
+    world of MESH_WORLD ranks, every rank: {run: [per rank: its
+    collectives (ctx.comm), state bytes, predicted peak, FLOPs]}."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import dry_run
+    out = {}
+    for name, arch, shape, mode, batch in MESH_TRAIN_RUNS:
+        cfg, tc, _ = mesh_train_config(arch, mode, batch)
+        check = ShapeConfig("check", "train", MESH_TRAIN_SEQ,
+                            MESH_TRAIN_CHECK_ROWS[arch])
+        out[name] = []
+        for rank in range(MESH_WORLD):
+            d = dry_run(cfg, check, tc=tc, mesh_shape=shape, rank=rank,
+                        what="loss_and_grads")
+            out[name].append({"comm": d["comm"],
+                              "state_bytes": d["state_bytes"],
+                              "peak_bytes_est":
+                                  d["memory"]["peak_bytes_est"],
+                              "dot_flops": d["dot_flops_per_device"],
+                              "collectives": d["collectives"]})
+    return out
+
+
+def mesh_train_against_measured(pred: dict, measured: dict) -> dict:
+    """Each rank's predicted collectives (calls and bytes by kind,
+    forward and backward) and state bytes against lm_mesh_train's
+    measured ones; raises unless every one is equal. The predicted peaks
+    beside the measured ones (the check step's and the timed steps')."""
+    out = {}
+    for name, ranks in pred.items():
+        recs = measured["runs"][name]["per_rank"]
+        for r, (p, m) in enumerate(zip(ranks, recs)):
+            if p["comm"] != m["check"]["comm"]:
+                raise AssertionError(
+                    f"dryrun {name} rank {r}: predicted collectives "
+                    f"{p['comm']}, measured {m['check']['comm']}")
+            if p["state_bytes"] != m["state_bytes_local"]:
+                raise AssertionError(
+                    f"dryrun {name} rank {r}: predicted state "
+                    f"{p['state_bytes']} B, measured "
+                    f"{m['state_bytes_local']} B")
+        out[name] = {
+            "comm_equal": True, "state_equal": True,
+            "state_bytes": [p["state_bytes"] for p in ranks],
+            "predicted_peak_bytes": [p["peak_bytes_est"] for p in ranks],
+            "measured_check_peak_bytes": [m["check"]["peak_bytes"]
+                                          for m in recs],
+            "measured_step_peak_bytes": [m["peak_bytes"] for m in recs]}
+    return out
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """A training step's model FLOPs as a model-FLOPs share counts them
+    (PaLM, arXiv:2204.02311, appendix B): 6 a token for each parameter of
+    a product (all but the input embedding, a gather; the norms' few
+    count too), and the causal attention's two products, forward and
+    backward (3 x 4 BH G D S(S+1)/2 a layer). No remat recompute, no
+    masked half, no f32 work of a plain backward. For a dense decoder
+    whose every layer is global attention, as internlm2-1.8b."""
+    from repro_torch.kernels.meta import flash_flops
+    if cfg.family != "dense" or cfg.local_window or cfg.num_experts:
+        raise ValueError(f"model_flops: {cfg.name} is not a dense decoder "
+                         f"of global attention")
+    n = cfg.active_param_count() - cfg.vocab_size * cfg.d_model
+    attn = flash_flops((batch * cfg.num_heads, seq, 1,
+                        cfg.resolved_head_dim), causal=True)
+    return 6.0 * n * batch * seq + 3.0 * cfg.num_layers * attn
+
+
+def lm_train_prediction(measured) -> dict:
+    """The dry run of lm_train's step (internlm2-1.8b whole, 2 x 4,096,
+    its TrainConfig) on one device: the products' FLOPs it dispatches
+    (the flash forward counted with the full S^2 as the reference counts
+    its attention, and with the causal kernel's own half; remat's
+    recompute and the loss checkpoint's second unembedding included),
+    predicted peak and arguments, and model_flops beside them; with the
+    measured run, their shares of the bf16 peak at its s/step: the
+    hardware-FLOPs share (``hw_flops_share``, the dispatched products)
+    and the model-FLOPs share (``model_flops_share``, model_flops)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import dry_run
+    cfg, tc, dc = lm_train_config()
+    d = dry_run(cfg, ShapeConfig("lm_train", "train", dc.seq_len,
+                                 dc.global_batch), tc=tc)
+    flash = d["kernels"].get("flash_attention", {}).get("flops", 0.0)
+    causal = d["dot_flops_per_device"] - flash \
+        + d["flash_causal_flops_per_device"]
+    rec = {"dot_flops": d["dot_flops_per_device"],
+           "dot_flops_causal_flash": causal,
+           "dot_flops_backward": d["dot_flops_backward_per_device"],
+           "model_flops": model_flops(cfg, dc.global_batch, dc.seq_len),
+           "flash_calls": d["kernels"].get("flash_attention",
+                                           {}).get("calls", 0),
+           "predicted_peak_bytes": d["memory"]["peak_bytes_est"],
+           "argument_bytes": d["memory"]["argument_bytes"],
+           "seconds": d["lower_s"] + d["compile_s"]}
+    if measured is not None:
+        s = measured["s_per_step"]
+        rec.update(measured_s_per_step=s,
+                   measured_peak_bytes=measured["peak_bytes"],
+                   hw_flops_share=rec["dot_flops"] / s / BF16_FLOPS_PER_S,
+                   hw_flops_share_causal=causal / s / BF16_FLOPS_PER_S,
+                   model_flops_share=rec["model_flops"] / s
+                   / BF16_FLOPS_PER_S)
+    return rec
+
+
+def production_cell() -> dict:
+    """DRYRUN_CELL on the 16 x 16 fake world (rank 0), its files under
+    build/."""
+    from repro_torch.launch.dryrun import run_cell
+    r = run_cell(*DRYRUN_CELL, False, art_dir=DRYRUN_DIR)
+    if not r["ok"]:
+        raise AssertionError(f"dryrun {DRYRUN_CELL}: {r['error']}")
+    keep = ("arch", "shape", "mesh", "devices", "rank", "memory",
+            "state_bytes", "flops_per_device", "dot_flops_per_device",
+            "flash_causal_flops_per_device", "hbm_bytes_per_device",
+            "collective_bytes_per_device", "collectives", "lower_s",
+            "compile_s", "seconds")
+    return {k: r[k] for k in keep}
+
+
+def search_fits(x, reqs) -> dict:
+    """The main path's batch ``reqs`` fitted on ``x`` as the engine fits
+    it with its numpy trainers (bitwise its device fit), at its defaults:
+    32 subsets of 6 dims (seed 0), depth 12, 25 dbens models, seed 0, the
+    catalog's feature range. index_query: the dbranch / dbens boxes on
+    the subset the batch's fits use most (a probe's boxes, padded as
+    pad_boxes pads them). full_scan: each request's rforest boxes (25
+    trees of depth 12, as the scan path's rforest query fits them), the
+    requests in turn, the first FULL_SCAN["n_boxes"]."""
+    from repro_torch.core.dbranch import fit_dbens, fit_dbranch_best_subset
+    from repro_torch.core.index import pad_boxes
+    from repro_torch.core.subsets import make_subsets
+    from repro_torch.launch.search_dryrun import FULL_SCAN
+    subsets = make_subsets(x.shape[1], 32, 6, seed=0)
+    frange = (x.min(0), x.max(0))
+    by_subset, rf = {}, []
+    for r in reqs:
+        xp, xn = x[r["pos_ids"]], x[r["neg_ids"]]
+        sets = ([fit_dbranch_best_subset(xp, xn, subsets, max_depth=12,
+                                         feature_range=frange)]
+                if r["model"] == "dbranch"
+                else fit_dbens(xp, xn, subsets, n_models=25, max_depth=12,
+                               seed=0, feature_range=frange))
+        for b in sets:
+            by_subset.setdefault(int(b.subset_id), []).append(b)
+        rf.append(rforest_boxes(x, r["pos_ids"], r["neg_ids"]))
+    sid = max(sorted(by_subset),
+              key=lambda s: sum(b.n_boxes for b in by_subset[s]))
+    lo = np.concatenate([b.lo for b in by_subset[sid]]).astype(np.float32)
+    hi = np.concatenate([b.hi for b in by_subset[sid]]).astype(np.float32)
+    n_fit = lo.shape[0]
+    lo, hi, _ = pad_boxes(lo, hi, None)
+    nbox = FULL_SCAN["n_boxes"]
+    rf_lo = np.concatenate([b[0] for b in rf])[:nbox].astype(np.float32)
+    rf_hi = np.concatenate([b[1] for b in rf])[:nbox].astype(np.float32)
+    if rf_lo.shape[0] < nbox:
+        raise AssertionError(f"search_fits: {rf_lo.shape[0]} rforest "
+                             f"boxes, fewer than {nbox}")
+    return {"subset": sid, "dims": subsets[sid], "lo": lo, "hi": hi,
+            "fitted_boxes": n_fit,
+            "boxes_by_subset": {s: sum(b.n_boxes for b in v)
+                                for s, v in sorted(by_subset.items())},
+            "rf_lo": rf_lo, "rf_hi": rf_hi}
+
+
+def card_zone_index(sub, block: int):
+    """``core.index.build_index``'s order and zone maps for ``sub`` [N, d']
+    on its own device: quantile-rank Morton codes (8 bits a dim for d' =
+    6), a stable sort, +inf rows padding the last block, zone maps over
+    the real rows. Returns (rows [NB, block, d'], zlo, zhi)."""
+    import torch
+    n, d = sub.shape
+    nbits = min(8, 64 // max(d, 1))
+    dev = sub.device
+    code = torch.zeros(n, dtype=torch.int64, device=dev)
+    ranks = torch.empty(n, dtype=torch.int64, device=dev)
+    for j in range(d):
+        order = torch.sort(sub[:, j], stable=True).indices
+        ranks[order] = torch.arange(n, device=dev)
+        del order
+        q = ranks * (1 << nbits) // n
+        for b in range(nbits):
+            code |= ((q >> b) & 1) << (b * d + j)
+        del q
+    del ranks
+    perm = torch.sort(code, stable=True).indices
+    del code
+    nb = -(-n // block)
+    rows = torch.full((nb * block, d), float("inf"), device=dev)
+    rows[:n] = sub.index_select(0, perm)
+    del perm
+    rows = rows.reshape(nb, block, d)
+    zlo, zhi = rows.amin(1), rows.amax(1)
+    zhi[-1] = rows[-1, :n - (nb - 1) * block].amax(0)
+    return rows, zlo, zhi
+
+
+def check_zone_index(device, dims, centers) -> None:
+    """card_zone_index against build_index on a sample of the search
+    catalog's distribution (not a multiple of the block): rows and zone
+    maps bitwise."""
+    import torch
+    from repro_torch.core.index import build_index
+    rng = np.random.default_rng(SEARCH_SEED)
+    n = 3 * SEARCH_BLOCK * 16 + 123
+    sub = centers[rng.integers(0, len(centers), n)][:, dims]
+    sub += rng.standard_normal(sub.shape, dtype=np.float32) * np.float32(0.3)
+    want = build_index(sub, np.arange(sub.shape[1]), block=SEARCH_BLOCK,
+                       device="cpu")
+    rows, zlo, zhi = (t.cpu().numpy() for t in card_zone_index(
+        torch.from_numpy(sub).to(device), SEARCH_BLOCK))
+    if not (np.array_equal(rows.reshape(want.rows.shape), want.rows)
+            and np.array_equal(zlo, want.zlo)
+            and np.array_equal(zhi, want.zhi)):
+        raise AssertionError("card_zone_index != build_index")
+
+
+def plain_pruned(rows, zlo, zhi, lo, hi, block: int, capacity: int):
+    """``core.index.pruned_local_step`` with the kernels' plain versions
+    (kernels/ref.py) on the same device."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    nb, _, d = rows.shape
+    cand, n_hit = kref.zone_candidates_ref(zlo, zhi, lo, hi, capacity)
+    valid = torch.arange(capacity, device=rows.device) < n_hit
+    sel = rows.index_select(0, cand.long()).reshape(-1, d)
+    counts = kref.box_scan_ref(sel, lo, hi).reshape(capacity, block)
+    out = torch.zeros((nb, block), dtype=torch.int32, device=rows.device)
+    out = out.scatter_reduce(0, cand.long()[:, None].expand(-1, block),
+                             counts * valid[:, None], "amax")
+    return out.reshape(-1)
+
+
+def search_times(fn, bound: tuple, model_bytes: float,
+                 model_ops: float) -> dict:
+    """The step's event and device ms (a CUDA graph of TIME_ITERS calls)
+    beside its ``bound`` (ms, by), from the bytes and compares this run's
+    data needs, and, apart, the reference's kernel model (search_dryrun's
+    kernel_model: its bytes at HBM_BYTES_PER_S, its compares at
+    F32_LANE_OPS_PER_S), which counts neither what the data spares nor
+    every byte the step writes, so is no bound."""
+    return {"ms": time_ms(fn), "device_ms": graph_ms(fn),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "kernel_model_bytes": model_bytes,
+            "kernel_model_compares": model_ops,
+            "kernel_model_bytes_ms": 1e3 * model_bytes / HBM_BYTES_PER_S,
+            "kernel_model_compares_ms": 1e3 * model_ops / F32_LANE_OPS_PER_S}
+
+
+def search_index_query(device, fits: dict, centers) -> dict:
+    """pruned_local_step on the card over the paper catalog whole: its
+    rows drawn on the card from the main path's distribution in the
+    dims of ``fits``' subset, ordered and zone-mapped as build_index
+    does (card_zone_index, held to it first on a sample), probed with
+    ``fits``' boxes at the capacity the engine gives a warm probe
+    (pow2ceil of the surviving blocks, at most the blocks). Counted
+    (its kernels' launches), held bitwise to its plain version and to
+    the unpruned counts (zone_hits + box_scan over every row,
+    distributed_query); timed beside its bound: the zone maps, boxes and
+    surviving blocks read, every row's count written, the zone compares
+    and the scan compares the surviving rows need."""
+    import torch
+    from repro_torch.core.capacity import pow2ceil
+    from repro_torch.core.index import distributed_query, pruned_local_step
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.search_dryrun import (PAPER_ROWS, geometry,
+                                                  kernel_model)
+    dims = fits["dims"]
+    check_zone_index(device, dims, centers)
+    n, d = PAPER_ROWS, len(dims)
+    nb, _, cap_ref = geometry(n, SEARCH_BLOCK, 1, SEARCH_SELECTIVITY)
+    g = torch.Generator(device=device).manual_seed(SEARCH_SEED)
+    sub = torch.from_numpy(np.ascontiguousarray(centers[:, dims])).to(
+        device)[torch.randint(0, len(centers), (n,), generator=g,
+                              device=device)]
+    sub += torch.randn(sub.shape, generator=g, device=device) * 0.3
+    rows, zlo, zhi = card_zone_index(sub, SEARCH_BLOCK)
+    del sub
+    free_cuda()
+    lo, hi = (torch.from_numpy(a).to(device) for a in (fits["lo"],
+                                                       fits["hi"]))
+    args = (rows, zlo, zhi, lo, hi)
+    hit = kref.zone_hits_ref(zlo, zhi, lo, hi)
+    n_hit = int(hit.sum())
+    cap = min(pow2ceil(n_hit), nb)
+    if n_hit == 0:
+        raise AssertionError("dryrun index_query: no block survives")
+    step = pruned_local_step(SEARCH_BLOCK, cap)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    counts, launches = counted(lambda: step(*args))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    needs_launches(launches, ("zone_candidates", "box_scan"),
+                   "dryrun index_query")
+    plain = plain_pruned(*args, SEARCH_BLOCK, cap)
+    unpruned = distributed_query(*args, [device], SEARCH_BLOCK)
+    if not (torch.equal(counts, plain) and torch.equal(counts, unpruned)):
+        raise AssertionError("dryrun index_query: the pruned counts differ "
+                             "from the plain or the unpruned ones")
+    del plain, unpruned
+    nbox = lo.shape[0]
+    scan_need, _ = scan_compares(rows[hit].reshape(-1, d), lo, hi)
+    byts = (2 * nb * d * 4 + 2 * nbox * d * 4
+            + n_hit * SEARCH_BLOCK * d * 4 + nb * SEARCH_BLOCK * 4
+            + 4 * (cap + 1))
+    compares = nb * nbox * d * 2 + scan_need
+    model = kernel_model("index_query", nb_loc=nb, capacity=cap,
+                         block=SEARCH_BLOCK, d_sub=d, n_boxes=nbox, bpe=4)
+    rec = {"rows": n, "blocks": nb, "capacity": cap,
+           "capacity_reference": cap_ref, "n_hit": n_hit,
+           "subset": fits["subset"], "dims": [int(v) for v in dims],
+           "boxes": nbox, "fitted_boxes": fits["fitted_boxes"],
+           "boxes_by_subset": fits["boxes_by_subset"], "d": d,
+           "rows_bytes": rows.numel() * 4,
+           "hits": int((counts > 0).sum()), "launches": launches,
+           "bitwise_plain_and_unpruned": True,
+           "peak_bytes_above_inputs": peak, "bound_bytes": byts,
+           "bound_compares": compares,
+           **search_times(lambda: step(*args), _bound(byts, compares),
+                          *model)}
+    del args, rows, counts, hit
+    free_cuda()
+    return rec
+
+
+def search_full_scan(device, x, fits: dict) -> dict:
+    """The full-scan step (box_scan over the flattened shard) on one
+    card's shard of a SCAN_SHARDS-card world: the main path's rows ``x``
+    tiled to the shard's rows, ``fits``' rforest boxes. Counted, held
+    bitwise to box_scan_ref, timed beside its bound (scan_bound with the
+    compares this run's data needs, counted on ``x`` once)."""
+    import torch
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.search_dryrun import (FULL_SCAN, PAPER_ROWS,
+                                                  geometry, kernel_model,
+                                                  make_full_scan_step)
+    d, nbox = FULL_SCAN["d_sub"], FULL_SCAN["n_boxes"]
+    _, nb_loc, cap = geometry(PAPER_ROWS, SEARCH_BLOCK, SCAN_SHARDS,
+                              SEARCH_SELECTIVITY)
+    n, nx = nb_loc * SEARCH_BLOCK, x.shape[0]
+    base = torch.from_numpy(x).to(device)
+    rows = torch.empty((n, d), device=device)
+    for r0 in range(0, n, nx):
+        rows[r0:r0 + nx] = base[:n - r0]
+    lo, hi = (torch.from_numpy(a).to(device) for a in (fits["rf_lo"],
+                                                       fits["rf_hi"]))
+    # the tiled rows repeat x: rows [0, rem) of x come reps + 1 times
+    reps, rem = divmod(n, nx)
+    head, tail = (scan_compares(part, lo, hi)
+                  for part in (base[:rem], base[rem:]))
+    need = (reps + 1) * head[0] + reps * tail[0]
+    upper = (reps + 1) * head[1] + reps * tail[1]
+    del base
+    rows = rows.reshape(nb_loc, SEARCH_BLOCK, d)
+    step = make_full_scan_step()
+    counts, launches = counted(lambda: step(rows, lo, hi))
+    needs_launches(launches, ("box_scan",), "dryrun full_scan")
+    if not torch.equal(counts, kref.box_scan_ref(rows.reshape(-1, d), lo,
+                                                 hi)):
+        raise AssertionError("dryrun full_scan: counts differ from "
+                             "box_scan_ref")
+    cons = ~((lo == -float("inf")) & (hi == float("inf")))
+    model = kernel_model("full_scan", nb_loc=nb_loc, capacity=cap,
+                         block=SEARCH_BLOCK, d_sub=d, n_boxes=nbox, bpe=4)
+    rec = {"rows": n, "d": d, "boxes": nbox,
+           "constrained_dims_a_box": sorted({int(v) for v in
+                                             cons.sum(1).tolist()}),
+           "rows_bytes": rows.numel() * 4, "hits": int((counts > 0).sum()),
+           "compares_needed": need, "compares_upper": upper,
+           "launches": launches, "bitwise_plain": True,
+           **search_times(lambda: step(rows, lo, hi),
+                          scan_bound(n, d, nbox, need), *model)}
+    del rows, counts
+    free_cuda()
+    return rec
+
+
+def phase_dryrun(device, mesh_train_rec=None, train_rec=None,
+                 x=None) -> dict:
+    """The dry-run tools (ROADMAP A13d): predicts lm_mesh_train's three
+    check steps in a fake world of MESH_WORLD ranks, every rank (where
+    ``mesh_train_rec`` is given, the phase fails unless each rank's
+    collective calls and bytes by kind and its state bytes equal the
+    measured ones); lm_train's step FLOPs, with ``train_rec`` its
+    hardware- and model-FLOPs shares and the predicted peak beside the
+    measured one; one production cell (DRYRUN_CELL on the 16 x 16 fake
+    world); then the paper catalog's local search steps for real on the
+    card, with the boxes the engine fits for the main path's batch over
+    its catalog ``x`` (made anew where not given): index_query (held
+    bitwise to its plain version and to the unpruned counts) and
+    full_scan (bitwise box_scan_ref), each timed beside its bound and
+    the reference's kernel model. Returns the record, whose
+    ``launches`` the kernels line reads."""
+    t0 = time.perf_counter()
+    pred = mesh_train_predictions()
+    mesh = ({name: {"predicted_peak_bytes": [p["peak_bytes_est"]
+                                             for p in ranks],
+                    "state_bytes": [p["state_bytes"] for p in ranks],
+                    "collectives_rank0": ranks[0]["collectives"]}
+             for name, ranks in pred.items()}
+            if mesh_train_rec is None
+            else mesh_train_against_measured(pred, mesh_train_rec))
+    for name, ranks in pred.items():
+        mesh[name]["comm_rank0"] = ranks[0]["comm"]
+        mesh[name]["dot_flops_rank0"] = ranks[0]["dot_flops"]
+    t_mesh = time.perf_counter() - t0
+    train = lm_train_prediction(train_rec)
+    cell = production_cell()
+    t_meta = time.perf_counter() - t0
+    if x is None:
+        x = clustered(FULL_N, FULL_D, seed=0)[0]
+    reqs = make_requests(cluster_assign(len(x), x.shape[1], 0), 8, 100,
+                         seed=1)
+    fits = search_fits(x, reqs)
+    centers = _cluster_draws(0, x.shape[1], 0)[1]
+    iq = search_index_query(device, fits, centers)
+    fs = search_full_scan(device, x, fits)
+    res = {"phase": "dryrun", "card": card_line(),
+           "lm_mesh_train": mesh, "compared_with_measured":
+               mesh_train_rec is not None,
+           "lm_train": train, "production_cell": cell,
+           "search": {"index_query": iq, "full_scan": fs},
+           "seconds": {"mesh_predictions": t_mesh, "meta_total": t_meta,
+                       "phase": time.perf_counter() - t0}}
+    emit(res)
+    return res
+
+
 KERNELS = {
     "zone_candidates": ("src/repro_torch/kernels/csrc/zone_prune.cu",
                         "src/repro/kernels/zone_prune.py:33"),
@@ -6424,8 +6893,8 @@ def main(argv) -> int:
     """With no arguments, every phase and the closing records. With
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
-    quantized, sharded, serve, dino, lm, lm_train, lm_mesh and
-    lm_mesh_train, the kernels are built and only
+    quantized, sharded, serve, dino, lm, lm_train, lm_mesh,
+    lm_mesh_train and dryrun, the kernels are built and only
     those phases run: the FLASH_CASES rows, the 400x400 extraction, the
     box scans at the main path's inputs, zone_candidates on synthetic zone
     maps, l2dist at the knn path's inputs, the batched device fit at full
@@ -6439,13 +6908,17 @@ def main(argv) -> int:
     width), LM training (internlm2-1.8b at full width and depth), the LM
     on a mesh of 4 gloo ranks on the card (internlm2-1.8b and qwen3-moe
     cut to 2 layers), LM training on that mesh (internlm2-1.8b in zero3
-    and fsdp_tp, qwen3-moe; each cut to 2 layers); for comparing two
-    trees on one card."""
+    and fsdp_tp, qwen3-moe; each cut to 2 layers), the dry-run tools (the
+    mesh training's and lm_train's predictions, held to their measured
+    records where those phases ran before it in the same --only, one
+    production cell, the paper catalog's search steps on the card); for
+    comparing two trees on one card."""
     import torch
     only = argv[argv.index("--only") + 1].split(",") if "--only" in argv \
         else None
-    if only is not None and not set(only) <= set(ONLY):
-        print(f"chip_smoke: --only takes {sorted(ONLY)}", file=sys.stderr)
+    if only is not None and not set(only) <= {*ONLY, "dryrun"}:
+        print(f"chip_smoke: --only takes {sorted({*ONLY, 'dryrun'})}",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6469,8 +6942,14 @@ def main(argv) -> int:
     box_sass = bulk_sass(libs)
     emit(box_sass)
     if only is not None:
+        recs = {}
         for name in only:
-            ONLY[name](torch.device("cuda", 0))
+            dev = torch.device("cuda", 0)
+            # with lm_mesh_train / lm_train before it in the same --only,
+            # the dry run's predictions are held to their measured records
+            recs[name] = (phase_dryrun(dev, recs.get("lm_mesh_train"),
+                                       recs.get("lm_train"))
+                          if name == "dryrun" else ONLY[name](dev))
         print(card, flush=True)
         return 0
     if missing:
@@ -6496,6 +6975,7 @@ def main(argv) -> int:
     train_rec = phase_lm_train(dev)
     mesh_rec = phase_lm_mesh(dev)
     mesh_train_rec = phase_lm_mesh_train(dev)
+    dry = phase_dryrun(dev, mesh_train_rec, train_rec, ctx[0].x)["search"]
     res = measure_kernels(*probe)
     res["box_scan"] = measure_scan(*scan_in)
     # the narrow route, at the use_fused=False batch's largest call
@@ -6587,6 +7067,14 @@ def main(argv) -> int:
                        name: [r["launches_per_step"]["flash_attention"]
                               for r in m["per_rank"]]
                        for name, m in mesh_train_rec["runs"].items()}}}
+    # the paper catalog's local search steps of the dryrun phase (A13d):
+    # pruned_local_step on one card, the full scan of a 16-card shard
+    by_path["zone_candidates"]["dryrun_index_query"] = \
+        dry["index_query"]["launches"]["zone_candidates"]
+    by_path["box_scan"]["dryrun_index_query"] = \
+        dry["index_query"]["launches"]["box_scan"]
+    by_path["box_scan"]["dryrun_full_scan"] = \
+        dry["full_scan"]["launches"]["box_scan"]
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
     # batch, its dense batch, knn, dtree + rforest and use_fused=False
     for name in KERNELS:

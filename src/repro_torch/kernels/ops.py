@@ -5,7 +5,9 @@ Dispatch follows the tensors: on CUDA tensors the kernel stages launch
 the hand-written CUDA kernels (``kernels/zone_prune.py``,
 ``kernels/box_scan.py``, ``kernels/l2dist.py``,
 ``kernels/flash_attention.py``) or raise; only tensors on
-the CPU take the plain PyTorch versions in ``kernels/ref.py``. No TPU
+the CPU take the plain PyTorch versions in ``kernels/ref.py``, and
+tensors on the ``meta`` device (a dry run) the kernels' shape-only
+operators in ``kernels/meta.py``. No TPU
 padding to 128 lanes or 1024-row tiles: the CUDA kernels take ragged N
 and D as they are.
 
@@ -24,6 +26,7 @@ import torch
 from repro_torch.kernels import box_scan as _box_scan
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import l2dist as _l2dist
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import zone_prune as _zone_prune
 
@@ -34,10 +37,16 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
+def _on_meta(t: torch.Tensor) -> bool:
+    return t.device.type == "meta"
+
+
 def zone_prune(zlo, zhi, blo, bhi) -> torch.Tensor:
     """Overlap mask [NZ, B] bool."""
     if _on_cpu(zlo):
         return kref.zone_prune_ref(zlo, zhi, blo, bhi)
+    if _on_meta(zlo):
+        return _meta.call("zone_prune", zlo, zhi, blo, bhi)
     return _zone_prune.zone_prune(zlo, zhi, blo, bhi)
 
 
@@ -45,6 +54,8 @@ def zone_hits(zlo, zhi, blo, bhi) -> torch.Tensor:
     """[NZ] bool: zone_prune(...).any(1)."""
     if _on_cpu(zlo):
         return kref.zone_hits_ref(zlo, zhi, blo, bhi)
+    if _on_meta(zlo):
+        return _meta.call("zone_hits", zlo, zhi, blo, bhi)
     return _zone_prune.zone_hits(zlo, zhi, blo, bhi)
 
 
@@ -54,6 +65,9 @@ def zone_candidates(zlo, zhi, blo, bhi, capacity: int):
     count before the cut (one launch on the card)."""
     if _on_cpu(zlo):
         return kref.zone_candidates_ref(zlo, zhi, blo, bhi, capacity)
+    if _on_meta(zlo):
+        return _meta.call("zone_candidates", zlo, zhi, blo, bhi,
+                          int(capacity))
     return _zone_prune.zone_candidates(zlo, zhi, blo, bhi, capacity)
 
 
@@ -61,6 +75,8 @@ def box_scan(x, lo, hi) -> torch.Tensor:
     """Membership counts [N] int32 for rows x against boxes (lo, hi]."""
     if _on_cpu(x):
         return kref.box_scan_ref(x, lo, hi)
+    if _on_meta(x):
+        return _meta.call("box_scan", x, lo, hi)
     return _box_scan.box_scan(x, lo, hi)
 
 
@@ -68,6 +84,8 @@ def l2dist(x, q) -> torch.Tensor:
     """Squared L2 distance matrix [N, Q] f32."""
     if _on_cpu(x):
         return kref.l2dist_ref(x, q)
+    if _on_meta(x):
+        return _meta.call("l2dist", x, q)
     return _l2dist.l2dist(x, q)
 
 
@@ -93,6 +111,8 @@ def _flash_forward(q, k, v, causal: bool) -> torch.Tensor:
     version."""
     if _on_cpu(q):
         return kref.flash_attention_ref(q, k, v, causal=causal)
+    if _on_meta(q):
+        return _meta.call("flash_attention", q, k, v, bool(causal))
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
@@ -168,6 +188,8 @@ def box_scan_seg(x, lo, hi, onehot) -> torch.Tensor:
     of boxes b with onehot[b, q] == 1 that contain row i."""
     if _on_cpu(x):
         return kref.box_scan_seg_ref(x, lo, hi, onehot)
+    if _on_meta(x):
+        return _meta.call("box_scan_seg", x, lo, hi, onehot)
     return _box_scan.box_scan_seg(x, lo, hi, onehot)
 
 
@@ -177,6 +199,9 @@ def box_scan_seg_gather(rows3, cand, n_hit, lo, hi, onehot) -> torch.Tensor:
     if _on_cpu(rows3):
         return kref.box_scan_seg_gather_ref(rows3, cand, n_hit, lo, hi,
                                             onehot)
+    if _on_meta(rows3):
+        return _meta.call("box_scan_seg_gather", rows3, cand, n_hit, lo,
+                          hi, onehot)
     return _box_scan.box_scan_seg_gather(rows3, cand, n_hit, lo, hi, onehot)
 
 

@@ -584,7 +584,10 @@ DRAW_CHUNK_ELEMS = 1 << 28
 def _fill_(t: torch.Tensor, draw) -> torch.Tensor:
     """Fill ``t`` in slices along its first dim, each at most
     DRAW_CHUNK_ELEMS elements, with ``draw(shape)`` float32 numbers drawn
-    on the generator's device and cast to t's dtype and device."""
+    on the generator's device and cast to t's dtype and device. A meta
+    tensor (a dry run's) holds no values, so nothing is drawn for it."""
+    if t.device.type == "meta":
+        return t
     if t.dim() == 0 or t.numel() == 0:
         t.copy_(draw(tuple(t.shape)))
         return t

@@ -27,12 +27,13 @@ tokens). DINO training of that ViT-T (``dino``, ROADMAP A12's
 remainder): ``init_dino`` and ``make_dino_step`` at 64x64 with a batch
 of 64 and at 400x400, one step's loss, gradients and new state against
 the CPU's, the attention forward of teacher and student on the flash
-kernel (48 launches a step) and the student's backward through the plain
-``flash_attention_bwd_ref`` under an autograd Function (24 a step),
-timed steps, a profiled one, the plain backward beside SDPA's forward +
-backward, and the trained student embedding the catalog for a query
-batch. Then the quantized mirror (``quantized``: full_size's catalog
-and batch on ``mirror="quantized"``, bitwise the f32 engine, resident
+kernel (48 launches a step) and the student's backward on the backward
+kernel under an autograd Function (24 a step, no plain backward), timed
+steps, a profiled one, the backward kernel held to its plain version and
+timed beside it and SDPA's forward + backward, and the trained student
+embedding the catalog for a query batch. Then the quantized mirror
+(``quantized``: full_size's catalog and batch on
+``mirror="quantized"``, bitwise the f32 engine, resident
 bytes of both, walls in turns) and the sharded catalogs (``sharded``:
 ``n_shards`` 1, 2, 4 and 8 flat on the card, bitwise S = 1, and an engine
 on a device list naming the card four times: the mesh leg's code path,
@@ -58,10 +59,12 @@ prefill + 8 decode steps against a prefill of 8 more tokens. LM training
 (``lm_train``, ROADMAP A13b): internlm2-1.8b at full width and depth
 (1.89 B float32 parameters, bf16 compute) takes 2 + 5 steps of
 ``Trainer.run`` at 2 x 4,096 tokens (remat "full": 48 flash launches and
-24 plain backward calls a step), one profiled step and one with remat
-"none"; two of its layers train one step on the card and on the CPU
-alike; the kernel and the plain backward are timed at the step's own
-attention inputs; a reduced model's checkpoint resumes bitwise. The LM
+24 backward kernel launches a step, no plain backward), one profiled
+step and one with remat "none"; two of its layers train one step on the
+card and on the CPU alike; both kernels are held to their plain versions
+and timed at the step's own attention inputs, the backward twice bitwise
+equal and its peak memory beside the plain version's; a reduced model's
+checkpoint resumes bitwise. The LM
 on a mesh (``lm_mesh``, ROADMAP A13c-1): one world of 4 processes on the
 one card (gloo; NCCL refuses two ranks on one device) serves
 internlm2-1.8b at full width and depth through make_prefill_step /
@@ -75,8 +78,9 @@ internlm2-1.8b at full width (2 layers) in its own zero3 config on (2, 2)
 and in fsdp_tp on (2, 2), and qwen3-moe (2 layers, 32 experts a rank) on
 (1, 4), 2 timed steps each after a check step whose loss, grad norm and
 every gradient shard are held to the single rank's on the card (the
-MoE's dispatch counts bitwise); the flash kernel runs on every rank's
-heads and is held to its plain version at rank 0's training inputs. The
+MoE's dispatch counts bitwise); the flash kernel and the backward kernel
+run on every rank's heads and are held to their plain versions at rank
+0's training inputs. The
 dry-run tools (``dryrun``, ROADMAP A13d): ``launch/dryrun.py`` predicts
 those three check steps on meta tensors in a fake world of 4 ranks (each
 rank's collective calls and bytes by kind, forward and backward, and its
@@ -92,8 +96,10 @@ unpruned zone_hits + box_scan counts) and the full scan of a 16-card
 shard (the main path's rows tiled to 5,652,480 x 384, 128 rforest
 boxes; bitwise box_scan_ref), each timed beside its bound and the
 reference's kernel model. The flash library's SASS must hold
-wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, and the box
-scans' bulk-copy kernels cp.async.bulk (UBLKCP). box_scan_seg, the
+wgmma (HGMMA) and TMA loads (UTMALDG) in every instantiation, the flash
+backward's mma.sync (HMMA) in every function, and the box scans'
+bulk-copy kernels cp.async.bulk (UBLKCP). The backward kernel is held to
+its plain version at every flash shape, causal and not. box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
 L2 flushed before each launch, as the fused batch finds their inputs;
 zone_candidates beside the launch chain it replaced and an empty launch.
@@ -1005,7 +1011,8 @@ def phase_kernels(device) -> None:
           "empty_launch": empty_launch_ms(profile=False),
           "box_scan": scans, "l2dist": dists,
           "l2dist_nan": l2dist_nan_check(device),
-          "flash_attention": flash_rows(device)})
+          "flash_attention": flash_rows(device),
+          "flash_attention_bwd": flash_bwd_rows(device)})
 
 
 def flash_rows(device) -> list:
@@ -1017,8 +1024,9 @@ def flash_rows(device) -> list:
 
 def sass_check(lib: Path) -> dict:
     """Per kernel function of a built library (cuobjdump -sass): its
-    HGMMA (wgmma on the tensor cores, by operand type), UTMALDG (TMA
-    load) and UBLKCP (cp.async.bulk) instructions."""
+    HGMMA (wgmma on the tensor cores, by operand type), HMMA (mma.sync on
+    the tensor cores), UTMALDG (TMA load) and UBLKCP (cp.async.bulk)
+    instructions."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1029,13 +1037,14 @@ def sass_check(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = counts.setdefault(m.group(1), {"HGMMA": 0, "HGMMA_BF16": 0,
-                                                 "HGMMA_TF32": 0,
+                                                 "HGMMA_TF32": 0, "HMMA": 0,
                                                  "UTMALDG": 0, "UBLKCP": 0})
         elif cur is not None:
             if "HGMMA." in line:
                 cur["HGMMA"] += 1
                 cur["HGMMA_BF16"] += ".BF16" in line
                 cur["HGMMA_TF32"] += ".TF32" in line
+            cur["HMMA"] += "HMMA." in line
             cur["UTMALDG"] += "UTMALDG" in line
             cur["UBLKCP"] += "UBLKCP" in line
     if not counts:
@@ -1104,6 +1113,19 @@ def bulk_sass(libs: dict) -> dict:
     missing = [f for f, c in funcs.items()
                if any(k in f for k in BULK_KERNELS) and not c["UBLKCP"]]
     return {"phase": "box_scan_sass", "functions": funcs, "missing": missing}
+
+
+def flash_bwd_sass(libs: dict) -> dict:
+    """The flash_bwd_sass record: per function of the backward's library,
+    its HMMA (mma.sync), HGMMA and UTMALDG counts with its registers,
+    spills and stack frame, and the functions with no HMMA (products
+    off the tensor cores)."""
+    stats = ptxas_stats(libs["flash_attention_bwd"])
+    funcs = {f: {k: c[k] for k in ("HMMA", "HGMMA", "UTMALDG")}
+             | stats.get(f, {})
+             for f, c in sass_check(libs["flash_attention_bwd"]).items()}
+    return {"phase": "flash_bwd_sass", "functions": funcs,
+            "no_mma": [f for f, c in funcs.items() if not c["HMMA"]]}
 
 
 def sass_missing(counts: dict) -> list:
@@ -1210,11 +1232,18 @@ def host_oracle_engine(eng, device):
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC")
 
 
+# profile_batch's classes of device time
+KERNEL_CLASSES = ("flash_attention", "flash_attention_bwd", "cublas",
+                  "other")
+
+
 def _kernel_class(name: str) -> str:
-    """flash attention, cuBLAS's products or the rest, by kernel name
-    (cuBLAS's bf16 products on the H100 are its ``nvjet`` kernels)."""
+    """flash attention's forward kernel, its backward's two kernels,
+    cuBLAS's products or the rest, by kernel name (cuBLAS's bf16 products
+    on the H100 are its ``nvjet`` kernels)."""
     low = name.lower()
     return ("flash_attention" if "flash_attention_kernel" in name else
+            "flash_attention_bwd" if "flash_bwd_" in name else
             "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass",
                                                "nvjet"))
             else "other")
@@ -1307,14 +1336,14 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False,
                 / sum(c for _, c in mine),
                 "count": sum(c for _, c in mine)}
     # flash attention, cuBLAS's products and the rest
-    by_class = {"flash_attention": 0.0, "cublas": 0.0, "other": 0.0}
+    by_class = {c: 0.0 for c in KERNEL_CLASSES}
     for us, k, _ in rows:
         by_class[_kernel_class(k)] += us * 1e-3
     outside = {k: [us, c] for us, k, c in rows}
     in_range = {}
     for name in ranges:
         under = _range_kernels(prof.events(), name)
-        mine = {c: 0.0 for c in ("flash_attention", "cublas", "other")}
+        mine = {c: 0.0 for c in KERNEL_CLASSES}
         per_name = {}
         for k, us in under:
             mine[_kernel_class(k)] += us * 1e-3
@@ -1332,7 +1361,7 @@ def profile_batch(fn, counters=None, graph_fallback: bool = False,
             in_range[name]["top"] = _top_kernels(per_name, top_by_class)
     tops = {}
     if top_by_class:
-        for c in ("flash_attention", "cublas", "other"):
+        for c in KERNEL_CLASSES:
             tops[c] = _top_kernels({k: v for k, v in outside.items()
                                     if _kernel_class(k) == c and v[1] > 0},
                                    top_by_class)
@@ -3151,9 +3180,12 @@ def phase_l2dist(device) -> None:
 
 
 def flash_counter() -> dict:
-    """profile_batch's counter of the flash kernel's launches."""
+    """profile_batch's counters of the flash kernels' launches: the
+    forward's, and the backward's two kernels (one each a call)."""
     from repro_torch.kernels import flash_attention as fa
-    return {"flash_attention_kernel": lambda: fa.launches}
+    return {"flash_attention_kernel": lambda: fa.launches,
+            "flash_bwd_dq_kernel": lambda: fa.backward_launches,
+            "flash_bwd_dkdv_kernel": lambda: fa.backward_launches}
 
 
 def phase_extraction(device):
@@ -3396,56 +3428,62 @@ DINO_LR = 1e-3                # make_dino_step's default, as the reference's
 DINO_LOSS_RTOL = 1e-4
 DINO_GRAD_TOL = 1e-3
 DINO_EMA = 0.996
-# torch.profiler range around every plain attention backward
-DINO_BWD_RANGE = "attention_backward"
-
-
 @contextlib.contextmanager
 def plain_attention_watch():
-    """While open, counts the calls of kernels/ref.flash_attention_ref (a
-    forward through the plain version), runs each
-    flash_attention_bwd_ref call inside the torch.profiler range
-    DINO_BWD_RANGE, and keeps the first backward's inputs; restores both
+    """While open, counts the calls of kernels/ref.flash_attention_ref and
+    flash_attention_bwd_ref (the plain versions: a path on the card makes
+    none) and keeps the inputs of the first backward kernel call
+    (kernels/flash_attention.flash_attention_bwd); restores the three
     functions on leaving."""
-    import torch
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     fwd, bwd = ref.flash_attention_ref, ref.flash_attention_bwd_ref
-    seen = {"plain_forward": 0, "bwd_inputs": None}
+    kern = fa.flash_attention_bwd
+    seen = {"plain_forward": 0, "plain_backward": 0, "bwd_inputs": None}
 
     def counted_fwd(*args, **kwargs):
         seen["plain_forward"] += 1
         return fwd(*args, **kwargs)
 
-    def ranged_bwd(*args, **kwargs):
+    def counted_bwd(*args, **kwargs):
+        seen["plain_backward"] += 1
+        return bwd(*args, **kwargs)
+
+    def kept_kernel(*args, **kwargs):
         if seen["bwd_inputs"] is None:
             # detached: the saved tensors would keep the step's autograd
             # graph alive, whose AccumulateGrad nodes then tie the next
             # step to their stream (no CUDA graph can capture it)
             seen["bwd_inputs"] = (tuple(a.detach() for a in args), kwargs)
-        with torch.profiler.record_function(DINO_BWD_RANGE):
-            return bwd(*args, **kwargs)
+        return kern(*args, **kwargs)
     ref.flash_attention_ref, ref.flash_attention_bwd_ref = (counted_fwd,
-                                                            ranged_bwd)
+                                                            counted_bwd)
+    fa.flash_attention_bwd = kept_kernel
     try:
         yield seen
     finally:
         ref.flash_attention_ref, ref.flash_attention_bwd_ref = fwd, bwd
+        fa.flash_attention_bwd = kern
 
 
 def attention_counts(seen) -> dict:
-    """The flash kernel's launches, the backward calls and the plain
-    forwards since zero_counts."""
+    """The flash kernel's launches, the backward calls, the backward
+    kernel's launches, and the plain forwards and backwards since
+    zero_counts."""
     from repro_torch.kernels import flash_attention as fa
     return {"flash_attention": fa.launches, "backward_calls":
-            fa.backward_calls, "plain_forward": seen["plain_forward"]}
+            fa.backward_calls, "backward_launches": fa.backward_launches,
+            "plain_forward": seen["plain_forward"],
+            "plain_backward": seen["plain_backward"]}
 
 
 def needs_dino_launches(counts: dict, layers: int, what: str) -> None:
     """A step launches the kernel once a layer, view and network (teacher
-    and student) and runs the backward once a layer and view; no forward
-    takes the plain version."""
+    and student) and runs the backward once a layer and view, each on the
+    backward kernel; no forward or backward takes the plain version."""
     want = {"flash_attention": 4 * layers, "backward_calls": 2 * layers,
-            "plain_forward": 0}
+            "backward_launches": 2 * layers, "plain_forward": 0,
+            "plain_backward": 0}
     if counts != want:
         raise AssertionError(f"{what}: {counts}, expected {want}")
 
@@ -3585,11 +3623,11 @@ def dino_train(device, cfg, imgs, size: int, batch: int, steps: int):
 
 def dino_profile(device, state, step, x):
     """One step on two uploaded views of ``x`` under torch.profiler
-    (profile_batch, the plain backward as its own class: the kernels under
-    DINO_BWD_RANGE), and a CUDA graph of 3 such steps (device time with no
-    host gaps). Run after the state is no longer needed: the graph's
-    replays take steps with a stale Adam scale. Returns the record and
-    the profiled step's first attention backward's inputs."""
+    (profile_batch; the backward kernels are their own class), and a CUDA
+    graph of 3 such steps (device time with no host gaps). Run after
+    the state is no longer needed: the graph's replays take steps with a
+    stale Adam scale. Returns the record and the profiled step's first
+    attention backward's inputs."""
     import torch
     from repro_torch.features.dino import augment
     gen = torch.Generator().manual_seed(3)
@@ -3597,8 +3635,7 @@ def dino_profile(device, state, step, x):
     v1, v2 = (augment(xc, gen).to(device) for _ in range(2))
     fn = lambda: step.on_views(state, v1, v2)
     with plain_attention_watch() as seen:
-        prof = profile_batch(fn, flash_counter(), graph_fallback=True,
-                             ranges=(DINO_BWD_RANGE,))
+        prof = profile_batch(fn, flash_counter(), graph_fallback=True)
         prof["graph_step_ms"] = graph_ms(fn, iters=3)
     return prof, seen["bwd_inputs"]
 
@@ -3619,25 +3656,158 @@ def attention_bwd_bound(bh: int, s: int, g: int, d: int, causal: bool,
     return 1e3 * max(tb, to), ("bytes" if tb >= to else "operations")
 
 
-def attention_backward_times(args, kwargs) -> dict:
-    """At one backward's own inputs (q, k, v, dout in the kernel
-    layout, as a DINO step gave them): the plain backward by CUDA events
-    and by a CUDA graph (device ms); the kernel forward and the plain
-    backward through ops' autograd Function (events); SDPA's forward and
-    forward + backward on the same q, k, v and dout (events), the library
-    yardstick, never on the path; the backward's bound."""
+def seeded_like(t, seed: int):
+    """N(0, 1) in t's shape, dtype and device, from a seeded generator."""
     import torch
-    import torch.nn.functional as F
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    return torch.randn(t.shape, device=t.device, generator=gen).to(t.dtype)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The flash counters as they were before: launches made to hold a
+    kernel to its plain version or to time it are no path's."""
+    from repro_torch.kernels import flash_attention as fa
+    names = ("launches", "backward_launches", "backward_calls")
+    before = {n: getattr(fa, n) for n in names}
+    try:
+        yield
+    finally:
+        for n, v in before.items():
+            setattr(fa, n, v)
+
+
+def check_flash_bwd(q, k, v, dout, causal: bool) -> dict:
+    """flash_attention_bwd against flash_attention_bwd_ref on the same
+    kernel-layout inputs: dq, dk and dv each within FLASH_TOL of its
+    dtype (torch.allclose, rtol = atol = tol); raises beyond it."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    tol = FLASH_TOL[dt]
+    with uncounted():
+        got = fa.flash_attention_bwd(q, k, v, dout, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float(), w.float()
+        errs[name] = float((a - w).abs().max())
+        if a.dtype != w.dtype or not torch.allclose(a, w, rtol=tol,
+                                                    atol=tol):
+            raise AssertionError(
+                f"flash_attention_bwd {tuple(q.shape)} {dt} causal="
+                f"{causal}: {name} != the plain version's (max abs err "
+                f"{errs[name]}, tol {tol})")
+    bh, s, g, d = q.shape
+    return {"shape": {"bh": bh, "s": s, "g": g, "d": d}, "dtype": dt,
+            "causal": causal, "max_abs_err": max(errs.values()),
+            "max_abs_err_by_output": errs, "tol": tol}
+
+
+def measure_flash_bwd(q, k, v, dout, causal: bool) -> dict:
+    """check_flash_bwd, then the kernel's and the plain version's event
+    times (median of 30 and of 5 calls) and the bound."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    res = check_flash_bwd(q, k, v, dout, causal)
+    with uncounted():
+        res["ms"] = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, dout, causal=causal))
+    res["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, dout, causal=causal), iters=5, warmup=1)
+    sh = res["shape"]
+    res["bound_ms"], res["bound_by"] = attention_bwd_bound(
+        sh["bh"], sh["s"], sh["g"], sh["d"], causal, res["dtype"])
+    return res
+
+
+def flash_bwd_rows(device) -> list:
+    """flash_attention_bwd at every FLASH_CASES shape, causal and not, and
+    at the mesh MoE's (BH 1, G 16, D 128, f32, causal), each with a
+    seeded dout (measure_flash_bwd)."""
+    cases = [(*c[:5], causal, c[6]) for c in FLASH_CASES
+             for causal in (c[5], not c[5])]
+    cases.append((1, MESH_TRAIN_SEQ, 16, 1, 128, True, "float32"))
+    rows = []
+    for i, case in enumerate(cases):
+        q, k, v = flash_case(*case, seed=40 + i, device=device)
+        rows.append(measure_flash_bwd(q, k, v, seeded_like(q, 80 + i),
+                                      case[5]))
+        del q, k, v
+    return rows
+
+
+# one backward call may allocate at most this much above its inputs and
+# outputs: the kernel's lse and delta rows are [BH, S G] f32 (1 MB at
+# lm_train's shape), the plain version's p and dp [BH, G, S, S] f32 each
+BWD_SCRATCH_LIMIT = 150 << 20
+
+
+def attention_backward_memory(args, kwargs) -> dict:
+    """At one backward's own inputs: the kernel twice, bitwise equal; the
+    peak allocation of one kernel call and of one plain call above their
+    inputs and outputs (raises if the kernel's reaches
+    BWD_SCRATCH_LIMIT)."""
+    import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q, k, v, dout = args
     causal = kwargs["causal"]
+
+    def above(fn):
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        outs = sum(t.numel() * t.element_size() for t in out)
+        return peak - base - outs, out
+    with uncounted():
+        kern_bytes, a = above(lambda: fa.flash_attention_bwd(
+            q, k, v, dout, causal=causal))
+        b = fa.flash_attention_bwd(q, k, v, dout, causal=causal)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
+    del a, b
+    plain_bytes, out = above(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, dout, causal=causal))
+    del out
+    free_cuda()
+    res = {"bitwise_equal_twice": bitwise,
+           "kernel_peak_above_io_bytes": kern_bytes,
+           "plain_peak_above_io_bytes": plain_bytes,
+           "kernel_limit_bytes": BWD_SCRATCH_LIMIT}
+    if not bitwise or kern_bytes >= BWD_SCRATCH_LIMIT:
+        raise AssertionError(f"flash_attention_bwd at {tuple(q.shape)}: "
+                             f"{res}")
+    return res
+
+
+def attention_backward_times(args, kwargs) -> dict:
+    """At one backward's own inputs (q, k, v, dout in the kernel layout,
+    as a step gave them to the backward kernel): the kernel held to the
+    plain version (check_flash_bwd); the kernel's and the plain
+    backward's times by CUDA events and by a CUDA graph (device ms); the
+    kernel forward and backward through ops' autograd Function (events);
+    SDPA's forward and forward + backward on the same q, k, v and dout
+    (events), the library yardstick, never on the path; the backward's
+    bound. None of these calls counts as a path's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ops import _FlashAttention
+    q, k, v, dout = args
+    causal = kwargs["causal"]
     bh, s, g, d = q.shape
+    kern = lambda: fa.flash_attention_bwd(q, k, v, dout, causal=causal)
     plain = lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
                                                 causal=causal)
-    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     # the autograd Function in the kernel layout (ops applies it there)
-    from repro_torch.kernels.ops import _FlashAttention
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
 
     def port_fb():
         o = _FlashAttention.apply(*leaves, causal)
@@ -3653,22 +3823,26 @@ def attention_backward_times(args, kwargs) -> dict:
 
     def sdpa_fb():
         return torch.autograd.grad(sdpa(), (ql, kl, vl), dl)
+    res = check_flash_bwd(q, k, v, dout, causal)
     # the backward against SDPA's, on the same inputs (a yardstick)
     got = plain()
     want = sdpa_fb()
-    lib_err = max(float((a.float() - b.float().reshape(a.shape)).abs().max())
-                  for a, b in zip(got, (want[0].permute(0, 2, 1, 3),
-                                        want[1][:, 0], want[2][:, 0])))
-    b0 = fa.backward_calls
-    res = {"shape": {"bh": bh, "s": s, "g": g, "d": d}, "causal": causal,
-           "plain_bwd_ms": time_ms(plain, iters=10, warmup=2),
-           "plain_bwd_device_ms": graph_ms(plain, iters=10),
-           "plain_bwd_device_ms_by": "graph",
-           "kernel_fwd_plain_bwd_ms": time_ms(port_fb, iters=10, warmup=2),
-           "library_fwd_ms": time_ms(sdpa, iters=10, warmup=2),
-           "library_fwd_bwd_ms": time_ms(sdpa_fb, iters=10, warmup=2),
-           "library_max_abs_diff": lib_err}
-    fa.backward_calls = b0        # the timing's calls are not the path's
+    res["library_max_abs_diff"] = max(
+        float((a.float() - b.float().reshape(a.shape)).abs().max())
+        for a, b in zip(got, (want[0].permute(0, 2, 1, 3), want[1][:, 0],
+                              want[2][:, 0])))
+    del got, want
+    with uncounted():
+        res.update({
+            "kernel_bwd_ms": time_ms(kern, iters=10, warmup=2),
+            "kernel_bwd_device_ms": graph_ms(kern, iters=10),
+            "kernel_bwd_device_ms_by": "graph",
+            "plain_bwd_ms": time_ms(plain, iters=10, warmup=2),
+            "plain_bwd_device_ms": graph_ms(plain, iters=10),
+            "plain_bwd_device_ms_by": "graph",
+            "kernel_fwd_bwd_ms": time_ms(port_fb, iters=10, warmup=2),
+            "library_fwd_ms": time_ms(sdpa, iters=10, warmup=2),
+            "library_fwd_bwd_ms": time_ms(sdpa_fb, iters=10, warmup=2)})
     res["bound_ms"], res["bound_by"] = attention_bwd_bound(
         bh, s, g, d, causal,
         "bfloat16" if q.dtype == torch.bfloat16 else "float32")
@@ -3683,8 +3857,9 @@ def phase_dino(device, imgs=None, labels=None) -> dict:
     extraction phase's patches (``imgs``, ``labels``; made here when not
     given) for one dbranch/dbens batch (phase_search_vit); at 400x400 one
     step against the CPU at batch DINO400_CHECK_BATCH and DINO400_STEPS
-    timed at DINO400_BATCH; the plain attention backward timed at each
-    step's own inputs beside SDPA's. Returns the record."""
+    timed at DINO400_BATCH; the attention backward kernel held to its
+    plain version and timed at each step's own inputs beside the plain
+    version and SDPA's (attention_backward_times). Returns the record."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.rapidearth_vit import IMAGE_SIZE
@@ -4161,7 +4336,7 @@ TRAIN_STEPS = 5
 # layer a row beside the 30 GB state
 TRAIN_NONE_ROWS = 1
 # the profiled step lists this many kernels of most device time in each
-# class (flash, cuBLAS, the rest) and in each range
+# class (flash, its backward, cuBLAS, the rest) and in each range
 TRAIN_TOP_KERNELS = 12
 # torch.profiler range around the step's clip and AdamW update
 TRAIN_OPT_RANGE = "clip_and_update"
@@ -4196,11 +4371,12 @@ def needs_train_counts(counts: dict, cfg, steps: int, remat: str,
                        what: str) -> None:
     """A step launches the kernel once a flash layer at TRAIN_SEQ, twice
     under a recomputing remat (the forward, then the backward's
-    recompute), and runs the plain backward once a layer; no forward
-    takes the plain version."""
+    recompute), and the backward kernel once a layer; no forward or
+    backward takes the plain version."""
     n = flash_layers(cfg, TRAIN_SEQ) * steps
     want = {"flash_attention": n * (1 if remat == "none" else 2),
-            "backward_calls": n, "plain_forward": 0}
+            "backward_calls": n, "backward_launches": n,
+            "plain_forward": 0, "plain_backward": 0}
     if counts != want:
         raise AssertionError(f"{what}: {counts}, expected {want}")
 
@@ -4339,16 +4515,18 @@ def phase_lm_train(device) -> dict:
     """LM training on the card (ROADMAP A13b): internlm2-1.8b whole at full
     width and depth trained by Trainer.run (TRAIN_WARM_STEPS warm-up
     steps, TRAIN_STEPS timed), the flash kernel launched twice a layer a
-    step (the forward and the remat recompute) and the plain backward
-    once; finite losses and every parameter changed; one step under
-    torch.profiler; one step with remat "none" on TRAIN_NONE_ROWS rows
-    (once a layer); two layers
+    step (the forward and the remat recompute) and the backward kernel
+    once, no plain forward or backward; finite losses and every
+    parameter changed; one step under torch.profiler; one step with
+    remat "none" on TRAIN_NONE_ROWS rows (once a layer); two layers
     against the CPU (lm_train_gpu_vs_cpu, on the initial weights); the
     kernel held to its plain version and timed at the training step's
-    attention inputs (measure_flash), the plain backward at its own
-    (attention_backward_times: a CUDA graph, SDPA's forward + backward,
-    the bound); the checkpoint round trip (lm_train_resume). Returns the
-    record."""
+    attention inputs (measure_flash), the backward kernel at its own
+    (attention_backward_times: held to the plain version, both timed by
+    events and CUDA graphs, SDPA's forward + backward, the bound; and
+    attention_backward_memory: two calls bitwise equal, each version's
+    peak above its inputs and outputs); the checkpoint round trip
+    (lm_train_resume). Returns the record."""
     import dataclasses
     import torch
     from repro_torch.device import to_device_async
@@ -4392,9 +4570,9 @@ def phase_lm_train(device) -> dict:
              for k, v in tr.source.batch(step).items()}
     gen = derive_generator(tc.seed ^ 0x5EED, step)
     fn = lambda: tr.step_fn(state, batch, gen)
-    with plain_attention_watch(), optimizer_range():
+    with optimizer_range():
         prof = profile_batch(fn, flash_counter(),
-                             ranges=(DINO_BWD_RANGE, TRAIN_OPT_RANGE),
+                             ranges=(TRAIN_OPT_RANGE,),
                              top_by_class=TRAIN_TOP_KERNELS)
     none_step = make_train_step(cfg, dataclasses.replace(tc, remat="none"))
     rows = {k: v[:TRAIN_NONE_ROWS] for k, v in batch.items()}
@@ -4410,6 +4588,7 @@ def phase_lm_train(device) -> dict:
     kernel = measure_flash(*store[0][:3], causal=store[0][3])
     store.clear()
     bwd = attention_backward_times(*bwd_in)
+    bwd_mem = attention_backward_memory(*bwd_in)
     del bwd_in
     free_cuda()
     resume = lm_train_resume(device)
@@ -4438,7 +4617,8 @@ def phase_lm_train(device) -> dict:
                                "peak_bytes": none_peak},
            "profile_one_step": prof, "gpu_vs_cpu": check,
            "kernel_at_train_inputs": kernel, "attention_backward": bwd,
-           "resume": resume, "phase_s": time.perf_counter() - t_phase}
+           "attention_backward_memory": bwd_mem, "resume": resume,
+           "phase_s": time.perf_counter() - t_phase}
     emit(res)
     return res
 
@@ -5234,11 +5414,12 @@ def mesh_train_compare(oracle: dict, recs: list, what: str) -> dict:
 def needs_mesh_train_counts(counts: dict, cfg, steps: int,
                             what: str) -> None:
     """Each rank launches the kernel twice a flash layer a step (the
-    forward and remat's recompute, on its heads) and runs the plain
-    backward once; no forward takes the plain version."""
+    forward and remat's recompute, on its heads) and the backward kernel
+    once; no forward or backward takes the plain version."""
     n = flash_layers(cfg, MESH_TRAIN_SEQ) * steps
     want = {"flash_attention": 2 * n, "backward_calls": n,
-            "plain_forward": 0}
+            "backward_launches": n, "plain_forward": 0,
+            "plain_backward": 0}
     if n == 0 or counts != want:
         raise AssertionError(f"{what}: {counts}, expected {want}")
 
@@ -5250,8 +5431,9 @@ def phase_lm_mesh_train(device) -> dict:
     card runs each MESH_TRAIN_RUNS run (the check against the oracle
     within the limits, the MoE's dispatch counts bitwise, then
     MESH_TRAIN_STEPS timed Trainer steps); the flash kernel launched on
-    every rank twice a layer a step, held to its plain version
-    (measure_flash) at rank 0's layer-0 training inputs of each run once
+    every rank twice a layer a step and the backward kernel once, both
+    held to their plain versions (measure_flash, measure_flash_bwd with
+    a seeded dout) at rank 0's layer-0 training inputs of each run once
     the world has exited. The oracle's files are removed at the end.
     Returns the record."""
     import shutil
@@ -5269,7 +5451,7 @@ def phase_lm_mesh_train(device) -> dict:
                           MESH_TRAIN_JOIN_S, "lm_mesh_train")
     finally:
         shutil.rmtree(MESH_TRAIN_ORACLE, ignore_errors=True)
-    runs, kernel_at = {}, {}
+    runs, kernel_at, kernel_bwd_at = {}, {}, {}
     for name, arch, shape, mode, batch in MESH_TRAIN_RUNS:
         cfg = mesh_train_config(arch, mode, batch)[0]
         recs = [world[r][name]["record"] for r in sorted(world)]
@@ -5299,6 +5481,8 @@ def phase_lm_mesh_train(device) -> dict:
                                  f"flash call to check")
         q, k, v, causal = kernel_inputs_of(kin, device)
         kernel_at[name] = measure_flash(q, k, v, causal)
+        kernel_bwd_at[name] = measure_flash_bwd(q, k, v,
+                                                seeded_like(q, 90), causal)
         del q, k, v
         free_cuda()
     res = {"phase": "lm_mesh_train", "backend": MESH_BACKEND,
@@ -5317,6 +5501,7 @@ def phase_lm_mesh_train(device) -> dict:
                           if k not in ("max", "dtype", "dir")}
                       for a, o in oracles.items()},
            "runs": runs, "kernel_at_train_inputs": kernel_at,
+           "kernel_bwd_at_train_inputs": kernel_bwd_at,
            "phase_s": time.perf_counter() - t_phase}
     emit(res)
     return res
@@ -5878,14 +6063,14 @@ MESH_SHARDS = 4                # a device list naming the one card 4 times
 
 
 def zero_counts() -> None:
-    """Every kernel wrapper's launch counter to 0, and the attention
-    backward's call counter."""
+    """Every kernel wrapper's launch counter to 0 (the attention
+    backward's too), and the attention backward's call counter."""
     from repro_torch.kernels import box_scan, flash_attention, l2dist
     from repro_torch.kernels import zone_prune
     zone_prune.launches = zone_prune.candidates_launches = 0
     box_scan.scan_launches = box_scan.seg_launches = 0
     l2dist.launches = flash_attention.launches = 0
-    flash_attention.backward_calls = 0
+    flash_attention.backward_calls = flash_attention.backward_launches = 0
 
 
 def read_counts() -> dict:
@@ -6493,8 +6678,9 @@ def model_flops(cfg, batch: int, seq: int) -> float:
 def lm_train_prediction(measured) -> dict:
     """The dry run of lm_train's step (internlm2-1.8b whole, 2 x 4,096,
     its TrainConfig) on one device: the products' FLOPs it dispatches
-    (the flash forward counted with the full S^2 as the reference counts
-    its attention, and with the causal kernel's own half; remat's
+    (the flash forward and backward counted with the full S^2 as the
+    reference counts its attention, and with the causal kernels' own
+    half; remat's
     recompute and the loss checkpoint's second unembedding included),
     predicted peak and arguments, and model_flops beside them; with the
     measured run, their shares of the bf16 peak at its s/step: the
@@ -6505,7 +6691,8 @@ def lm_train_prediction(measured) -> dict:
     cfg, tc, dc = lm_train_config()
     d = dry_run(cfg, ShapeConfig("lm_train", "train", dc.seq_len,
                                  dc.global_batch), tc=tc)
-    flash = d["kernels"].get("flash_attention", {}).get("flops", 0.0)
+    flash = sum(d["kernels"].get(n, {}).get("flops", 0.0)
+                for n in ("flash_attention", "flash_attention_bwd"))
     causal = d["dot_flops_per_device"] - flash \
         + d["flash_causal_flops_per_device"]
     rec = {"dot_flops": d["dot_flops_per_device"],
@@ -6870,7 +7057,9 @@ KERNELS = {
 
 
 ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
-                                   "flash_attention": flash_rows(dev)}),
+                                   "flash_attention": flash_rows(dev),
+                                   "flash_attention_bwd":
+                                       flash_bwd_rows(dev)}),
         "extraction_400": phase_extraction_400,
         "box_scan": phase_box_scan,
         "zone_prune": phase_zone_prune,
@@ -6939,6 +7128,8 @@ def main(argv) -> int:
     missing = sass_missing(sass)
     emit({"phase": "flash_sass", "functions": sass, "missing": missing,
           "ptxas": ptxas_stats(libs["flash_attention"])})
+    bwd_sass = flash_bwd_sass(libs)
+    emit(bwd_sass)
     box_sass = bulk_sass(libs)
     emit(box_sass)
     if only is not None:
@@ -6958,6 +7149,9 @@ def main(argv) -> int:
     if box_sass["missing"]:
         raise AssertionError(f"box scans: no cp.async.bulk in "
                              f"{box_sass['missing']}")
+    if bwd_sass["no_mma"]:
+        raise AssertionError(f"flash_attention_bwd: no mma.sync (HMMA) in "
+                             f"{bwd_sass['no_mma']}")
     dev = torch.device("cuda", 0)
     phase_kernels(dev)
     phase_gpu_vs_cpu(dev)
@@ -7140,23 +7334,47 @@ def main(argv) -> int:
     # step: zero3 (one row, 8 kv heads: BH 8, G 2), fsdp_tp head mode (two
     # rows, 4 kv heads: BH 8, G 2), bf16; the MoE's float32 (BH 1, G 16)
     rows[-1]["lm_mesh_train"] = mesh_train_rec["kernel_at_train_inputs"]
-    # the plain backward under ops.flash_attention's autograd Function (no
-    # kernel yet: ROADMAP B5b), at each DINO step's shapes
-    rows[-1]["attention_backward"] = {
-        "source": "src/repro_torch/kernels/ref.py flash_attention_bwd_ref",
-        "calls_per_step": {
-            "dino_step": dino["train"]["launches_per_step"]["backward_calls"],
-            "dino_step_400":
-                dino["train_400"]["launches_per_step"]["backward_calls"],
-            "lm_train_step":
-                train_rec["launches_per_step"]["backward_calls"],
+    # the attention backward kernel (B5b), held and timed at lm_train's
+    # step's inputs (BH 16, S 4096, G 2, D 128, causal, bf16); beside it
+    # each DINO step's and each lm_mesh_train run's (rank 0's inputs, a
+    # seeded dout); launches: lm_train's timed steps
+    bw = train_rec["attention_backward"]
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:143",
+        "launches": train_rec["launches"]["backward_launches"],
+        "launches_by_path": {
+            "dino_step": dino["train"]["launches_per_step"][
+                "backward_launches"],
+            "dino_step_400": dino["train_400"]["launches_per_step"][
+                "backward_launches"],
+            "lm_train_step": train_rec["launches_per_step"][
+                "backward_launches"],
+            "lm_train_step_remat_none": train_rec["remat_none_step"][
+                "launches"]["backward_launches"],
             "lm_mesh_train_step_per_rank": {
-                name: [r["launches_per_step"]["backward_calls"]
+                name: [r["launches_per_step"]["backward_launches"]
                        for r in m["per_rank"]]
                 for name, m in mesh_train_rec["runs"].items()}},
+        "max_abs_err": bw["max_abs_err"], "exact": False, "tol": bw["tol"],
+        "ms": bw["kernel_bwd_ms"], "kernel_ms": bw["kernel_bwd_ms"],
+        "plain_ms": bw["plain_bwd_ms"],
+        "device_ms": bw["kernel_bwd_device_ms"],
+        "device_ms_by": bw["kernel_bwd_device_ms_by"],
+        "plain_device_ms": bw["plain_bwd_device_ms"],
+        "plain_device_ms_by": bw["plain_bwd_device_ms_by"],
+        "bound_ms": bw["bound_ms"], "bound_by": bw["bound_by"],
+        # no PyTorch call takes the backward alone: SDPA's forward +
+        # backward, beside the port's kernel forward + backward
+        "library_ms": bw["library_fwd_bwd_ms"],
+        "library_fwd_ms": bw["library_fwd_ms"],
+        "kernel_fwd_bwd_ms": bw["kernel_fwd_bwd_ms"],
+        "shape": bw["shape"], "sass": bwd_sass["functions"],
+        "memory": train_rec["attention_backward_memory"],
         "dino_step": dino["attention_backward"],
         "dino_step_400": dino["attention_backward_400"],
-        "lm_train_step": train_rec["attention_backward"]}
+        "lm_mesh_train": mesh_train_rec["kernel_bwd_at_train_inputs"]})
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,7 +12,8 @@ reference reduces it:
 
 Every attention layer of the teacher and the student runs
 ``kernels.ops.flash_attention``: on the card the hand-written CUDA
-kernel forward, and for the student under autograd the plain backward.
+kernel forward, and for the student under autograd the hand-written
+backward kernel (``kernels.flash_attention.flash_attention_bwd``).
 The random draws (initial weights, augmentations) come from a CPU
 ``torch.Generator``, so one seed gives the same state and the same views
 on every device; they are not JAX's draws. ``apply_augment`` takes the

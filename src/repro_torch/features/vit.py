@@ -9,7 +9,9 @@ learned positional embeddings). ``extract_features`` returns the paper's
 Each encoder layer's attention is ``kernels.ops.flash_attention`` with
 ``causal=False`` and one query head per kv head: the hand-written CUDA
 kernel on the card, its plain version on the CPU; under autograd its
-backward is the plain ``kernels/ref.flash_attention_bwd_ref``. The
+backward is the CUDA backward kernel on the card
+(``kernels.flash_attention.flash_attention_bwd``) and its plain version
+``kernels/ref.flash_attention_bwd_ref`` on the CPU. The
 projections and the MLP stay ``torch.matmul``, as the reference leaves
 them to XLA. Everything computes in float32 (the reference builds f32
 parameters and never casts), and the MLP's GELU is the tanh

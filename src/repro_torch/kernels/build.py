@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("zone_prune", "box_scan_seg", "box_scan", "l2dist",
-           "flash_attention")
+           "flash_attention", "flash_attention_bwd")
 # -Xptxas -v: each kernel's registers, shared memory and spills, kept in
 # <library>.log beside the library
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +46,8 @@ ENTRIES = {
     "l2dist": {"l2dist_launch": [_P, _P, _L, _I, _I, _P, _P]},
     "flash_attention": {"flash_attention_launch": [_P, _P, _P, _P, _I, _I,
                                                    _I, _I, _I, _I, _F, _P]},
+    "flash_attention_bwd": {"flash_attention_bwd_launch": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -7,7 +7,7 @@ implementation only: it returns the kernel's output shapes and dtypes and
 computes nothing, and an op trace (``launch/hlo_analysis.OpTrace``) sees
 it as one call, ``repro_torch.<kernel>``, with its inputs and outputs,
 which ``hlo_analysis.analyze`` prices by the kernel's own model (the
-flash forward by ``flash_flops``).
+flash forward by ``flash_flops``, its backward by ``flash_bwd_flops``).
 
 The operators are registered at the first meta call, never at import,
 and nothing here touches a card.
@@ -35,6 +35,8 @@ SCHEMAS = {
     "l2dist": "(Tensor x, Tensor q) -> Tensor",
     "flash_attention": "(Tensor q, Tensor k, Tensor v, bool causal) "
                        "-> Tensor",
+    "flash_attention_bwd": "(Tensor q, Tensor k, Tensor v, Tensor dout, "
+                           "bool causal) -> (Tensor, Tensor, Tensor)",
 }
 
 
@@ -84,11 +86,23 @@ def _flash_attention(q, k, v, causal):
     return _empty(q.shape, q.dtype)
 
 
+def _flash_attention_bwd(q, k, v, dout, causal):
+    """(dq, dk, dv) shaped and typed as q, k and v; refuses what the
+    kernel refuses, as the forward does."""
+    _flash_attention(q, k, v, causal)
+    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} "
+                         f"{dout.dtype}, q {tuple(q.shape)} {q.dtype}")
+    return (_empty(q.shape, q.dtype), _empty(k.shape, k.dtype),
+            _empty(v.shape, v.dtype))
+
+
 _IMPLS = {"zone_prune": _zone_prune, "zone_hits": _zone_hits,
           "zone_candidates": _zone_candidates, "box_scan": _box_scan,
           "box_scan_seg": _box_scan_seg,
           "box_scan_seg_gather": _box_scan_seg_gather, "l2dist": _l2dist,
-          "flash_attention": _flash_attention}
+          "flash_attention": _flash_attention,
+          "flash_attention_bwd": _flash_attention_bwd}
 
 
 def flash_flops(q_shape, causal: bool = False) -> int:
@@ -99,6 +113,14 @@ def flash_flops(q_shape, causal: bool = False) -> int:
     bh, s, g, d = q_shape
     pairs = s * (s + 1) // 2 if causal else s * s
     return 4 * bh * g * d * pairs
+
+
+def flash_bwd_flops(q_shape, causal: bool = False) -> int:
+    """FLOPs of one flash backward of q [BH, S, G, D], as the reference's
+    ``_flash_core_bwd`` takes them: five products of 2·BH·G·D a (query,
+    key) pair (the scores again, dv, dp, dq, dk), over S² or, where
+    ``causal``, the causal kernel's own S(S+1)/2."""
+    return 5 * flash_flops(q_shape, causal) // 2
 
 
 _LIBRARY: list = []

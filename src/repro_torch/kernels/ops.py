@@ -116,12 +116,23 @@ def _flash_forward(q, k, v, causal: bool) -> torch.Tensor:
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
+def _flash_backward(q, k, v, dout, causal: bool):
+    """Kernel-layout attention gradients (dq, dk, dv): the CUDA backward
+    kernel, or on the CPU its plain version."""
+    if _on_cpu(q):
+        return kref.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    if _on_meta(q):
+        return _meta.call("flash_attention_bwd", q, k, v, dout, bool(causal))
+    return _flash.flash_attention_bwd(q, k, v, dout, causal=causal)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Kernel-layout attention with a backward: the forward is
     ``_flash_forward`` (the CUDA kernel on the card), run without grad,
-    saving q, k and v; the backward is ``kref.flash_attention_bwd_ref`` on
-    every device (no hand-written backward kernel yet), which recomputes
-    the scores, and counts ``_flash.backward_calls``."""
+    saving q, k and v only (O(S), as the reference's custom VJP saves
+    its residuals); the backward is ``_flash_backward`` (the CUDA
+    backward kernel on the card), which recomputes the scores, and counts
+    ``_flash.backward_calls``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
@@ -132,8 +143,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v = ctx.saved_tensors
-        dq, dk, dv = kref.flash_attention_bwd_ref(
-            q, k, v, dout.contiguous(), causal=ctx.causal)
+        dq, dk, dv = _flash_backward(q, k, v, dout.contiguous(), ctx.causal)
         _flash.backward_calls += 1
         return dq, dk, dv, None
 

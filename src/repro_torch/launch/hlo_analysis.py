@@ -15,9 +15,11 @@ there are no while bodies and no trip counts to recover.
   * dot_flops        — 2·M·N·K of every product (mm, bmm, addmm,
     baddbmm, ...; what ``torch.utils.flop_counter.FlopCounterMode``
     counts), the flop counter's own formula for the other ops it knows
-    (convolutions), and 4·BH·G·S²·D for each flash kernel call, the full
-    S² as the reference's HLO counts its plain attention, causal or not;
-    ``flash_causal_flops`` is the causal kernel's own S(S+1)/2 apart.
+    (convolutions), and 4·BH·G·S²·D for each flash kernel call and
+    10·BH·G·S²·D for each flash backward call (the reference's
+    ``_flash_core_bwd``: five products), the full S² as the reference's
+    HLO counts its attention, causal or not; ``flash_causal_flops`` is
+    the causal kernels' own S(S+1)/2 apart, forward and backward.
   * elementwise_flops — output elements of arithmetic ops (1 flop an
     element), plus the compares of the search kernels (3·rows·boxes·dims,
     the reference's kernel model).
@@ -55,7 +57,8 @@ from torch.utils._pytree import tree_flatten
 from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.compat import DTensor, local_tensor
-from repro_torch.kernels.meta import NAMESPACE, flash_flops
+from repro_torch.kernels.meta import (NAMESPACE, flash_bwd_flops,
+                                      flash_flops)
 
 # bytes an element, by torch dtype name (the reference's table is by HLO
 # type name)
@@ -252,10 +255,11 @@ def _kernel_cost(kernel: str, ins, outs, args):
     one kernel call: each input read once and each output written once,
     but box_scan_seg_gather's rows, read at the gathered blocks only."""
     byts = sum(_nbytes(s) for s in ins) + sum(_nbytes(s) for s in outs)
-    if kernel == "flash_attention":
+    if kernel in ("flash_attention", "flash_attention_bwd"):
+        flops = flash_flops if kernel == "flash_attention" else flash_bwd_flops
         causal = bool(args[0]) if args else True
         q = ins[0][1]
-        return flash_flops(q), 0, byts, flash_flops(q, causal)
+        return flops(q), 0, byts, flops(q, causal)
     if kernel == "l2dist":
         (n, d), q = ins[0][1], ins[1][1][0]
         return 0, _KERNEL_COMPARES * n * q * d, byts, 0

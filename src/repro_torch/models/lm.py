@@ -23,8 +23,8 @@ Entry points:
 Caches are a list, one entry a layer: {"k", "v"} for attention,
 ``SSMState`` for S, ``LRUState`` for R. Attention layers whose sequence
 exceeds ``FLASH_THRESHOLD`` run ``attention.flash_attention``, the CUDA
-flash kernel on the card (in training its forward, with the plain
-backward under ``kernels.ops``' autograd Function).
+flash kernel on the card (in training its forward and, under
+``kernels.ops``' autograd Function, the backward kernel).
 
 On a mesh (``ctx``, a ``ParallelCtx`` holding a ``DeviceMesh``; one
 process a mesh device) the parameters are DTensors placed by

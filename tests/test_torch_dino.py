@@ -396,19 +396,25 @@ def test_forward_off_the_cpu_launches_the_kernel(monkeypatch):
     attention forward of a step, teacher's and student's, goes to the
     kernel's wrapper (stubbed by the plain version plus its counter) and
     none to ``flash_attention_ref`` itself; the student's backward runs
-    once a layer and view."""
-    plain = tref.flash_attention_ref
-    calls = {"kernel": 0}
+    once a layer and view, each on the backward kernel's wrapper (stubbed
+    likewise)."""
+    plain, plain_bwd = tref.flash_attention_ref, tref.flash_attention_bwd_ref
+    calls = {"kernel": 0, "backward_kernel": 0}
 
     def kernel(q, k, v, *, causal=True):
         assert not torch.is_grad_enabled()
         calls["kernel"] += 1
         return plain(q, k, v, causal=causal)
 
+    def backward_kernel(q, k, v, dout, *, causal=True):
+        calls["backward_kernel"] += 1
+        return plain_bwd(q, k, v, dout, causal=causal)
+
     def refused(*args, **kwargs):
         raise AssertionError("flash_attention_ref called in a forward")
     monkeypatch.setattr(tops, "_on_cpu", lambda t: False)
     monkeypatch.setattr(tflash, "flash_attention", kernel)
+    monkeypatch.setattr(tflash, "flash_attention_bwd", backward_kernel)
     monkeypatch.setattr(tref, "flash_attention_ref", refused)
     monkeypatch.setattr(tflash, "backward_calls", 0)
     state = _init()
@@ -417,6 +423,7 @@ def test_forward_off_the_cpu_launches_the_kernel(monkeypatch):
     layers = _cfg().num_layers
     assert calls["kernel"] == 2 * 2 * layers       # (teacher, student) x views
     assert tflash.backward_calls == 2 * layers
+    assert calls["backward_kernel"] == 2 * layers
     assert np.isfinite(float(m["loss"]))
 
 
@@ -435,17 +442,20 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("s,hq,hkv,d", [(17, 3, 3, 64), (67, 4, 2, 32)])
 def test_bwd_cuda_matches_cpu(cuda, s, hq, hkv, d):
-    """The Function on the card (kernel forward, plain backward) against
-    the CPU's, within the forward's f32 tolerance 2e-4."""
+    """The Function on the card (kernel forward and backward) against
+    the CPU's (the plain versions), within the forward's f32 tolerance
+    2e-4."""
     q, k, v, dout = _model_inputs(2, s, hq, hkv, d, seed=s)
     _, want = _port_grads(q, k, v, dout, causal=False)
     leaves = [torch.from_numpy(a).to(cuda).requires_grad_(True)
               for a in (q, k, v)]
     n0, b0 = tflash.launches, tflash.backward_calls
+    k0 = tflash.backward_launches
     out = tops.flash_attention(*leaves, causal=False)
     out.backward(torch.from_numpy(dout).to(cuda))
     torch.cuda.synchronize()
-    assert (tflash.launches, tflash.backward_calls) == (n0 + 1, b0 + 1)
+    assert (tflash.launches, tflash.backward_calls,
+            tflash.backward_launches) == (n0 + 1, b0 + 1, k0 + 1)
     for t, w in zip(leaves, want):
         np.testing.assert_allclose(t.grad.cpu().numpy(), w, atol=2e-4,
                                    rtol=2e-4)

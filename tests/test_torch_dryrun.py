@@ -332,9 +332,10 @@ def test_meta_flash_refuses_what_the_kernel_refuses():
 
 
 def test_flash_attention_trains_on_meta():
-    """The autograd Function's forward takes the meta route and its plain
-    backward runs as it is: one kernel call and the backward's products
-    in the trace."""
+    """The autograd Function's forward and backward take the meta routes:
+    one forward and one backward kernel call in the trace, the backward
+    priced as the reference's: it recomputes the scores and takes four
+    products."""
     q = torch.empty((1, 32, 4, 16), device="meta", requires_grad=True)
     k = torch.empty((1, 32, 2, 16), device="meta", requires_grad=True)
     with hlo_analysis.OpTrace() as tr:
@@ -342,11 +343,12 @@ def test_flash_attention_trains_on_meta():
         torch.autograd.grad(out.sum(), (q, k))
     deep = hlo_analysis.analyze(tr.trace())
     assert deep["kernels"]["flash_attention"]["calls"] == 1
+    assert deep["kernels"]["flash_attention_bwd"]["calls"] == 1
     fwd = 4 * 2 * 2 * 16 * 32 * 32        # BH 2, G 2, D 16, S 32
     assert deep["dot_flops"] - deep["dot_flops_backward"] == fwd
-    # the plain backward recomputes the scores and takes four products
     assert deep["dot_flops_backward"] == fwd // 2 * 5
-    assert deep["flash_causal_flops"] == 4 * 2 * 2 * 16 * (32 * 33 // 2)
+    causal = 4 * 2 * 2 * 16 * (32 * 33 // 2)
+    assert deep["flash_causal_flops"] == causal + causal // 2 * 5
 
 
 # ----------------------------------------------------------------------

@@ -422,8 +422,9 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
 def test_flash_branch_gradients_on_the_card(cuda):
     """internlm2's reduced config at S = 4,096 in bf16 (heads 4/2 of 32:
     the kernel's D = 32 route): two layers launch the kernel in the
-    forward and run the plain backward; gradients within 5e-2 of their
-    max against the same model's plain route (FLASH_THRESHOLD above S)."""
+    forward and the backward kernel in the backward; gradients within
+    5e-2 of their max against the same model's plain route
+    (FLASH_THRESHOLD above S)."""
     from repro_torch.kernels import flash_attention as tflash
     tc = tconfigs.get_reduced_config("internlm2-1.8b",
                                      compute_dtype="bfloat16")
@@ -436,9 +437,11 @@ def test_flash_branch_gradients_on_the_card(cuda):
         loss, _ = tlm.forward_train(model, x, y, loss_chunk=1024)
         return loss, torch.autograd.grad(loss, list(named.values()))
     n0, b0 = tflash.launches, tflash.backward_calls
+    k0 = tflash.backward_launches
     loss, got = grads()
     torch.cuda.synchronize()
     assert tflash.launches - n0 == tflash.backward_calls - b0 == 2
+    assert tflash.backward_launches - k0 == 2
     threshold = tlm.FLASH_THRESHOLD
     tlm.FLASH_THRESHOLD = 1 << 20
     try:

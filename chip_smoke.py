@@ -30,7 +30,7 @@ the CPU's, the attention forward of teacher and student on the flash
 kernel (48 launches a step) and the student's backward on the backward
 kernel under an autograd Function (24 a step, no plain backward), timed
 steps, a profiled one, the backward kernel held to its plain version and
-timed beside it and SDPA's forward + backward, and the trained student
+timed beside it and SDPA's backward alone, and the trained student
 embedding the catalog for a query batch. Then the quantized mirror
 (``quantized``: full_size's catalog and batch on
 ``mirror="quantized"``, bitwise the f32 engine, resident
@@ -206,6 +206,10 @@ FLASH_CASES = (
     (1, 4096, 32, 8, 128, True, "bfloat16"),
 )
 FLASH_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the forward's lse against the plain lse: f32 sums of f32 scores in
+# both dtypes (about log S in size), so an absolute limit far below
+# the outputs'
+LSE_TOL = 1e-4
 # ROADMAP C1's catalog: 4,096 x 12 normal rows (seed 0), row 7 +inf and
 # row 9 -inf, four subsets of 6 dims, blocks of 256; knn with 16
 # neighbours. The reference's ids and scores (tests/test_torch_models.py
@@ -388,12 +392,14 @@ def _all_recorded(events, iters: int) -> bool:
     return all(e.count >= iters and e.count % iters == 0 for e in events)
 
 
-def graph_ms(fn, iters: int = TIME_ITERS) -> float:
+def graph_ms(fn, iters: int = TIME_ITERS, stream=None) -> float:
     """CUDA events around one replay of a CUDA graph that holds ``iters``
     calls of ``fn``, over ``iters``: device time with the launches
-    back to back and no host launch path between them."""
+    back to back and no host launch path between them. Captured on
+    ``stream`` where given (a backward whose forward ran there), else on
+    a new one."""
     import torch
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
@@ -862,7 +868,7 @@ def synthetic_probe(nb: int, capacity: int, seed: int, device):
 def measure_flash(q, k, v, causal: bool, profile: bool = False) -> dict:
     """flash_attention on kernel-layout inputs (q [BH, S, G, D], k/v
     [BH, S, D]) against flash_attention_ref, within 2e-4 (f32) or 2e-2
-    (bf16); event and device times of the kernel, the plain version and
+    (bf16), and its lse within LSE_TOL of the plain lse; event and device times of the kernel, the plain version and
     SDPA."""
     import torch
     import torch.nn.functional as F
@@ -880,14 +886,23 @@ def measure_flash(q, k, v, causal: bool, profile: bool = False) -> dict:
         ql, kl, vl, is_causal=causal, enable_gqa=g > 1)
     got, want = kern().float(), plain().float()
     lib_out = lib().permute(0, 2, 1, 3).float()
+    # the forward that also writes lse (the backward's residual)
+    lse = fwd_residuals(q, k, v, causal)[1]
+    lse_want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)[1]
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
-    if not torch.allclose(got, want, rtol=tol, atol=tol):
+    lse_err = float((lse - lse_want).abs().max())
+    if not torch.allclose(got, want, rtol=tol, atol=tol) \
+            or not lse_err <= LSE_TOL:
         raise AssertionError(f"flash_attention {tuple(q.shape)} {dt} "
                              f"causal={causal}: kernel != plain version "
-                             f"(max abs err {err}, tol {tol})")
+                             f"(max abs err {err}, tol {tol}; lse {lse_err}, "
+                             f"tol {LSE_TOL})")
+    del lse, lse_want
     res = {"shape": {"bh": bh, "s": s, "g": g, "d": d}, "dtype": dt,
-           "causal": causal, "max_abs_err": err, "tol": tol,
+           "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
+           "tol": tol, "lse_tol": LSE_TOL,
            "library_max_abs_err": float((lib_out - want).abs().max()),
            "ms": time_ms(kern),
            "plain_ms": time_ms(plain, iters=10, warmup=1),
@@ -1117,15 +1132,23 @@ def bulk_sass(libs: dict) -> dict:
 
 def flash_bwd_sass(libs: dict) -> dict:
     """The flash_bwd_sass record: per function of the backward's library,
-    its HMMA (mma.sync), HGMMA and UTMALDG counts with its registers,
-    spills and stack frame, and the functions with no HMMA (products
-    off the tensor cores)."""
+    its HMMA (mma.sync), HGMMA (wgmma) and UTMALDG (TMA) counts with its
+    registers, spills and stack frame; the bf16 route's kernels without
+    wgmma or TMA loads (``no_wgmma``), the f32 route's without mma.sync
+    (``no_mma``), and every function that spills (``spills``)."""
     stats = ptxas_stats(libs["flash_attention_bwd"])
     funcs = {f: {k: c[k] for k in ("HMMA", "HGMMA", "UTMALDG")}
              | stats.get(f, {})
              for f, c in sass_check(libs["flash_attention_bwd"]).items()}
+    products = [f for f in funcs if "reduce" not in f]
     return {"phase": "flash_bwd_sass", "functions": funcs,
-            "no_mma": [f for f, c in funcs.items() if not c["HMMA"]]}
+            "no_wgmma": [f for f in products if "bf16" in f and not (
+                funcs[f]["HGMMA"] and funcs[f]["UTMALDG"])],
+            "no_mma": [f for f in products
+                       if "f32" in f and not funcs[f]["HMMA"]],
+            "spills": [f for f, c in funcs.items()
+                       if c.get("spill_stores") or c.get("spill_loads")
+                       or "spill_stores" not in c]}
 
 
 def sass_missing(counts: dict) -> list:
@@ -3181,11 +3204,12 @@ def phase_l2dist(device) -> None:
 
 def flash_counter() -> dict:
     """profile_batch's counters of the flash kernels' launches: the
-    forward's, and the backward's two kernels (one each a call)."""
+    forward's, and the backward's dq and dk / dv kernels (one each a call,
+    of either dtype; the partials' sum where it splits is not counted)."""
     from repro_torch.kernels import flash_attention as fa
     return {"flash_attention_kernel": lambda: fa.launches,
-            "flash_bwd_dq_kernel": lambda: fa.backward_launches,
-            "flash_bwd_dkdv_kernel": lambda: fa.backward_launches}
+            "flash_bwd_dq_": lambda: fa.backward_launches,
+            "flash_bwd_dkdv_": lambda: fa.backward_launches}
 
 
 def phase_extraction(device):
@@ -3642,13 +3666,16 @@ def dino_profile(device, state, step, x):
 
 def attention_bwd_bound(bh: int, s: int, g: int, d: int, causal: bool,
                         dtype: str):
-    """The attention backward: q, k, v, dout read and dq, dk, dv written
-    once, against its five products of 2 BH G S^2 D FLOPs each (the scores
-    again, dv, dp, dq, dk), halved when causal (a kernel skips the masked
-    tiles), on the tensor cores by flash_bound's convention: bf16 inputs
-    at the bf16 peak, f32 as 3xTF32."""
-    item = 2 if dtype == "bfloat16" else 4
-    byts = (3 * bh * s * g * d + 4 * bh * s * d) * item
+    """The attention backward: q, k, v, dout and lse (f32) read, out too
+    where bf16 (delta = sum_d dout out; the f32 route reads no out), and
+    dq, dk, dv written once, against its five products of 2 BH G S^2 D
+    FLOPs each (the scores again, dv, dp, dq, dk), halved when causal (a
+    kernel skips the masked tiles), on the tensor cores by flash_bound's
+    convention: bf16 inputs at the bf16 peak, f32 as 3xTF32."""
+    bf16 = dtype == "bfloat16"
+    item = 2 if bf16 else 4
+    byts = ((3 + bf16) * bh * s * g * d + 4 * bh * s * d) * item \
+        + 4 * bh * s * g
     flops = 10 * bh * g * s * s * d / (2 if causal else 1)
     tb = byts / HBM_BYTES_PER_S
     to = (flops / BF16_FLOPS_PER_S if dtype == "bfloat16"
@@ -3677,18 +3704,32 @@ def uncounted():
             setattr(fa, n, v)
 
 
-def check_flash_bwd(q, k, v, dout, causal: bool) -> dict:
+def fwd_residuals(q, k, v, causal: bool):
+    """(out, lse) of the forward kernel on kernel-layout inputs, as the
+    autograd Function saves them for the backward; not a path's launch."""
+    from repro_torch.kernels import flash_attention as fa
+    with uncounted():
+        return fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+
+
+def check_flash_bwd(q, k, v, out, lse, dout, causal: bool) -> dict:
     """flash_attention_bwd against flash_attention_bwd_ref on the same
-    kernel-layout inputs: dq, dk and dv each within FLASH_TOL of its
-    dtype (torch.allclose, rtol = atol = tol); raises beyond it."""
+    kernel-layout inputs (the forward's out and lse among them): dq, dk
+    and dv each within FLASH_TOL of its dtype (torch.allclose, rtol = atol
+    = tol); raises beyond it. Both read the forward kernel's residuals
+    (bf16: p from lse, delta from dout out; f32 reads neither), so a
+    fault in them would pass here: measure_flash holds the forward's out
+    and lse to the plain forward's (LSE_TOL), and the paths' gradient
+    checks hold the whole step to the CPU's."""
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dt = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
     tol = FLASH_TOL[dt]
     with uncounted():
-        got = fa.flash_attention_bwd(q, k, v, dout, causal=causal)
-    want = ref.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal)
     torch.cuda.synchronize()
     errs = {}
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -3706,17 +3747,64 @@ def check_flash_bwd(q, k, v, dout, causal: bool) -> dict:
             "max_abs_err_by_output": errs, "tol": tol}
 
 
+def sdpa_backward(q, k, v, dout, causal: bool) -> dict:
+    """The library yardstick, never on the path: SDPA on the same q, k, v
+    (its [B, H, S, D] layout, the G query heads of a kv head as H), its
+    backward alone (torch.autograd.grad of one forward's output, the
+    graph kept) by CUDA events and by a CUDA graph of 10 calls, and its
+    forward alone and forward + backward by events. The forward runs on
+    the stream the graph captures on, so that the backward's kernels run
+    there too."""
+    import torch
+    import torch.nn.functional as F
+    g = q.shape[2]
+    ql = q.detach().permute(0, 2, 1, 3).contiguous().requires_grad_(True)
+    kl = k.detach()[:, None].contiguous().requires_grad_(True)
+    vl = v.detach()[:, None].contiguous().requires_grad_(True)
+    dl = dout.permute(0, 2, 1, 3).contiguous()
+    leaves = (ql, kl, vl)
+    sdpa = lambda: F.scaled_dot_product_attention(ql, kl, vl,
+                                                  is_causal=causal,
+                                                  enable_gqa=g > 1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        o = sdpa()
+    torch.cuda.current_stream().wait_stream(side)
+    bwd = lambda: torch.autograd.grad(o, leaves, dl, retain_graph=True)
+    res = {"library_bwd_ms": time_ms(bwd, iters=10, warmup=2),
+           "library_bwd_device_ms": graph_ms(bwd, iters=10, stream=side),
+           "library_bwd_device_ms_by": "graph",
+           "library_fwd_ms": time_ms(sdpa, iters=10, warmup=2),
+           "library_fwd_bwd_ms": time_ms(
+               lambda: torch.autograd.grad(sdpa(), leaves, dl), iters=10,
+               warmup=2)}
+    got = bwd()
+    res["library_grads"] = (got[0].permute(0, 2, 1, 3), got[1][:, 0],
+                            got[2][:, 0])
+    return res
+
+
 def measure_flash_bwd(q, k, v, dout, causal: bool) -> dict:
-    """check_flash_bwd, then the kernel's and the plain version's event
-    times (median of 30 and of 5 calls) and the bound."""
+    """check_flash_bwd from the forward kernel's out and lse, then the
+    kernel's event (median of 30 calls) and device time (a CUDA graph of
+    10), the plain version's event time (median of 5), SDPA's backward
+    alone (sdpa_backward) and the bound."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    res = check_flash_bwd(q, k, v, dout, causal)
+    out, lse = fwd_residuals(q, k, v, causal)
+    res = check_flash_bwd(q, k, v, out, lse, dout, causal)
+    kern = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=causal)
     with uncounted():
-        res["ms"] = time_ms(lambda: fa.flash_attention_bwd(
-            q, k, v, dout, causal=causal))
+        res["ms"] = time_ms(kern)
+        res["device_ms"] = graph_ms(kern, iters=10)
+        res["device_ms_by"] = "graph"
     res["plain_ms"] = time_ms(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, dout, causal=causal), iters=5, warmup=1)
+        q, k, v, out, lse, dout, causal=causal), iters=5, warmup=1)
+    lib = sdpa_backward(q, k, v, dout, causal)
+    del lib["library_grads"]
+    res.update(lib)
     sh = res["shape"]
     res["bound_ms"], res["bound_by"] = attention_bwd_bound(
         sh["bh"], sh["s"], sh["g"], sh["d"], causal, res["dtype"])
@@ -3753,7 +3841,7 @@ def attention_backward_memory(args, kwargs) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
-    q, k, v, dout = args
+    q, k, v, out, lse, dout = args
     causal = kwargs["causal"]
 
     def above(fn):
@@ -3767,14 +3855,14 @@ def attention_backward_memory(args, kwargs) -> dict:
         return peak - base - outs, out
     with uncounted():
         kern_bytes, a = above(lambda: fa.flash_attention_bwd(
-            q, k, v, dout, causal=causal))
-        b = fa.flash_attention_bwd(q, k, v, dout, causal=causal)
+            q, k, v, out, lse, dout, causal=causal))
+        b = fa.flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
     bitwise = all(torch.equal(x, y) for x, y in zip(a, b))
     del a, b
-    plain_bytes, out = above(lambda: ref.flash_attention_bwd_ref(
-        q, k, v, dout, causal=causal))
-    del out
+    plain_bytes, grads = above(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, out, lse, dout, causal=causal))
+    del grads
     free_cuda()
     res = {"bitwise_equal_twice": bitwise,
            "kernel_peak_above_io_bytes": kern_bytes,
@@ -3787,24 +3875,24 @@ def attention_backward_memory(args, kwargs) -> dict:
 
 
 def attention_backward_times(args, kwargs) -> dict:
-    """At one backward's own inputs (q, k, v, dout in the kernel layout,
-    as a step gave them to the backward kernel): the kernel held to the
-    plain version (check_flash_bwd); the kernel's and the plain
+    """At one backward's own inputs (q, k, v, out, lse, dout in the kernel
+    layout, as a step gave them to the backward kernel): the kernel held
+    to the plain version (check_flash_bwd); the kernel's and the plain
     backward's times by CUDA events and by a CUDA graph (device ms); the
     kernel forward and backward through ops' autograd Function (events);
-    SDPA's forward and forward + backward on the same q, k, v and dout
-    (events), the library yardstick, never on the path; the backward's
-    bound. None of these calls counts as a path's."""
+    SDPA's backward alone, forward and forward + backward on the same q,
+    k, v and dout (sdpa_backward), the library yardstick, never on the
+    path; the backward's bound. None of these calls counts as a path's."""
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels.ops import _FlashAttention
-    q, k, v, dout = args
+    q, k, v, out, lse, dout = args
     causal = kwargs["causal"]
     bh, s, g, d = q.shape
-    kern = lambda: fa.flash_attention_bwd(q, k, v, dout, causal=causal)
-    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, dout,
+    kern = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                          causal=causal)
+    plain = lambda: ref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                                 causal=causal)
     # the autograd Function in the kernel layout (ops applies it there)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
@@ -3812,37 +3900,24 @@ def attention_backward_times(args, kwargs) -> dict:
     def port_fb():
         o = _FlashAttention.apply(*leaves, causal)
         return torch.autograd.grad(o, leaves, dout)
-    ql = leaves[0].detach().permute(0, 2, 1, 3).contiguous() \
-        .requires_grad_(True)
-    kl = leaves[1].detach()[:, None].contiguous().requires_grad_(True)
-    vl = leaves[2].detach()[:, None].contiguous().requires_grad_(True)
-    dl = dout.permute(0, 2, 1, 3).contiguous()
-    sdpa = lambda: F.scaled_dot_product_attention(ql, kl, vl,
-                                                  is_causal=causal,
-                                                  enable_gqa=g > 1)
-
-    def sdpa_fb():
-        return torch.autograd.grad(sdpa(), (ql, kl, vl), dl)
-    res = check_flash_bwd(q, k, v, dout, causal)
+    res = check_flash_bwd(q, k, v, out, lse, dout, causal)
     # the backward against SDPA's, on the same inputs (a yardstick)
+    lib = sdpa_backward(q, k, v, dout, causal)
     got = plain()
-    want = sdpa_fb()
     res["library_max_abs_diff"] = max(
         float((a.float() - b.float().reshape(a.shape)).abs().max())
-        for a, b in zip(got, (want[0].permute(0, 2, 1, 3), want[1][:, 0],
-                              want[2][:, 0])))
-    del got, want
+        for a, b in zip(got, lib.pop("library_grads")))
+    del got
+    res.update(lib)
     with uncounted():
         res.update({
-            "kernel_bwd_ms": time_ms(kern, iters=10, warmup=2),
+            "kernel_bwd_ms": time_ms(kern, iters=30, warmup=3),
             "kernel_bwd_device_ms": graph_ms(kern, iters=10),
             "kernel_bwd_device_ms_by": "graph",
             "plain_bwd_ms": time_ms(plain, iters=10, warmup=2),
             "plain_bwd_device_ms": graph_ms(plain, iters=10),
             "plain_bwd_device_ms_by": "graph",
-            "kernel_fwd_bwd_ms": time_ms(port_fb, iters=10, warmup=2),
-            "library_fwd_ms": time_ms(sdpa, iters=10, warmup=2),
-            "library_fwd_bwd_ms": time_ms(sdpa_fb, iters=10, warmup=2)})
+            "kernel_fwd_bwd_ms": time_ms(port_fb, iters=10, warmup=2)})
     res["bound_ms"], res["bound_by"] = attention_bwd_bound(
         bh, s, g, d, causal,
         "bfloat16" if q.dtype == torch.bfloat16 else "float32")
@@ -3994,10 +4069,10 @@ def first_flash_inputs(store: list):
     from repro_torch.kernels import flash_attention as fa
     raw = fa.flash_attention
 
-    def capture(q, k, v, *, causal=True):
+    def capture(q, k, v, *, causal=True, **kwargs):
         if not store:
             store.append((q.clone(), k.clone(), v.clone(), causal))
-        return raw(q, k, v, causal=causal)
+        return raw(q, k, v, causal=causal, **kwargs)
     fa.flash_attention = capture
     try:
         yield store
@@ -7149,9 +7224,11 @@ def main(argv) -> int:
     if box_sass["missing"]:
         raise AssertionError(f"box scans: no cp.async.bulk in "
                              f"{box_sass['missing']}")
-    if bwd_sass["no_mma"]:
+    if bwd_sass["no_mma"] or bwd_sass["no_wgmma"] or bwd_sass["spills"]:
         raise AssertionError(f"flash_attention_bwd: no mma.sync (HMMA) in "
-                             f"{bwd_sass['no_mma']}")
+                             f"{bwd_sass['no_mma']}, no wgmma or TMA in "
+                             f"{bwd_sass['no_wgmma']}, spills (or no "
+                             f"ptxas record) in {bwd_sass['spills']}")
     dev = torch.device("cuda", 0)
     phase_kernels(dev)
     phase_gpu_vs_cpu(dev)
@@ -7365,9 +7442,12 @@ def main(argv) -> int:
         "plain_device_ms": bw["plain_bwd_device_ms"],
         "plain_device_ms_by": bw["plain_bwd_device_ms_by"],
         "bound_ms": bw["bound_ms"], "bound_by": bw["bound_by"],
-        # no PyTorch call takes the backward alone: SDPA's forward +
-        # backward, beside the port's kernel forward + backward
-        "library_ms": bw["library_fwd_bwd_ms"],
+        # SDPA's backward alone (one torch.autograd.grad of its output);
+        # its forward + backward beside the port's kernel forward +
+        # backward
+        "library_ms": bw["library_bwd_ms"],
+        "library_device_ms": bw["library_bwd_device_ms"],
+        "library_fwd_bwd_ms": bw["library_fwd_bwd_ms"],
         "library_fwd_ms": bw["library_fwd_ms"],
         "kernel_fwd_bwd_ms": bw["kernel_fwd_bwd_ms"],
         "shape": bw["shape"], "sass": bwd_sass["functions"],

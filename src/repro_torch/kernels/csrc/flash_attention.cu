@@ -63,6 +63,12 @@
 //   tile's P V goes into a fresh accumulator that f32 adds fold into O:
 //   every addition inside the tensor cores keeps only the accumulator's
 //   own precision, so O never takes them across tiles.
+// Where the caller asks (an lse pointer, the autograd Function's forward),
+// the epilogue also writes each row's log-sum-exp m + log(max(l, 1e-30))
+// in scaled-score units, the reference's residual for the backward
+// (csrc/flash_attention_bwd.cu); a forward-only call passes null and
+// writes nothing more. The wgmma, TMA and mbarrier helpers live in
+// hopper.cuh, shared with the backward.
 // What this does about each limit: both products run on the tensor cores
 // (the earlier kernel ran f32 FMAs with a shared-memory load each), loads
 // are TMA bulk copies that overlap the previous tile's products, and a
@@ -71,46 +77,36 @@
 // overlap of the softmax with the next Q K^T, a persistent grid,
 // setmaxnreg.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWG = 128;          // threads of a warpgroup
-constexpr int kRowsWG = 64;       // query rows of a consumer warpgroup
-constexpr int kStages = 2;        // K/V ring depth (1 for a single tile)
-constexpr float kMasked = -1e30f;
+using namespace hopper;
 
-// Shapes and shared-memory layout of one instantiation. A row of D
-// elements is kChunks chunks of kCB bytes (the swizzle width); every
-// buffer starts on a 1024-byte boundary (the swizzle pattern's period).
+// Shapes and shared-memory layout of one instantiation (a row's column
+// chunks: hopper::Rows)
 template <int D, typename T>
-struct Cfg {
-  static constexpr bool kF32 = sizeof(T) == 4;
-  static constexpr int kRowBytes = D * (int)sizeof(T);
-  static constexpr int kCB = kRowBytes < 128 ? kRowBytes : 128;
-  static constexpr int kChunks = kRowBytes / kCB;
-  static constexpr int kChunkElems = kCB / (int)sizeof(T);
-  static constexpr int kTile = kF32 ? 32 : 64;          // keys per stage
-  static constexpr int kMaxWG = (kF32 && D == 128) ? 1 : 2;
-  static constexpr int kKVBytes = kTile * kRowBytes;    // one K or V tile
+struct Cfg : Rows<D, T> {
+  using R = Rows<D, T>;
+  static constexpr int kTile = R::kF32 ? 32 : 64;       // keys per stage
+  static constexpr int kMaxWG = (R::kF32 && D == 128) ? 1 : 2;
+  static constexpr int kKVBytes = kTile * R::kRowBytes; // one K or V tile
   // a CTA of `rows` query rows and `stages` K/V stages: [Q | Q lo (f32) |
   // stages (K, V) | converted K lo, V^T hi, V^T lo (f32) | barriers]
   static __host__ __device__ int q_bytes(int rows) {
-    return rows * kRowBytes;
+    return rows * R::kRowBytes;
   }
   static __host__ __device__ int off_stage(int rows) {
-    return q_bytes(rows) * (kF32 ? 2 : 1);
+    return q_bytes(rows) * (R::kF32 ? 2 : 1);
   }
   static __host__ __device__ int off_conv(int rows, int stages) {
     return off_stage(rows) + stages * 2 * kKVBytes;
   }
   static __host__ __device__ int off_bar(int rows, int stages) {
-    return off_conv(rows, stages) + (kF32 ? 3 * kKVBytes : 0);
+    return off_conv(rows, stages) + (R::kF32 ? 3 * kKVBytes : 0);
   }
   // barriers (5 x 8 bytes) and the slack that aligns the base to 1024
   static __host__ __device__ int smem_bytes(int rows, int stages) {
@@ -118,243 +114,15 @@ struct Cfg {
   }
 };
 
-#define F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define F8(i) F4(i), F4(i + 4)
-
-// wgmma.mma_async m64nNk16 (bf16) / m64nNk8 (tf32) into f32 registers d,
-// always accumulating. ss: A and B from shared memory, both K-major.
-// rs: A from registers. _bt: B MN-major (the transpose bit). Only the
-// widths the kernel uses: Q K^T at N = the key tile, P V at N = D or 64.
-template <int N>
-struct Mma;
-template <> struct Mma<16> {
-  static __device__ __forceinline__ void rs_bf16_bt(float* d,
-                                                    const uint32_t* a,
-                                                    uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : F8(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs_tf32(float* d,
-                                                 const uint32_t* a,
-                                                 uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
-        : F8(0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Mma<32> {
-  static __device__ __forceinline__ void rs_bf16_bt(float* d,
-                                                    const uint32_t* a,
-                                                    uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : F8(0), F8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void ss_tf32(float* d, uint64_t a,
-                                                 uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
-        : F8(0), F8(8)
-        : "l"(a), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs_tf32(float* d,
-                                                 const uint32_t* a,
-                                                 uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-        : F8(0), F8(8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-template <> struct Mma<64> {
-  static __device__ __forceinline__ void ss_bf16(float* d, uint64_t a,
-                                                 uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : F8(0), F8(8), F8(16), F8(24)
-        : "l"(a), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs_bf16_bt(float* d,
-                                                    const uint32_t* a,
-                                                    uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : F8(0), F8(8), F8(16), F8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs_tf32(float* d,
-                                                 const uint32_t* a,
-                                                 uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        "%8, %9, %10, %11, %12, %13, %14, %15,"
-        "%16, %17, %18, %19, %20, %21, %22, %23,"
-        "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : F8(0), F8(8), F8(16), F8(24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-
-#undef F8
-#undef F4
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the box at element coordinates (x, y, z) of `map` into shared
-// memory at dst, completing bytes on the mbarrier bar
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int x, int y,
-                                            int z) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"((uint64_t)map), "r"(bar), "r"(x), "r"(y), "r"(z)
-      : "memory");
-}
-
-// shared-memory writes of the generic proxy, visible to wgmma's reads
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// the consumer warpgroups' own barrier (id 1; 0 is __syncthreads)
-__device__ __forceinline__ void consumers_sync(int n) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of wgmma's registers
-// across the fence / wait around it
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor of a swizzled tile whose rows are
-// cb bytes (the swizzle width) and whose 8-row groups lie 8 * cb apart
-template <int CB>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  constexpr uint64_t layout = CB == 128 ? 1 : CB == 64 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(8 * CB / 16) << 32) | (layout << 62);
-}
-
-// byte offset of a swizzled tile whose rows are CB bytes: the 16-byte
-// chunk index XOR the row's bits above it (TMA's SWIZZLE_{32,64,128}B)
-template <int CB>
-__device__ __forceinline__ uint32_t swz(uint32_t off) {
-  return off ^ (((off >> 7) & (CB / 16 - 1)) << 4);
-}
-
-// 3xTF32 split: hi = x with the low 13 mantissa bits cleared (exactly a
-// TF32 value), lo = x - hi rounded to TF32
-__device__ __forceinline__ float tf32_hi(float x) {
-  return __uint_as_float(__float_as_uint(x) & 0xffffe000u);
-}
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return __uint_as_float(r);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 template <int D, typename T>
 __global__ void __launch_bounds__(Cfg<D, T>::kMaxWG * kWG + 32, 1)
 flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap,
-                       T* __restrict__ out, int s, int g, int n_wg,
-                       int tiles, int stages, int causal, float scale) {
+                       T* __restrict__ out, float* __restrict__ lse,
+                       int s, int g, int n_wg, int tiles, int stages,
+                       int causal, float scale) {
   using C = Cfg<D, T>;
   constexpr int CB = C::kCB, TK = C::kTile;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
@@ -648,7 +416,8 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
 
-  // out = O / l; o[4j + 2h + c] is column 8j + 2 tq + c of row row0 + 8h
+  // out = O / l; o[4j + 2h + c] is column 8j + 2 tq + c of row row0 + 8h;
+  // where asked, the row's log-sum-exp m + log l (the backward's p)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float l = l_run[h];
@@ -662,69 +431,17 @@ flash_attention_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int j = 0; j < D / 8; ++j)
         store2(op + 8 * j, o[4 * j + 2 * h] / denom,
                o[4 * j + 2 * h + 1] / denom);
+      if (lse != nullptr && tq == 0)
+        lse[(long long)bh * m_rows + p] = m_run[h] + logf(denom);
     }
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time (CUDA's entry-point query)
-// so that the library links against the runtime alone
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [bh, rows, D] tensor as a 3-D map whose box is one column chunk of
-// box_rows rows, swizzled at the chunk width; rows past the end read zero
-template <int D, typename T>
-bool encode(CUtensorMap* map, const void* ptr, long long rows, int bh,
-            int box_rows) {
-  using C = Cfg<D, T>;
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)C::kRowBytes,
-                                 (cuuint64_t)rows * C::kRowBytes};
-  const cuuint32_t box[3] = {(cuuint32_t)C::kChunkElems,
-                             (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle =
-      C::kCB == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : C::kCB == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                     : CU_TENSOR_MAP_SWIZZLE_32B;
-  return enc(map,
-             C::kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-             3, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int D, typename T>
-int launch_d(const void* q, const void* k, const void* v, void* out, int bh,
-             int s, int g, int causal, float scale, cudaStream_t stream) {
+int launch_d(const void* q, const void* k, const void* v, void* out,
+             float* lse, int bh, int s, int g, int causal, float scale,
+             cudaStream_t stream) {
   using C = Cfg<D, T>;
   const long long m = (long long)s * g;
   if (m > INT_MAX / 2) return (int)cudaErrorInvalidValue;
@@ -753,24 +470,28 @@ int launch_d(const void* q, const void* k, const void* v, void* out, int bh,
   flash_attention_kernel<D, T>
       <<<(unsigned)blocks, n_wg * kWG + (one_tile ? 0 : 32),
          C::smem_bytes(rows, stages), stream>>>(
-          qm, km, vm, static_cast<T*>(out), s, g, n_wg, (int)tiles, stages,
-          causal, scale);
+          qm, km, vm, static_cast<T*>(out), lse, s, g, n_wg, (int)tiles,
+          stages, causal, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_t(const void* q, const void* k, const void* v, void* out, int bh,
-             int s, int g, int d, int causal, float scale,
+int launch_t(const void* q, const void* k, const void* v, void* out,
+             float* lse, int bh, int s, int g, int d, int causal, float scale,
              cudaStream_t stream) {
   switch (d) {
     case 16:
-      return launch_d<16, T>(q, k, v, out, bh, s, g, causal, scale, stream);
+      return launch_d<16, T>(q, k, v, out, lse, bh, s, g, causal, scale,
+                             stream);
     case 32:
-      return launch_d<32, T>(q, k, v, out, bh, s, g, causal, scale, stream);
+      return launch_d<32, T>(q, k, v, out, lse, bh, s, g, causal, scale,
+                             stream);
     case 64:
-      return launch_d<64, T>(q, k, v, out, bh, s, g, causal, scale, stream);
+      return launch_d<64, T>(q, k, v, out, lse, bh, s, g, causal, scale,
+                             stream);
     case 128:
-      return launch_d<128, T>(q, k, v, out, bh, s, g, causal, scale, stream);
+      return launch_d<128, T>(q, k, v, out, lse, bh, s, g, causal, scale,
+                             stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -779,21 +500,26 @@ int launch_t(const void* q, const void* k, const void* v, void* out, int bh,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out all of it). d must be
-// 16, 32, 64 or 128; q, k, v and out 16-byte aligned (TMA). Returns
+// 16, 32, 64 or 128; q, k, v and out 16-byte aligned (TMA). lse, where not
+// null, is [bh, s * g] float32 and takes each row's log-sum-exp of its
+// scaled scores, m + log(max(l, 1e-30)) (the reference's residual, which
+// the backward's p = exp(scale s - lse) reads); null writes nothing more.
+// Returns
 // cudaGetLastError() after the launch (0 on success), or
 // cudaErrorInvalidValue for an unsupported d / dtype, a grid past 2^31 - 1
 // blocks or a tensor map that cuTensorMapEncodeTiled refuses. Launches on
 // `stream`, never synchronises.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int bh,
-                                      int s, int g, int d, int dtype,
+                                      const void* v, void* out, void* lse,
+                                      int bh, int s, int g, int d, int dtype,
                                       int causal, float scale, void* stream) {
   if (bh <= 0 || s <= 0 || g <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return launch_t<float>(q, k, v, out, bh, s, g, d, causal, scale, st);
+    return launch_t<float>(q, k, v, out, l, bh, s, g, d, causal, scale, st);
   if (dtype == 1)
-    return launch_t<__nv_bfloat16>(q, k, v, out, bh, s, g, d, causal, scale,
-                                   st);
+    return launch_t<__nv_bfloat16>(q, k, v, out, l, bh, s, g, d, causal,
+                                   scale, st);
   return (int)cudaErrorInvalidValue;
 }

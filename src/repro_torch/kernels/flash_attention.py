@@ -8,10 +8,15 @@ bfloat16, D in {16, 32, 64, 128}, any S; the output is [BH, S, G, D] in
 q's dtype. The forward picks its own tiles, so S needs no padding; its
 products run on the tensor cores (bf16, or 3xTF32 for float32) from
 tiles that TMA loads, so every tensor must start on a 16-byte boundary.
-``flash_attention_bwd`` takes dout shaped like q and returns (dq, dk, dv)
-in their inputs' dtypes, recomputing the scores tile by tile (no S x S
-buffer; its lse and delta rows are [BH, S * G] float32 scratch), on the
-tensor cores by the same routes. Both take CUDA tensors only; the CPU
+Where asked (``return_lse``) the forward also returns each row's
+log-sum-exp of its scaled scores, lse [BH, S * G] float32, the residual
+the reference's custom VJP saves. ``flash_attention_bwd`` takes the
+forward's inputs, its out and lse, and dout shaped like q, and returns
+(dq, dk, dv) in their inputs' dtypes, recomputing the scores tile by tile
+(no S x S buffer; its row scratch is [2, BH, S * G] float32, and where
+BH is small its dk / dv partials [2, splits, BH, S, D] float32), on
+the tensor cores (bf16 by wgmma from TMA-loaded tiles, float32 as 3xTF32
+on mma.sync). Both take CUDA tensors only; the CPU
 dispatch to the plain versions (``kernels/ref.flash_attention_ref`` and
 ``flash_attention_bwd_ref``) lives in ``kernels/ops.py``. The forward
 entry refuses an input that requires grad: gradients go through
@@ -19,9 +24,10 @@ entry refuses an input that requires grad: gradients go through
 kernel and, on the card, the backward kernel.
 
 ``launches`` counts forward kernel launches, ``backward_launches``
-backward kernel launches (one a call: its two kernels, dq and dk/dv,
-launched together); ``backward_calls`` counts the backward passes
-``ops.flash_attention`` runs, on the kernel or the plain version.
+backward kernel launches (one a call: its kernels, dq, dk/dv and where it
+splits the partials' sum, launched together); ``backward_calls`` counts
+the backward passes ``ops.flash_attention`` runs, on the kernel or the
+plain version.
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ backward_launches = 0
 backward_calls = 0
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (device index, BH, S, G, dtype code) -> the backward's splits
+_splits: dict = {}
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -73,10 +81,25 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor,
                              f"{t.data_ptr():#x}")
 
 
+def _split_count(device: torch.device, bh: int, s: int, g: int,
+                 code: int) -> int:
+    """The dk / dv kernel's splits a key tile (flash_attention_bwd_splits,
+    by the card's SM count), kept per device and shape."""
+    key = (device.index, bh, s, g, code)
+    n = _splits.get(key)
+    if n is None:
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n = _splits[key] = launch_fn(
+            "flash_attention_bwd", "flash_attention_bwd_splits")(
+                bh, s, g, code, sms)
+    return n
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    *, causal: bool = True) -> torch.Tensor:
+                    *, causal: bool = True, return_lse: bool = False):
     """q: [BH, S, G, D]; k/v: [BH, S, D] -> [BH, S, G, D] in q's dtype
-    (CUDA)."""
+    (CUDA); with ``return_lse`` also lse [BH, S * G] float32, each row's
+    m + log(max(l, 1e-30)) in scaled-score units."""
     global launches
     _check_inputs(q, k, v)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -87,55 +110,71 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "kernel backward")
     bh, s, g, d = q.shape
     out = torch.empty_like(q)
+    lse = (torch.empty(bh, s * g, dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if out.data_ptr() % 16:
         raise ValueError("flash_attention: out must be 16-byte aligned (TMA)")
     fn = launch_fn("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 bh, s, g, d, DTYPE_CODES[q.dtype], int(bool(causal)),
-                 d ** -0.5, stream)
+                 lse.data_ptr() if return_lse else None, bh, s, g, d,
+                 DTYPE_CODES[q.dtype], int(bool(causal)), d ** -0.5, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
                         dout: torch.Tensor, *, causal: bool = True):
-    """The gradients of ``flash_attention`` (CUDA): q, dout [BH, S, G, D];
-    k/v [BH, S, D] -> (dq, dk, dv) in their inputs' dtypes, dk and dv
-    summed over the G query heads of each kv head; delta is sum_k p dp,
-    as in ``kernels/ref.flash_attention_bwd_ref``."""
+    """The gradients of ``flash_attention`` (CUDA): q, out, dout
+    [BH, S, G, D]; k/v [BH, S, D]; lse [BH, S * G] float32 (the forward's,
+    ``return_lse``) -> (dq, dk, dv) in their inputs' dtypes, dk and dv
+    summed over the G query heads of each kv head; delta is sum_d dout
+    out, as in ``kernels/ref.flash_attention_bwd_ref`` and the
+    reference."""
     global backward_launches
-    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bwd: dout must be q's shape "
-                         f"{tuple(q.shape)} and dtype {q.dtype}, got "
-                         f"{tuple(dout.shape)} {dout.dtype}")
-    if not dout.is_contiguous():
-        raise ValueError("flash_attention_bwd: dout must be contiguous")
-    if dout.data_ptr() % 16:
-        raise ValueError(f"flash_attention_bwd: dout must be 16-byte "
-                         f"aligned, its data starts at {dout.data_ptr():#x}")
-    _check_inputs(q, k, v)
-    if dout.device != q.device:
-        raise ValueError("flash_attention_bwd: dout must be on q's device")
     bh, s, g, d = q.shape
+    for name, t, shape, dtype in (("out", out, q.shape, q.dtype),
+                                  ("lse", lse, (bh, s * g), torch.float32),
+                                  ("dout", dout, q.shape, q.dtype)):
+        if t.shape != shape or t.dtype != dtype:
+            want = (f"{shape} float32" if name == "lse" else
+                    f"q's shape {tuple(shape)} and dtype {dtype}")
+            raise ValueError(f"flash_attention_bwd: {name} must be {want}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"contiguous")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} must be on q's "
+                             f"device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd: {name} must be 16-byte "
+                             f"aligned, its data starts at {t.data_ptr():#x}")
+    _check_inputs(q, k, v)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if dq.numel() == 0:
         return dq, dk, dv
-    lse = torch.empty(bh, s * g, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    code = DTYPE_CODES[q.dtype]
+    splits = _split_count(q.device, bh, s, g, code)
+    # each row's delta, then (float32) the backward's own lse
+    rows = torch.empty(2, bh, s * g, dtype=torch.float32, device=q.device)
+    part = (torch.empty(2 * splits * bh * s * d, dtype=torch.float32,
+                        device=q.device) if splits > 1 else None)
     fn = launch_fn("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), bh, s, g, d, DTYPE_CODES[q.dtype],
-                 int(bool(causal)), d ** -0.5, stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), rows.data_ptr(),
+                 part.data_ptr() if part is not None else None, bh, s, g, d,
+                 code, int(bool(causal)), d ** -0.5, splits, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
                            f"error {err}")

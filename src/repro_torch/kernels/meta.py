@@ -35,8 +35,12 @@ SCHEMAS = {
     "l2dist": "(Tensor x, Tensor q) -> Tensor",
     "flash_attention": "(Tensor q, Tensor k, Tensor v, bool causal) "
                        "-> Tensor",
-    "flash_attention_bwd": "(Tensor q, Tensor k, Tensor v, Tensor dout, "
-                           "bool causal) -> (Tensor, Tensor, Tensor)",
+    # the forward that also writes lse: one kernel, so an overload of it
+    "flash_attention.lse": "(Tensor q, Tensor k, Tensor v, bool causal) "
+                           "-> (Tensor, Tensor)",
+    "flash_attention_bwd": "(Tensor q, Tensor k, Tensor v, Tensor out, "
+                           "Tensor lse, Tensor dout, bool causal) "
+                           "-> (Tensor, Tensor, Tensor)",
 }
 
 
@@ -86,13 +90,27 @@ def _flash_attention(q, k, v, causal):
     return _empty(q.shape, q.dtype)
 
 
-def _flash_attention_bwd(q, k, v, dout, causal):
+def _flash_attention_lse(q, k, v, causal):
+    """(out, lse [BH, S * G] float32); refuses as the forward does."""
+    bh, s, g, _ = q.shape
+    return (_flash_attention(q, k, v, causal),
+            _empty((bh, s * g), torch.float32))
+
+
+def _flash_attention_bwd(q, k, v, out, lse, dout, causal):
     """(dq, dk, dv) shaped and typed as q, k and v; refuses what the
-    kernel refuses, as the forward does."""
+    kernel refuses, as the forward does, and an out, dout or lse unlike
+    the forward's."""
     _flash_attention(q, k, v, causal)
-    if tuple(dout.shape) != tuple(q.shape) or dout.dtype != q.dtype:
-        raise ValueError(f"flash_attention_bwd: dout {tuple(dout.shape)} "
-                         f"{dout.dtype}, q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("out", out), ("dout", dout)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype}, q "
+                             f"{tuple(q.shape)} {q.dtype}")
+    bh, s, g, _ = q.shape
+    if tuple(lse.shape) != (bh, s * g) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected {(bh, s * g)} float32")
     return (_empty(q.shape, q.dtype), _empty(k.shape, k.dtype),
             _empty(v.shape, v.dtype))
 
@@ -102,6 +120,7 @@ _IMPLS = {"zone_prune": _zone_prune, "zone_hits": _zone_hits,
           "box_scan_seg": _box_scan_seg,
           "box_scan_seg_gather": _box_scan_seg_gather, "l2dist": _l2dist,
           "flash_attention": _flash_attention,
+          "flash_attention.lse": _flash_attention_lse,
           "flash_attention_bwd": _flash_attention_bwd}
 
 
@@ -138,5 +157,9 @@ def ops():
 
 
 def call(name: str, *args):
-    """Kernel ``name`` on meta tensors: its outputs' shapes and dtypes."""
-    return getattr(ops(), name)(*args)
+    """Kernel ``name`` (``op`` or ``op.overload``) on meta tensors: its
+    outputs' shapes and dtypes."""
+    fn = ops()
+    for part in name.split("."):
+        fn = getattr(fn, part)
+    return fn(*args)

@@ -116,34 +116,51 @@ def _flash_forward(q, k, v, causal: bool) -> torch.Tensor:
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
-def _flash_backward(q, k, v, dout, causal: bool):
-    """Kernel-layout attention gradients (dq, dk, dv): the CUDA backward
-    kernel, or on the CPU its plain version."""
+def _flash_forward_lse(q, k, v, causal: bool):
+    """``_flash_forward`` that also returns each row's log-sum-exp, lse
+    [BH, S * G] float32 (the forward kernel's epilogue writes it)."""
     if _on_cpu(q):
-        return kref.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+        return kref.flash_attention_ref(q, k, v, causal=causal,
+                                        return_lse=True)
     if _on_meta(q):
-        return _meta.call("flash_attention_bwd", q, k, v, dout, bool(causal))
-    return _flash.flash_attention_bwd(q, k, v, dout, causal=causal)
+        return _meta.call("flash_attention.lse", q, k, v, bool(causal))
+    return _flash.flash_attention(q, k, v, causal=causal, return_lse=True)
+
+
+def _flash_backward(q, k, v, out, lse, dout, causal: bool):
+    """Kernel-layout attention gradients (dq, dk, dv) from the forward's
+    out and lse: the CUDA backward kernel, or on the CPU its plain
+    version."""
+    if _on_cpu(q):
+        return kref.flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                            causal=causal)
+    if _on_meta(q):
+        return _meta.call("flash_attention_bwd", q, k, v, out, lse, dout,
+                          bool(causal))
+    return _flash.flash_attention_bwd(q, k, v, out, lse, dout,
+                                      causal=causal)
 
 
 class _FlashAttention(torch.autograd.Function):
     """Kernel-layout attention with a backward: the forward is
-    ``_flash_forward`` (the CUDA kernel on the card), run without grad,
-    saving q, k and v only (O(S), as the reference's custom VJP saves
-    its residuals); the backward is ``_flash_backward`` (the CUDA
-    backward kernel on the card), which recomputes the scores, and counts
+    ``_flash_forward_lse`` (the CUDA kernel on the card), run without
+    grad, saving q, k, v, out and lse (O(S), the reference's custom VJP's
+    residuals); the backward is ``_flash_backward`` (the CUDA backward
+    kernel on the card), which recomputes the scores, and counts
     ``_flash.backward_calls``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
-        ctx.save_for_backward(q, k, v)
+        out, lse = _flash_forward_lse(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
-        return _flash_forward(q, k, v, causal)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = _flash_backward(q, k, v, dout.contiguous(), ctx.causal)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_backward(q, k, v, out, lse, dout.contiguous(),
+                                     ctx.causal)
         _flash.backward_calls += 1
         return dq, dk, dv, None
 

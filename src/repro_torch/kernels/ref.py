@@ -136,21 +136,27 @@ def l2dist_ref(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True) -> torch.Tensor:
+                        *, causal: bool = True, return_lse: bool = False):
     """Materialised-softmax attention in the kernel's layout.
     q: [BH, S, G, D]; k/v: [BH, S, D] -> [BH, S, G, D] in q's dtype.
     Scores are taken in float32 and scaled by D^-0.5 after the product;
-    causal masking keeps qpos >= kpos and sets the rest to -1e30."""
-    probs = _attention_probs(q, k, causal)
-    out = torch.einsum("bgqk,bkd->bqgd", probs, v.to(torch.float32))
-    return out.to(q.dtype)
+    causal masking keeps qpos >= kpos and sets the rest to -1e30. With
+    ``return_lse`` also each row's log-sum-exp of those scores, lse
+    [BH, S * G] float32 in q's row order (the reference's ``m + log l``:
+    every row sees a key, so l >= 1 and its 1e-30 floor never binds)."""
+    scores = _attention_scores(q, k, causal)
+    # [BH, G, S] -> [BH, S * G], the kernel's row order
+    lse = (torch.logsumexp(scores, -1).transpose(1, 2).reshape(q.shape[0], -1)
+           if return_lse else None)
+    out = torch.einsum("bgqk,bkd->bqgd", torch.softmax(scores, dim=-1),
+                       v.to(torch.float32)).to(q.dtype)
+    return (out, lse) if return_lse else out
 
 
-def _attention_probs(q: torch.Tensor, k: torch.Tensor,
-                     causal: bool) -> torch.Tensor:
-    """softmax(q k^T D^-0.5) [BH, G, S, S] in float32, the causal entries
-    set to -1e30 before the softmax (scaled and masked in place: one
-    [BH, G, S, S] transient beside the result)."""
+def _attention_scores(q: torch.Tensor, k: torch.Tensor,
+                      causal: bool) -> torch.Tensor:
+    """q k^T D^-0.5 [BH, G, S, S] in float32, the causal entries set to
+    -1e30 (scaled and masked in place)."""
     s, d = q.shape[1], q.shape[3]
     scores = torch.einsum("bqgd,bkd->bgqk", q.to(torch.float32),
                           k.to(torch.float32)).mul_(d ** -0.5)
@@ -158,37 +164,53 @@ def _attention_probs(q: torch.Tensor, k: torch.Tensor,
         pos = torch.arange(s, device=q.device)
         mask = pos[:, None] >= pos[None, :]
         scores.masked_fill_(~mask, -1e30)
-    return torch.softmax(scores, dim=-1)
+    return scores
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
-                            v: torch.Tensor, dout: torch.Tensor, *,
+                            v: torch.Tensor, out: torch.Tensor,
+                            lse: torch.Tensor, dout: torch.Tensor, *,
                             causal: bool = True):
-    """The attention backward in the kernel's layout, unchunked: q, dout
-    [BH, S, G, D]; k/v [BH, S, D] -> (dq, dk, dv) in their inputs'
+    """The attention backward in the kernel's layout, unchunked, by the
+    kernel's two routes. q, out, dout [BH, S, G, D]; k/v [BH, S, D]; lse
+    [BH, S * G] float32 (the forward's) -> (dq, dk, dv) in their inputs'
     dtypes. The scores are recomputed in float32 as in
-    ``flash_attention_ref`` (scaled by D^-0.5, causal entries -1e30), p is
-    their softmax, and with dp = dout v^T: dv = p^T dout, ds = p (dp -
-    delta), dq = ds k scale, dk = ds^T q scale, dk and dv summed over the
-    G query heads of each kv head.
+    ``flash_attention_ref`` (scaled by D^-0.5, causal entries -1e30); with
+    dp = dout v^T: dv = p^T dout, ds = p (dp - delta), dq = ds k scale,
+    dk = ds^T q scale, dk and dv summed over the G query heads of each kv
+    head.
 
-    delta = sum_k p dp, the softmax's own VJP, as XLA differentiates the
-    reference ViT's ``jax.nn.softmax``. The reference's ``_flash_core_bwd``
-    (``repro.models.attention``) takes the equal sum_d dout out from the
-    forward's output instead, but the card's output carries the kernel's
-    3xTF32 rounding, and its mismatch with the p recomputed here is
-    amplified where p (dp - delta) cancels (the wq / wk gradients): at
-    400x400 it moved them by 1.1e-3 of their largest entry against the
-    CPU's, where this delta keeps the backward consistent with its own
-    p."""
-    scale = q.shape[3] ** -0.5
+    bfloat16: the reference's ``_flash_core_bwd``
+    (``repro.models.attention``) in one piece, p = exp(scores - lse) and
+    delta = sum_d dout out (out in the input's dtype).
+
+    float32: p is the softmax of the scores recomputed here and delta =
+    sum_k p dp, the softmax's own VJP (as XLA differentiates the reference
+    ViT's ``jax.nn.softmax``); out and lse are not read. Both deltas are
+    equal in exact arithmetic, but sum_d dout out carries the forward's
+    rounding, and set against a recomputed p it leaves ds = p (dp -
+    delta) a row sum that is not zero: times the keys' common component,
+    that moved DINO's 400x400 wq / wk gradients by 1.5e-3 of their
+    largest entry between the card and the CPU. The CUDA kernel's float32
+    route takes the same sums."""
+    bh, s, g, d = q.shape
+    scale = d ** -0.5
     qf, kf, vf = (t.to(torch.float32) for t in (q, k, v))
     dof = dout.to(torch.float32)
-    p = _attention_probs(q, k, causal)                         # [BH,G,S,S]
-    dv = torch.einsum("bgqk,bqgd->bkd", p, dof)
+    scores = _attention_scores(q, k, causal)
     dp = torch.einsum("bqgd,bkd->bgqk", dof, vf)
+    if q.dtype == torch.float32:
+        p = torch.softmax(scores, dim=-1)
+        del scores
+        delta = (p * dp).sum(-1, keepdim=True)
+    else:
+        rows = lambda x: x.reshape(bh, s, g).transpose(1, 2)[..., None]
+        # p = exp(scores - lse), in the scores' memory
+        p = scores.sub_(rows(lse)).exp_()
+        delta = rows((dof * out.to(torch.float32)).sum(-1))
+    dv = torch.einsum("bgqk,bqgd->bkd", p, dof)
     # ds = p (dp - delta), in dp's memory
-    ds = dp.sub_((p * dp).sum(-1, keepdim=True)).mul_(p)
+    ds = dp.sub_(delta).mul_(p)
     dq = torch.einsum("bgqk,bkd->bqgd", ds, kf) * scale
     dk = torch.einsum("bgqk,bqgd->bkd", ds, qf) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -8,7 +8,10 @@ run in interpret mode through ``repro.kernels.ops.flash_attention``, at
 the shapes and dtypes of tests/test_kernels.py plus the ViT's own (S = 17,
 G = 1, D = 64, non-causal). Tolerance 2e-4 for f32, 2e-2 for bf16, as
 there: the Pallas kernel scales q before the product and sums online;
-the plain versions scale the scores and materialise the softmax.
+the plain versions scale the scores and materialise the softmax. The
+plain version's lse (``return_lse``, the backward's residual) against the
+reference forward's own (``repro.models.attention._flash_fwd_impl``) at S
+64 in chunks of 16, causal and not, G 1/2/4, within 1e-5.
 
 The kernel's f32 route (3xTF32) is emulated in torch on the CPU and held
 against the reference, beside a one-pass TF32 emulation that errs at
@@ -18,7 +21,8 @@ On a CUDA card (marker ``gpu``; skipped without one): the CUDA kernel
 against its plain version over causal and non-causal inputs, G in
 {1, 2, 3, 4, 8}, D in {16, 32, 64, 128}, ragged S and ragged query
 tiles, the ViT's batch of 384 bh, f32 and bf16, and the wrapper's
-16-byte alignment check. Run them there with
+16-byte alignment check; the kernel's lse against the plain version's
+within the same tolerances. Run them there with
 ``PYTHONPATH=src python -m pytest -m gpu tests/test_torch_attention.py``.
 """
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import attention as jattention
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
@@ -43,6 +48,8 @@ SHAPES = [
     (2, 17, 3, 3, 64, False),      # ViT-T: 16 patches + CLS, 3 heads
 ]
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# the forward's lse (f32 in both dtypes, about log S in size)
+LSE_TOL = 1e-4
 
 
 def _model_inputs(b, s, hq, hkv, d, seed):
@@ -116,6 +123,31 @@ def test_flash_attention_dtypes_match_pallas(dtype):
     np.testing.assert_allclose(got_ref.float().numpy(),
                                np.asarray(want_ref, np.float32),
                                rtol=tol, atol=tol)
+
+
+LSE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hq,hkv", [(2, 2), (4, 2), (4, 1)])
+def test_flash_attention_ref_lse_matches_reference(hq, hkv, causal):
+    """lse [BH, S G] in the kernel's row order against the reference
+    forward's [B, Hkv, G, nq, q_chunk] at S 64 in chunks of 16 (G = 1, 2,
+    4): the residual its custom VJP saves."""
+    b, s, d = 2, 64, 16
+    q, k, v = _model_inputs(b, s, hq, hkv, d, seed=hq * 7 + hkv + causal)
+    out, lse = jattention._flash_fwd_impl(*_j(q, k, v), causal, 16, 16)
+    g = hq // hkv
+    want = np.asarray(lse).reshape(b, hkv, g, s).transpose(0, 1, 3, 2) \
+        .reshape(b * hkv, s * g)
+    got_out, got = tref.flash_attention_ref(
+        *_t(*_kernel_layout_np(q, k, v)), causal=causal, return_lse=True)
+    assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=LSE_TOL,
+                               atol=LSE_TOL)
+    plain = tref.flash_attention_ref(*_t(*_kernel_layout_np(q, k, v)),
+                                     causal=causal)
+    assert torch.equal(got_out, plain)
 
 
 def test_flash_attention_causal_first_row_is_v0():
@@ -340,6 +372,26 @@ def test_flash_cuda_d128_f32(cuda, s, causal):
     holds no more beside Q's hi and lo); S = 32 is one full tile."""
     _check_cuda(*_cuda_case(s, 2, 128, "float32", seed=s, device=cuda),
                 causal, "float32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,g,d,causal", [
+    (67, 2, 64, True), (17, 1, 64, False), (300, 4, 128, True),
+    (95, 3, 16, False)])
+def test_flash_cuda_lse_matches_plain(cuda, s, g, d, causal, dtype):
+    """The forward with ``return_lse``: the same output as without, and
+    its lse within LSE_TOL of the plain version's (f32 in both dtypes)."""
+    q, k, v = _cuda_case(s, g, d, dtype, seed=s + g, device=cuda)
+    out, lse = tflash.flash_attention(q, k, v, causal=causal,
+                                      return_lse=True)
+    plain_out = tflash.flash_attention(q, k, v, causal=causal)
+    _, want = tref.flash_attention_ref(q, k, v, causal=causal,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    torch.testing.assert_close(lse, want, rtol=0, atol=LSE_TOL)
 
 
 @pytest.mark.gpu

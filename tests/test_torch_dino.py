@@ -120,7 +120,10 @@ def test_bwd_ref_matches_autograd(causal, g, d):
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = tref.flash_attention_ref(*leaves, causal=causal)
     out.backward(dout)
-    got = tref.flash_attention_bwd_ref(q, k, v, dout, causal=causal)
+    fwd, lse = tref.flash_attention_ref(q, k, v, causal=causal,
+                                        return_lse=True)
+    got = tref.flash_attention_bwd_ref(q, k, v, fwd, lse, dout,
+                                       causal=causal)
     for name, a, want in zip("qkv", got, leaves):
         assert a.dtype == torch.float32 and a.shape == want.shape
         torch.testing.assert_close(a, want.grad, rtol=BWD_TOL,
@@ -401,14 +404,14 @@ def test_forward_off_the_cpu_launches_the_kernel(monkeypatch):
     plain, plain_bwd = tref.flash_attention_ref, tref.flash_attention_bwd_ref
     calls = {"kernel": 0, "backward_kernel": 0}
 
-    def kernel(q, k, v, *, causal=True):
+    def kernel(q, k, v, *, causal=True, return_lse=False):
         assert not torch.is_grad_enabled()
         calls["kernel"] += 1
-        return plain(q, k, v, causal=causal)
+        return plain(q, k, v, causal=causal, return_lse=return_lse)
 
-    def backward_kernel(q, k, v, dout, *, causal=True):
+    def backward_kernel(q, k, v, out, lse, dout, *, causal=True):
         calls["backward_kernel"] += 1
-        return plain_bwd(q, k, v, dout, causal=causal)
+        return plain_bwd(q, k, v, out, lse, dout, causal=causal)
 
     def refused(*args, **kwargs):
         raise AssertionError("flash_attention_ref called in a forward")

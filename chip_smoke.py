@@ -1040,8 +1040,8 @@ def flash_rows(device) -> list:
 def sass_check(lib: Path) -> dict:
     """Per kernel function of a built library (cuobjdump -sass): its
     HGMMA (wgmma on the tensor cores, by operand type), HMMA (mma.sync on
-    the tensor cores), UTMALDG (TMA load) and UBLKCP (cp.async.bulk)
-    instructions."""
+    the tensor cores), UTMALDG (TMA load), UBLKCP (cp.async.bulk) and
+    SETMAXREG (setmaxnreg) instructions."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1053,7 +1053,8 @@ def sass_check(lib: Path) -> dict:
         if m:
             cur = counts.setdefault(m.group(1), {"HGMMA": 0, "HGMMA_BF16": 0,
                                                  "HGMMA_TF32": 0, "HMMA": 0,
-                                                 "UTMALDG": 0, "UBLKCP": 0})
+                                                 "UTMALDG": 0, "UBLKCP": 0,
+                                                 "SETMAXREG": 0})
         elif cur is not None:
             if "HGMMA." in line:
                 cur["HGMMA"] += 1
@@ -1062,6 +1063,7 @@ def sass_check(lib: Path) -> dict:
             cur["HMMA"] += "HMMA." in line
             cur["UTMALDG"] += "UTMALDG" in line
             cur["UBLKCP"] += "UBLKCP" in line
+            cur["SETMAXREG"] += "SETMAXREG" in line
     if not counts:
         raise AssertionError(f"cuobjdump found no kernel in {lib}")
     return demangled(counts)
@@ -1130,31 +1132,56 @@ def bulk_sass(libs: dict) -> dict:
     return {"phase": "box_scan_sass", "functions": funcs, "missing": missing}
 
 
+def _sass_functions(lib: Path, keys: tuple) -> dict:
+    """Per function of a built library, its ``keys`` counts of
+    ``sass_check`` with its ``ptxas_stats`` (registers, spills, stack
+    frame)."""
+    stats = ptxas_stats(lib)
+    return {f: {k: c[k] for k in keys} | stats.get(f, {})
+            for f, c in sass_check(lib).items()}
+
+
+def _spilled(funcs: dict) -> list:
+    """The functions that spill, or that have no ptxas record."""
+    return [f for f, c in funcs.items()
+            if c.get("spill_stores") or c.get("spill_loads")
+            or "spill_stores" not in c]
+
+
+def flash_fwd_sass(libs: dict) -> dict:
+    """The flash_sass record: per function of the forward's library, its
+    HGMMA (wgmma), UTMALDG (TMA) and SETMAXREG (setmaxnreg) counts with
+    its registers, spills and stack frame; the product kernels (bf16 and
+    f32; the f32 pre-pass and the splits' combine move data only) without
+    wgmma or TMA loads (``no_wgmma``), the bf16 kernels without setmaxnreg
+    (``no_setmaxnreg``), and every function that spills (``spills``)."""
+    funcs = _sass_functions(libs["flash_attention"],
+                            ("HGMMA", "HGMMA_BF16", "HGMMA_TF32", "UTMALDG",
+                             "SETMAXREG"))
+    products = [f for f in funcs if "kernel_bf16" in f or "kernel_f32" in f]
+    return {"phase": "flash_sass", "functions": funcs,
+            "no_wgmma": [f for f in products if not (
+                funcs[f]["HGMMA"] and funcs[f]["UTMALDG"])],
+            "no_setmaxnreg": [f for f in products if "kernel_bf16" in f
+                              and not funcs[f]["SETMAXREG"]],
+            "spills": _spilled(funcs)}
+
+
 def flash_bwd_sass(libs: dict) -> dict:
     """The flash_bwd_sass record: per function of the backward's library,
     its HMMA (mma.sync), HGMMA (wgmma) and UTMALDG (TMA) counts with its
     registers, spills and stack frame; the bf16 route's kernels without
     wgmma or TMA loads (``no_wgmma``), the f32 route's without mma.sync
     (``no_mma``), and every function that spills (``spills``)."""
-    stats = ptxas_stats(libs["flash_attention_bwd"])
-    funcs = {f: {k: c[k] for k in ("HMMA", "HGMMA", "UTMALDG")}
-             | stats.get(f, {})
-             for f, c in sass_check(libs["flash_attention_bwd"]).items()}
+    funcs = _sass_functions(libs["flash_attention_bwd"],
+                            ("HMMA", "HGMMA", "UTMALDG"))
     products = [f for f in funcs if "reduce" not in f]
     return {"phase": "flash_bwd_sass", "functions": funcs,
             "no_wgmma": [f for f in products if "bf16" in f and not (
                 funcs[f]["HGMMA"] and funcs[f]["UTMALDG"])],
             "no_mma": [f for f in products
                        if "f32" in f and not funcs[f]["HMMA"]],
-            "spills": [f for f, c in funcs.items()
-                       if c.get("spill_stores") or c.get("spill_loads")
-                       or "spill_stores" not in c]}
-
-
-def sass_missing(counts: dict) -> list:
-    """The functions of ``sass_check``'s counts with no HGMMA or no
-    UTMALDG."""
-    return [n for n, c in counts.items() if not (c["HGMMA"] and c["UTMALDG"])]
+            "spills": _spilled(funcs)}
 
 
 # the engine configurations gpu_vs_cpu holds GPU against CPU: the default
@@ -1261,11 +1288,15 @@ KERNEL_CLASSES = ("flash_attention", "flash_attention_bwd", "cublas",
 
 
 def _kernel_class(name: str) -> str:
-    """flash attention's forward kernel, its backward's two kernels,
-    cuBLAS's products or the rest, by kernel name (cuBLAS's bf16 products
-    on the H100 are its ``nvjet`` kernels)."""
+    """flash attention's forward kernels (the main one, its f32 pre-pass
+    and its splits' combine), its backward's kernels, cuBLAS's products
+    or the rest, by kernel name (cuBLAS's bf16 products on the H100 are
+    its ``nvjet`` kernels)."""
     low = name.lower()
-    return ("flash_attention" if "flash_attention_kernel" in name else
+    return ("flash_attention" if any(
+                w in name for w in ("flash_attention_kernel",
+                                    "flash_attention_presplit",
+                                    "flash_attention_combine")) else
             "flash_attention_bwd" if "flash_bwd_" in name else
             "cublas" if any(w in low for w in ("gemm", "xmma", "cutlass",
                                                "nvjet"))
@@ -3204,8 +3235,9 @@ def phase_l2dist(device) -> None:
 
 def flash_counter() -> dict:
     """profile_batch's counters of the flash kernels' launches: the
-    forward's, and the backward's dq and dk / dv kernels (one each a call,
-    of either dtype; the partials' sum where it splits is not counted)."""
+    forward's main kernel, and the backward's dq and dk / dv kernels (one
+    each a call, of either dtype; the forward's f32 pre-pass and splits'
+    combine, and the backward's partials' sum, are not counted)."""
     from repro_torch.kernels import flash_attention as fa
     return {"flash_attention_kernel": lambda: fa.launches,
             "flash_bwd_dq_": lambda: fa.backward_launches,
@@ -7199,10 +7231,8 @@ def main(argv) -> int:
         build.load(name)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "libraries": {k: str(v.relative_to(ROOT)) for k, v in libs.items()}})
-    sass = sass_check(libs["flash_attention"])
-    missing = sass_missing(sass)
-    emit({"phase": "flash_sass", "functions": sass, "missing": missing,
-          "ptxas": ptxas_stats(libs["flash_attention"])})
+    fwd_sass = flash_fwd_sass(libs)
+    emit(fwd_sass)
     bwd_sass = flash_bwd_sass(libs)
     emit(bwd_sass)
     box_sass = bulk_sass(libs)
@@ -7218,9 +7248,12 @@ def main(argv) -> int:
                           if name == "dryrun" else ONLY[name](dev))
         print(card, flush=True)
         return 0
-    if missing:
-        raise AssertionError(f"flash_attention: no wgmma or no TMA load in "
-                             f"{missing}")
+    if fwd_sass["no_wgmma"] or fwd_sass["no_setmaxnreg"] \
+            or fwd_sass["spills"]:
+        raise AssertionError(f"flash_attention: no wgmma or TMA load in "
+                             f"{fwd_sass['no_wgmma']}, no setmaxnreg in "
+                             f"{fwd_sass['no_setmaxnreg']}, spills (or no "
+                             f"ptxas record) in {fwd_sass['spills']}")
     if box_sass["missing"]:
         raise AssertionError(f"box scans: no cp.async.bulk in "
                              f"{box_sass['missing']}")
@@ -7395,7 +7428,7 @@ def main(argv) -> int:
     for name in ("box_scan", "box_scan_seg"):
         by_name[name]["sass"] = {f: c for f, c in box_sass["functions"].items()
                                  if f"{name}_kernel" in f}
-    rows[-1]["sass"] = sass
+    rows[-1]["sass"] = fwd_sass["functions"]
     rows[-1]["extraction_400_flash_launches"] = ext400["flash_launches"]
     # the LM's flash branch at llama3-8b's layer-0 inputs of a 4,096-token
     # prefill (BH 8, S 4096, G 4, D 128, causal, bf16)

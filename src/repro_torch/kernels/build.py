@@ -44,9 +44,9 @@ ENTRIES = {
                                              _I, _I, _I, _P, _P]},
     "box_scan": {"box_scan_launch": [_P, _P, _P, _L, _I, _I, _P, _P]},
     "l2dist": {"l2dist_launch": [_P, _P, _L, _I, _I, _P, _P]},
-    "flash_attention": {"flash_attention_launch": [_P, _P, _P, _P, _P, _I,
-                                                   _I, _I, _I, _I, _I, _F,
-                                                   _P]},
+    "flash_attention": {"flash_attention_launch": [_P, _P, _P, _P, _P, _P,
+                                                   _I, _I, _I, _I, _I, _I,
+                                                   _F, _I, _I, _P]},
     "flash_attention_bwd": {
         "flash_attention_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _I, _I, _I, _I, _I, _I, _F,

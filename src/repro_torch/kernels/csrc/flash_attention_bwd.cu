@@ -111,23 +111,15 @@ using bf16 = __nv_bfloat16;
 // SM (at two waves or more, as at BH 8, S 4,096, splits only add partials)
 constexpr int kSplitWaves = 2;
 constexpr int kMaxSplits = 16;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // p = exp(scale s - lse) as exp2(s sl2 - lse2), with sl2 = scale log2(e)
 // and lse2 = lse log2(e): one FMA and the hardware's exp2 (relative error
 // about 2^-22; below 2^-126 it flushes to 0)
 __device__ __forceinline__ float prob(float s, float sl2, float lse2) {
-  float p;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(p) : "f"(fmaf(s, sl2, -lse2)));
-  return p;
+  return ex2(fmaf(s, sl2, -lse2));
 }
 
 // ---- the f32 route: 3xTF32 on mma.sync, every tile split once
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 constexpr int kThreads = 128;     // a warp group: four warps
 constexpr int kWarpRows = 16;     // a warp's query rows (dq) or keys (dk/dv)

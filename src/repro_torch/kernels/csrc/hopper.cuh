@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the flash attention kernels: wgmma
 // on the tensor cores, TMA tile loads through 3-D tensor maps, mbarriers,
-// the swizzled shared-memory layout wgmma's descriptors read, and the
-// 3xTF32 split. Shared by flash_attention.cu (the forward) and
+// the swizzled shared-memory layout wgmma's descriptors read, the 3xTF32
+// split, and the softmax's exp2 and quad sums. Shared by flash_attention.cu (the forward) and
 // flash_attention_bwd.cu (the backward); build.py hashes this header into
 // every library's key.
 //
@@ -26,6 +26,7 @@ constexpr int kWG = 128;          // threads of a warpgroup
 constexpr int kRowsWG = 64;       // rows of a warpgroup's wgmma tile
 constexpr int kStages = 2;        // depth of a streamed-tile ring
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // the column chunks of a row of D elements of T
 template <int D, typename T>
@@ -43,7 +44,7 @@ struct Rows {
 // wgmma.mma_async m64nNk16 (bf16) / m64nNk8 (tf32) into f32 registers d,
 // always accumulating. ss: A and B from shared memory, both K-major.
 // rs: A from registers. _bt: B MN-major (the transpose bit). Only the
-// widths the kernel uses: Q K^T at N = the key tile, P V at N = D or 64.
+// widths the kernels use: Q K^T at N = the key tile, P V at N = D or 64.
 template <int N>
 struct Mma;
 template <> struct Mma<16> {
@@ -155,6 +156,43 @@ template <> struct Mma<64> {
   }
 };
 
+// the forward's 128-key bf16 tiles: Q K^T, and P V at D = 128
+template <> struct Mma<128> {
+  static __device__ __forceinline__ void ss_bf16(float* d, uint64_t a,
+                                                 uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs_bf16_bt(float* d,
+                                                    const uint32_t* a,
+                                                    uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : F8(0), F8(8), F8(16), F8(24), F8(32), F8(40), F8(48), F8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
 #undef F8
 #undef F4
 
@@ -225,6 +263,25 @@ __device__ __forceinline__ void wgmma_commit_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// the products issued since the last commit as one group; the wait
+// returns once at most N groups are still in flight
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// named barrier `id` of n threads: sync waits for all n, arrive counts
+// one thread in and goes on
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 // keeps the compiler from moving reads or writes of wgmma's registers
 // across the fence / wait around it
 template <int N>
@@ -247,6 +304,13 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          ((uint64_t)(8 * CB / 16) << 32) | (layout << 62);
 }
 
+// smem_desc of an MN-major tile wider than one swizzle atom: its atoms
+// (64 bf16 columns at the 128-byte swizzle) lie `atom` bytes apart
+__device__ __forceinline__ uint64_t with_atom_stride(uint64_t desc,
+                                                    uint32_t atom) {
+  return (desc & ~((uint64_t)0x3FFF << 16)) | ((uint64_t)(atom >> 4) << 16);
+}
+
 // byte offset of a swizzled tile whose rows are CB bytes: the 16-byte
 // chunk index XOR the row's bits above it (TMA's SWIZZLE_{32,64,128}B)
 template <int CB>
@@ -263,6 +327,20 @@ __device__ __forceinline__ float tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
+}
+
+// 2^x by the hardware's exp2 (relative error about 2^-22; below 2^-126
+// it flushes to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the sum over the four threads of a quad (an accumulator row's)
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

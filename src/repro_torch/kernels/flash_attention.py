@@ -8,6 +8,12 @@ bfloat16, D in {16, 32, 64, 128}, any S; the output is [BH, S, G, D] in
 q's dtype. The forward picks its own tiles, so S needs no padding; its
 products run on the tensor cores (bf16, or 3xTF32 for float32) from
 tiles that TMA loads, so every tensor must start on a 16-byte boundary.
+Its float32 scratch (``fwd_scratch_numel``): for bfloat16 where BH times
+the 128-row query tiles gives fewer CTAs than the card has SMs, each
+query tile's keys split over ``fwd_splits`` CTAs whose partials
+[splits, BH, S * G, D + 2] a second kernel combines; for float32 past
+one 32-key tile, K and V split into TF32 hi and lo once a call,
+[4, BH, S rounded up to 32, D].
 Where asked (``return_lse``) the forward also returns each row's
 log-sum-exp of its scaled scores, lse [BH, S * G] float32, the residual
 the reference's custom VJP saves. ``flash_attention_bwd`` takes the
@@ -23,7 +29,9 @@ entry refuses an input that requires grad: gradients go through
 ``ops.flash_attention``, whose autograd Function launches the forward
 kernel and, on the card, the backward kernel.
 
-``launches`` counts forward kernel launches, ``backward_launches``
+``launches`` counts forward kernel launches (one a call: its kernels,
+the pre-pass or the combine where it has one, launched together),
+``backward_launches``
 backward kernel launches (one a call: its kernels, dq, dk/dv and where it
 splits the partials' sum, launched together); ``backward_calls`` counts
 the backward passes ``ops.flash_attention`` runs, on the kernel or the
@@ -42,6 +50,16 @@ HEAD_DIMS = (16, 32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (device index, BH, S, G, dtype code) -> the backward's splits
 _splits: dict = {}
+# the same key -> the forward's key splits
+_fwd_splits: dict = {}
+# device index -> its SM count
+_sms: dict = {}
+# the forward's tiles: bfloat16 query rows and keys of a CTA's item,
+# float32 keys of a tile
+FWD_ROWS, FWD_KEYS, F32_KEYS = 128, 128, 32
+# a forward grid below one CTA an SM splits each query tile's keys, to
+# about FWD_SPLIT_WAVES CTAs an SM, at most FWD_MAX_SPLITS
+FWD_SPLIT_WAVES, FWD_MAX_SPLITS = 1, 16
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor,
@@ -88,10 +106,52 @@ def _split_count(device: torch.device, bh: int, s: int, g: int,
     key = (device.index, bh, s, g, code)
     n = _splits.get(key)
     if n is None:
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
         n = _splits[key] = launch_fn(
             "flash_attention_bwd", "flash_attention_bwd_splits")(
-                bh, s, g, code, sms)
+                bh, s, g, code, _sm_count(device))
+    return n
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _sms.get(device.index)
+    if n is None:
+        n = _sms[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def fwd_splits(bh: int, s: int, g: int, code: int, sms: int) -> int:
+    """The forward's key splits of each query tile, on a card of ``sms``
+    SMs: 1 for float32, and for bfloat16 where BH times the 128-row query
+    tiles gives a CTA an SM or more; else enough for FWD_SPLIT_WAVES CTAs
+    an SM, at most FWD_MAX_SPLITS and the key tiles of S."""
+    if code != DTYPE_CODES[torch.bfloat16]:
+        return 1
+    ctas = bh * -(-s * g // FWD_ROWS)
+    if ctas >= sms:
+        return 1
+    return max(1, min(-(-FWD_SPLIT_WAVES * sms // ctas), -(-s // FWD_KEYS),
+                      FWD_MAX_SPLITS))
+
+
+def fwd_scratch_numel(bh: int, s: int, g: int, d: int, code: int,
+                      splits: int) -> int:
+    """Float32 elements of the forward's scratch: the splits' partials
+    (O, then each row's max and sum) or the float32 pre-pass's K hi, K lo,
+    V^T hi and V^T lo planes; 0 where it has none."""
+    if code == DTYPE_CODES[torch.float32]:
+        s_pad = -(-s // F32_KEYS) * F32_KEYS
+        return 4 * bh * s_pad * d if s > F32_KEYS else 0
+    return splits * bh * s * g * (d + 2) if splits > 1 else 0
+
+
+def _fwd_split_count(device: torch.device, bh: int, s: int, g: int,
+                     code: int) -> int:
+    """``fwd_splits`` by the card's SM count, kept per device and shape."""
+    key = (device.index, bh, s, g, code)
+    n = _fwd_splits.get(key)
+    if n is None:
+        n = _fwd_splits[key] = fwd_splits(bh, s, g, code, _sm_count(device))
     return n
 
 
@@ -116,12 +176,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (out, lse) if return_lse else out
     if out.data_ptr() % 16:
         raise ValueError("flash_attention: out must be 16-byte aligned (TMA)")
+    code = DTYPE_CODES[q.dtype]
+    splits = _fwd_split_count(q.device, bh, s, g, code)
+    n = fwd_scratch_numel(bh, s, g, d, code, splits)
+    scratch = (torch.empty(n, dtype=torch.float32, device=q.device)
+               if n else None)
     fn = launch_fn("flash_attention")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr() if return_lse else None, bh, s, g, d,
-                 DTYPE_CODES[q.dtype], int(bool(causal)), d ** -0.5, stream)
+                 lse.data_ptr() if return_lse else None,
+                 scratch.data_ptr() if n else None, bh, s, g, d, code,
+                 int(bool(causal)), d ** -0.5, splits,
+                 _sm_count(q.device), stream)
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

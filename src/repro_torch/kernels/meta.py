@@ -18,9 +18,13 @@ import functools
 
 import torch
 
-from repro_torch.kernels.flash_attention import DTYPE_CODES, HEAD_DIMS
+from repro_torch.kernels.flash_attention import (DTYPE_CODES, HEAD_DIMS,
+                                                 fwd_scratch_numel,
+                                                 fwd_splits)
 
 NAMESPACE = "repro_torch"
+# the card a dry run prices: an H100's SMs (the forward's key splits)
+DRY_RUN_SMS = 132
 # name -> schema (the kernels' entry points in kernels/ops.py)
 SCHEMAS = {
     "zone_prune": "(Tensor zlo, Tensor zhi, Tensor blo, Tensor bhi) -> Tensor",
@@ -95,6 +99,26 @@ def _flash_attention_lse(q, k, v, causal):
     bh, s, g, _ = q.shape
     return (_flash_attention(q, k, v, causal),
             _empty((bh, s * g), torch.float32))
+
+
+def flash_forward(q, k, v, causal: bool, return_lse: bool = False):
+    """The forward's meta route: its float32 scratch, shaped as the
+    wrapper allocates it on the card (``fwd_scratch_numel`` at
+    DRY_RUN_SMS), allocated first and held across the call, so that an
+    op trace counts it among the step's temporaries; then the forward's
+    operator (``flash_attention.lse`` where ``return_lse``), which
+    refuses what the kernel refuses."""
+    code = DTYPE_CODES.get(q.dtype)
+    scratch = None
+    if code is not None:
+        bh, s, g, d = q.shape
+        n = fwd_scratch_numel(bh, s, g, d, code,
+                              fwd_splits(bh, s, g, code, DRY_RUN_SMS))
+        scratch = _empty((n,), torch.float32) if n else None
+    out = call("flash_attention.lse" if return_lse else "flash_attention",
+               q, k, v, bool(causal))
+    del scratch        # held until the call is done, as on the card
+    return out
 
 
 def _flash_attention_bwd(q, k, v, out, lse, dout, causal):

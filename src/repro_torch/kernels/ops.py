@@ -112,7 +112,7 @@ def _flash_forward(q, k, v, causal: bool) -> torch.Tensor:
     if _on_cpu(q):
         return kref.flash_attention_ref(q, k, v, causal=causal)
     if _on_meta(q):
-        return _meta.call("flash_attention", q, k, v, bool(causal))
+        return _meta.flash_forward(q, k, v, causal)
     return _flash.flash_attention(q, k, v, causal=causal)
 
 
@@ -123,7 +123,7 @@ def _flash_forward_lse(q, k, v, causal: bool):
         return kref.flash_attention_ref(q, k, v, causal=causal,
                                         return_lse=True)
     if _on_meta(q):
-        return _meta.call("flash_attention.lse", q, k, v, bool(causal))
+        return _meta.flash_forward(q, k, v, causal, return_lse=True)
     return _flash.flash_attention(q, k, v, causal=causal, return_lse=True)
 
 

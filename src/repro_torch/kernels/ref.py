@@ -153,6 +153,59 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              splits: int = 1, rows: int = 128,
+                              tile: int = 128, return_lse: bool = False):
+    """The forward kernel's key split (csrc/flash_attention.cu, bf16
+    route) in plain torch ops, in float32: the M = S * G query rows in
+    tiles of ``rows``; a tile's keys up to its last row's position
+    (causal) or S, nt tiles of ``tile`` keys, split z taking tiles [nt z /
+    splits, nt (z + 1) / splits). Each split gives (o, m, l): its masked
+    scores' max (-1e30 where it sees none), sum of exp and unnormalised
+    P V; the combine rescales them to the largest m and adds them in split
+    order. Same layout, output and lse as ``flash_attention_ref``."""
+    bh, s, g, d = q.shape
+    m_rows = s * g
+    qf = q.reshape(bh, m_rows, d).to(torch.float32)
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    pos = torch.arange(m_rows, device=q.device) // g
+    out = torch.empty(bh, m_rows, d, dtype=torch.float32, device=q.device)
+    lse = torch.empty(bh, m_rows, dtype=torch.float32, device=q.device)
+    for r0 in range(0, m_rows, rows):
+        r1 = min(r0 + rows, m_rows)
+        kend = min(s, (r1 - 1) // g + 1) if causal else s
+        nt = -(-kend // tile)
+        parts = []
+        for z in range(splits):
+            k0, k1 = nt * z // splits * tile, min(nt * (z + 1) // splits
+                                                  * tile, kend)
+            sc = torch.einsum("bqd,bkd->bqk", qf[:, r0:r1],
+                              kf[:, k0:k1]) * d ** -0.5
+            if causal:
+                kpos = torch.arange(k0, k1, device=q.device)
+                sc = sc.masked_fill(kpos[None, None] > pos[None, r0:r1,
+                                                           None],
+                                    float("-inf"))
+            mz = (sc.amax(-1) if k1 > k0 else
+                  torch.full(sc.shape[:2], float("-inf"), device=q.device))
+            mz = mz.clamp_min(-1e30)
+            p = torch.exp(sc - mz[..., None])
+            parts.append((mz, p.sum(-1), p @ vf[:, k0:k1]))
+        mmax = torch.stack([mz for mz, _, _ in parts]).amax(0)
+        acc = torch.zeros_like(out[:, r0:r1])
+        lsum = torch.zeros_like(mmax)
+        for mz, lz, oz in parts:
+            w = torch.exp(mz - mmax)
+            lsum = lsum + w * lz
+            acc = acc + w[..., None] * oz
+        denom = lsum.clamp_min(1e-30)
+        out[:, r0:r1] = acc / denom[..., None]
+        lse[:, r0:r1] = mmax + torch.log(denom)
+    out = out.reshape(q.shape).to(q.dtype)
+    return (out, lse) if return_lse else out
+
+
 def _attention_scores(q: torch.Tensor, k: torch.Tensor,
                       causal: bool) -> torch.Tensor:
     """q k^T D^-0.5 [BH, G, S, S] in float32, the causal entries set to

@@ -27,6 +27,8 @@ within the same tolerances. Run them there with
 """
 from __future__ import annotations
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -186,6 +188,119 @@ def test_flash_wrapper_checks_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         tflash.flash_attention(q, k.transpose(1, 2).contiguous()
                                .transpose(1, 2), v)
+
+
+# ----------------------------------------------------------------------
+# the CUDA kernel's key split (bf16 route), modelled on the CPU
+# ----------------------------------------------------------------------
+
+SPLIT_S, SPLIT_TILE = 64, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _split_references(g, causal):
+    """Inputs (kernel layout, numpy) at S 64, D 16, BH 4 and the three
+    references the split model is held to: the port's plain (out, lse),
+    the reference's chunked forward ``_flash_fwd_impl`` by kv_chunk (out,
+    lse in the kernel's row order), and the Pallas kernel in interpret
+    mode (out)."""
+    b, hkv, d = 2, 2, 16
+    hq = hkv * g
+    model = _model_inputs(b, SPLIT_S, hq, hkv, d, seed=g * 10 + causal)
+    q, k, v = _kernel_layout_np(*model)
+    plain = [x.numpy() for x in tref.flash_attention_ref(
+        *_t(q, k, v), causal=causal, return_lse=True)]
+    chunked = {}
+    for chunk in (16, 32, 64):
+        out, lse = jattention._flash_fwd_impl(*_j(*model), causal,
+                                              SPLIT_S, chunk)
+        out = np.asarray(out).reshape(b, SPLIT_S, hkv, g, d) \
+            .transpose(0, 2, 1, 3, 4).reshape(q.shape)
+        lse = np.asarray(lse).reshape(b, hkv, g, SPLIT_S) \
+            .transpose(0, 1, 3, 2).reshape(b * hkv, SPLIT_S * g)
+        chunked[chunk] = (out, lse)
+    pallas = np.asarray(jops.flash_attention(
+        *_j(*model), causal=causal, q_chunk=64, kv_chunk=16,
+        interpret=True)).reshape(b, SPLIT_S, hkv, g, d) \
+        .transpose(0, 2, 1, 3, 4).reshape(q.shape)
+    return (q, k, v), plain, chunked, pallas
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4])
+def test_flash_split_model_matches_references(splits, g, causal):
+    """The key split's plain model (``ref.flash_attention_split_ref``:
+    per split (o, m, l) by torch ops, combined in the kernel's fixed
+    order) at S 64 in key tiles of 16, 1-4 splits: out within 2e-4 and
+    lse within LSE_TOL of the port's plain version, of the reference's
+    chunked forward with kv_chunk the split's length (16 where 3 splits
+    cut 4 tiles unevenly), and out of the Pallas kernel (interpret
+    mode)."""
+    (q, k, v), plain, chunked, pallas = _split_references(g, causal)
+    out, lse = tref.flash_attention_split_ref(
+        *_t(q, k, v), causal=causal, splits=splits, tile=SPLIT_TILE,
+        return_lse=True)
+    out, lse = out.numpy(), lse.numpy()
+    chunk = SPLIT_S // splits if SPLIT_S % splits == 0 else SPLIT_TILE
+    for want_out, want_lse in (plain, chunked[chunk]):
+        np.testing.assert_allclose(out, want_out, rtol=2e-4, atol=2e-4)
+        np.testing.assert_allclose(lse, want_lse, rtol=0, atol=LSE_TOL)
+    np.testing.assert_allclose(out, pallas, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("bh,s,g,dtype,want", [
+    (16, 4096, 2, torch.bfloat16, 1),   # lm_train: 1,024 CTAs
+    (8, 4096, 2, torch.bfloat16, 1),    # mesh training: 512
+    (4, 4096, 2, torch.bfloat16, 1),    # mesh data x model: 256
+    (2, 4096, 2, torch.bfloat16, 2),    # mesh head mode: 128 < 132
+    (1, 4096, 2, torch.bfloat16, 3),    # 64: 132 / 64 rounded up
+    (1, 1000, 2, torch.bfloat16, 8),    # 16 CTAs: capped at 8 key tiles
+    (1, 100, 1, torch.bfloat16, 1),     # one key tile
+    (1, 4096, 16, torch.float32, 1),    # f32 never splits
+])
+def test_flash_fwd_splits_only_under_filled_grids(bh, s, g, dtype, want):
+    """On a card of 132 SMs the forward splits only a bf16 grid of fewer
+    CTAs (BH times the 128-row query tiles) than SMs, to about one CTA
+    an SM; its scratch is the splits' partials, or for f32 past one
+    32-key tile the pre-pass's four split planes."""
+    code = tflash.DTYPE_CODES[dtype]
+    assert tflash.fwd_splits(bh, s, g, code, 132) == want
+    numel = tflash.fwd_scratch_numel(bh, s, g, 128, code, want)
+    if dtype == torch.float32:
+        assert numel == 4 * bh * s * 128
+    else:
+        assert numel == (want * bh * s * g * 130 if want > 1 else 0)
+
+
+@pytest.mark.parametrize("bh,s,g,d,dtype,with_lse", [
+    (2, 4096, 2, 128, torch.bfloat16, False),   # 2 splits' partials
+    (1, 1000, 4, 64, torch.bfloat16, True),
+    (2, 300, 2, 64, torch.float32, True),       # the f32 pre-pass
+    (16, 4096, 2, 128, torch.bfloat16, False),  # no scratch
+    (3, 17, 1, 64, torch.float32, False),       # one key tile: none
+])
+def test_flash_fwd_scratch_in_dry_run_temp_bytes(bh, s, g, d, dtype,
+                                                 with_lse):
+    """On meta tensors (a dry run) the forward allocates the scratch the
+    wrapper allocates on the card, at an H100's 132 SMs, and holds it
+    across the call: an op trace's temp_bytes is exactly its bytes."""
+    from repro_torch.kernels import meta
+    from repro_torch.launch import hlo_analysis
+    q = torch.empty((bh, s, g, d), dtype=dtype, device="meta")
+    k = torch.empty((bh, s, d), dtype=dtype, device="meta")
+    code = tflash.DTYPE_CODES[dtype]
+    numel = tflash.fwd_scratch_numel(
+        bh, s, g, d, code, tflash.fwd_splits(bh, s, g, code,
+                                             meta.DRY_RUN_SMS))
+    with hlo_analysis.OpTrace((q, k)) as tr:
+        out = (tops._flash_forward_lse(q, k, k, True) if with_lse
+               else (tops._flash_forward(q, k, k, True),))
+    memory = tr.finish(out)
+    assert memory["temp_bytes"] == 4 * numel
+    assert memory["output_bytes"] == sum(t.untyped_storage().nbytes()
+                                         for t in out)
+    assert out[0].shape == q.shape and out[0].dtype == dtype
 
 
 # ----------------------------------------------------------------------

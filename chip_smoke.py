@@ -52,15 +52,15 @@ serving path (``lm``, ROADMAP A13a): llama3-8b at full width and depth
 (8.03 B bf16 parameters drawn on the card) prefills 4,096 tokens with one
 flash kernel launch a layer (32), decodes 32 greedy tokens with none, and
 runs ``lm_feature_fn`` on 4 x 4,096 tokens; the kernel is held to its
-plain version at layer 0's inputs; its first two layers prefill on the
+plain version at layer 0's inputs; its first layer prefills on the
 card and on the CPU alike; and every other assigned architecture at full
 width (cut to one repeat of its layer pattern where it is large) checks
-prefill + 8 decode steps against a prefill of 8 more tokens. LM training
+prefill + 4 decode steps against a prefill of 4 more tokens. LM training
 (``lm_train``, ROADMAP A13b): internlm2-1.8b at full width and depth
 (1.89 B float32 parameters, bf16 compute) takes 2 + 5 steps of
 ``Trainer.run`` at 2 x 4,096 tokens (remat "full": 48 flash launches and
 24 backward kernel launches a step, no plain backward), one profiled
-step and one with remat "none"; two of its layers train one step on the
+step and one with remat "none"; one of its layers trains one step on the
 card and on the CPU alike; both kernels are held to their plain versions
 and timed at the step's own attention inputs, the backward twice bitwise
 equal and its peak memory beside the plain version's; a reduced model's
@@ -76,7 +76,7 @@ single-rank run on the card. LM training on that mesh (``lm_mesh_train``,
 ROADMAP A13c-2): the same world trains through ``Trainer(mesh=...)``
 internlm2-1.8b at full width (2 layers) in its own zero3 config on (2, 2)
 and in fsdp_tp on (2, 2), and qwen3-moe (2 layers, 32 experts a rank) on
-(1, 4), 2 timed steps each after a check step whose loss, grad norm and
+(1, 4), 1 timed step each after a check step whose loss, grad norm and
 every gradient shard are held to the single rank's on the card (the
 MoE's dispatch counts bitwise); the flash kernel and the backward kernel
 run on every rank's heads and are held to their plain versions at rank
@@ -102,12 +102,20 @@ bulk-copy kernels cp.async.bulk (UBLKCP). The backward kernel is held to
 its plain version at every flash shape, causal and not. box_scan_seg, the
 probe's one-launch zone_candidates and l2dist are timed warm and with the
 L2 flushed before each launch, as the fused batch finds their inputs;
-zone_candidates beside the launch chain it replaced and an empty launch.
+zone_candidates beside the launch chain it replaced and an empty launch;
+zone_prune's [NZ, B] mask at the use_fused=False batch's largest call,
+two calls bitwise equal to the plain version's bytes. The per-index fused
+query (``fused_oracle``): ``query_index_fused`` on every request's fitted
+boxes of every subset bitwise ``query_index``, ``query_index_fused_multi``
+over the batch bitwise each request alone, an overflowing capacity held
+to the first-capacity rule, one zone_candidates and one box_scan_seg
+launch a call. Each phase's wall seconds print on a line of their own.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only flash,extraction_400   # those phases
     python3 chip_smoke.py --only box_scan    # the box scans at full size
-    python3 chip_smoke.py --only zone_prune  # the probe's front end
+    python3 chip_smoke.py --only zone_prune  # zone_prune.cu's entries
+    python3 chip_smoke.py --only fused_oracle  # query_index_fused(_multi)
     python3 chip_smoke.py --only l2dist      # l2dist's times, every way
     python3 chip_smoke.py --only fit         # the batched device fit
     python3 chip_smoke.py --only live        # the live catalog
@@ -124,7 +132,9 @@ zone_candidates beside the launch chain it replaced and an empty launch.
     python3 chip_smoke.py --only dryrun      # the dry-run tools
     python3 chip_smoke.py --only lm_train,lm_mesh_train,dryrun  # held
 
-Phases print one JSON line each. The line before the last two is
+Phases print one JSON line each and one of their wall seconds; all the
+walls come together on one line before the last three. The line before
+the last two is
 ``{"kernels": [...]}`` (per kernel: launches on its path, exactness,
 kernel / plain times by CUDA events, device-only times by torch.profiler,
 bound time, the library call's time where one exists); then the card's
@@ -146,6 +156,7 @@ from pathlib import Path
 
 import numpy as np
 
+START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -454,14 +465,16 @@ def compare(kernel_fn, plain_fn, name: str) -> dict:
 
 
 def zone_prune_bound(nz: int, nb: int, d: int):
-    byts = nz * d * 8 + nb * d * 8 + nz
+    """The [NZ, B] mask's: zones and boxes read once, the NZ x B mask
+    bytes written, 2 compares a dim a (zone, box) pair."""
+    byts = nz * d * 8 + nb * d * 8 + nz * nb
     ops = nz * nb * d * 2
     return _bound(byts, ops)
 
 
 def zone_candidates_bound(nz: int, nb: int, d: int, capacity: int):
     """zone_prune_bound's reads and compares, with cand [capacity] and
-    n_hit written in place of the hit vector."""
+    n_hit written in place of the mask."""
     byts = nz * d * 8 + nb * d * 8 + 4 * (capacity + 1)
     return _bound(byts, nz * nb * d * 2)
 
@@ -692,25 +705,29 @@ def measure_candidates(zlo, zhi, lo, hi, capacity: int,
 
 
 def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int,
-                    profile: bool = True) -> dict:
+                    profile: bool = True, mask_in=None) -> dict:
     """Hold the probe's kernels against their plain versions on one
     probe's inputs (zone_candidates -> gathered box scan; the [NZ] and
     [NZ, B] zone_prune entries beside them) and time them: device ms warm
     (the same inputs back to back) and cold (the L2 flushed before each
-    launch, as on the path)."""
+    launch, as on the path). The mask is timed at ``mask_in`` (zlo, zhi,
+    lo, hi: the use_fused=False batch's largest call) where given."""
     from repro_torch.kernels import box_scan, ref, zone_prune
     nz, block, d = rows3.shape
     nb, nq = lo.shape[0], onehot.shape[1]
     res = {"zone_candidates": measure_candidates(zlo, zhi, lo, hi, capacity,
                                                  profile=profile)}
     cand, n_hit = zone_prune.zone_candidates(zlo, zhi, lo, hi, capacity)
-    res["zone_prune"] = compare(
-        lambda: zone_prune.zone_hits(zlo, zhi, lo, hi),
-        lambda: ref.zone_hits_ref(zlo, zhi, lo, hi), "zone_prune hits")
-    mask_chk = compare(lambda: zone_prune.zone_prune(zlo, zhi, lo, hi),
-                       lambda: ref.zone_prune_ref(zlo, zhi, lo, hi),
-                       "zone_prune mask")
-    res["zone_prune"]["mask_exact"] = mask_chk["exact"]
+    hits_chk = compare(lambda: zone_prune.zone_hits(zlo, zhi, lo, hi),
+                       lambda: ref.zone_hits_ref(zlo, zhi, lo, hi),
+                       "zone_prune hits")
+    probe_mask = compare(lambda: zone_prune.zone_prune(zlo, zhi, lo, hi),
+                         lambda: ref.zone_prune_ref(zlo, zhi, lo, hi),
+                         "zone_prune mask at the probe")
+    res["zone_prune"] = measure_mask(*(mask_in or (zlo, zhi, lo, hi)),
+                                     profile=profile)
+    res["zone_prune"]["hits_exact"] = hits_chk["exact"]
+    res["zone_prune"]["probe_mask_exact"] = probe_mask["exact"]
     res["box_scan_seg"] = compare(
         lambda: box_scan.box_scan_seg_gather(rows3, cand, n_hit, lo, hi,
                                              onehot),
@@ -724,12 +741,8 @@ def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int,
     nh = int(n_hit)
     shapes = {"nz": nz, "d": d, "boxes": nb, "queries": nq,
               "capacity": capacity, "block": block, "n_hit": nh}
-    res["zone_prune"]["shape"] = {k: shapes[k] for k in ("nz", "d", "boxes")}
     res["box_scan_seg"]["shape"] = shapes
-    fns = {"zone_prune": (
-        lambda: zone_prune.zone_hits(zlo, zhi, lo, hi),
-        lambda: ref.zone_hits_ref(zlo, zhi, lo, hi)),
-        "box_scan_seg": (
+    fns = {"box_scan_seg": (
         lambda: box_scan.box_scan_seg_gather(rows3, cand, n_hit, lo, hi,
                                              onehot),
         lambda: ref.box_scan_seg_gather_ref(rows3, cand, n_hit, lo, hi,
@@ -746,12 +759,65 @@ def measure_kernels(rows3, zlo, zhi, lo, hi, onehot, capacity: int,
         if profile:
             (res[name]["plain_device_ms"],
              res[name]["plain_device_ms_by"]) = device_ms(plain)
-    bz = zone_prune_bound(nz, nb, d)
     tested = rows3[cand[:min(nh, capacity)].long()].reshape(-1, d)
     bb = box_scan_bound(tested.shape[0], capacity * block, nb, d, nq,
                         scan_compares(tested, lo, hi)[0])
-    res["zone_prune"]["bound_ms"], res["zone_prune"]["bound_by"] = bz
     res["box_scan_seg"]["bound_ms"], res["box_scan_seg"]["bound_by"] = bb
+    return res
+
+
+def host_us(fn, calls: int = 100, repeats: int = 5) -> float:
+    """Host microseconds a call of ``fn`` takes to return: its launch path
+    alone (checks, allocation, the launch), ``calls`` calls back to back
+    with no sync between them, the median of ``repeats``."""
+    import torch
+    fn()
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def measure_mask(zlo, zhi, lo, hi, profile: bool = True) -> dict:
+    """zone_prune's [NZ, B] mask entry held to zone_prune_ref (the bytes
+    equal, and two calls equal) and timed: event ms, device ms warm
+    (torch.profiler where ``profile``, else a CUDA graph; the graph's
+    always) and cold (the L2 flushed before each launch), the plain
+    version's, the host microseconds a call (host_us), the bound (the
+    mask's NZ x B bytes written) and the floor of one launch."""
+    import torch
+    from repro_torch.kernels import ref, zone_prune
+    nz, d = zlo.shape
+    nb = lo.shape[0]
+    kern = lambda: zone_prune.zone_prune(zlo, zhi, lo, hi)
+    plain = lambda: ref.zone_prune_ref(zlo, zhi, lo, hi)
+    first, second, want = kern(), kern(), plain()
+    torch.cuda.synchronize()
+    as_bytes = lambda t: t.view(torch.uint8)
+    if not torch.equal(as_bytes(first), as_bytes(want)):
+        raise AssertionError(f"zone_prune mask NZ={nz} B={nb} d={d}: "
+                             f"kernel != plain version")
+    if not torch.equal(as_bytes(second), as_bytes(first)):
+        raise AssertionError(f"zone_prune mask NZ={nz} B={nb}: two calls "
+                             f"differ")
+    res = {"exact": True, "twice_equal": True, "max_abs_err": 0.0,
+           "shape": {"nz": nz, "d": d, "boxes": nb,
+                     "overlaps": int(want.sum())},
+           "ms": time_ms(kern), "plain_ms": time_ms(plain),
+           "host_us": host_us(kern), "device_ms_graph": graph_ms(kern)}
+    res["device_ms"], res["device_ms_by"] = dev_ms(kern, profile)
+    res["device_ms_cold"], res["device_ms_cold_by"] = cold_device_ms(
+        kern, "zone_prune_kernel", use_profiler=profile)
+    res["plain_device_ms"] = res["plain_device_ms_by"] = None
+    if profile:
+        res["plain_device_ms"], res["plain_device_ms_by"] = device_ms(plain)
+    res["bound_ms"], res["bound_by"] = zone_prune_bound(nz, nb, d)
+    res["floor"] = empty_launch_ms(profile=False)
     return res
 
 
@@ -1603,12 +1669,14 @@ def largest_probe(inputs) -> tuple:
 
 
 def largest_query_index(eng, reqs) -> tuple:
-    """box_scan's inputs (rows, lo, hi) at the use_fused=False batch's
-    largest query_index call by rows x boxes: each request's boxes of one
-    subset merged, the hit blocks' rows gathered, as query_index does."""
+    """The use_fused=False batch's largest query_index calls: box_scan's
+    inputs (rows, lo, hi) at the largest by rows x boxes, and the zone
+    mask's (zlo, zhi, lo, hi) at the largest by boxes; each request's
+    boxes of one subset merged, the hit blocks' rows gathered, as
+    query_index does."""
     from repro_torch.core.index import to_device_f32
     from repro_torch.kernels import ops
-    best, size = None, -1
+    best, size, mask_in = None, -1, None
     for fits in request_fits(eng, reqs, use_jax=False):
         by_subset = {}
         for bs in fits:
@@ -1626,7 +1694,9 @@ def largest_query_index(eng, reqs) -> tuple:
                 size = hit.numel() * ix.block * merged.n_boxes
                 best = (rows3.index_select(0, hit).reshape(
                     -1, rows3.shape[-1]), lo, hi)
-    return best
+            if mask_in is None or merged.n_boxes > mask_in[2].shape[0]:
+                mask_in = (zlo, zhi, lo, hi)
+    return best, mask_in
 
 
 def fit_measure(eng, reqs, iters: int = 10) -> dict:
@@ -1986,6 +2056,136 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
 
 
 # ----------------------------------------------------------------------
+# the per-index fused query (query_index_fused / _multi)
+# ----------------------------------------------------------------------
+
+FUSED_CALLS = {"zone_candidates": 1, "box_scan_seg": 1, "zone_prune": 0,
+               "box_scan": 0, "l2dist": 0, "flash_attention": 0}
+
+
+def subset_boxes(eng, reqs) -> dict:
+    """{subset: {request: its fitted boxes on that subset, merged}}, as
+    the engine's trainer fits them for query()."""
+    out = {}
+    for q, fits in enumerate(request_fits(eng, reqs)):
+        for bs in fits:
+            per_q = out.setdefault(bs.subset_id, {})
+            per_q[q] = per_q[q].concatenate(bs) if q in per_q else bs
+    return out
+
+
+def first_capacity_counts(ix, bs, capacity: int) -> tuple:
+    """tests/test_fused_query.py's reckoning of an overflowed fused query,
+    on the host: the box counts of the first ``capacity`` surviving
+    blocks in zone order, in original row order, and the survivors."""
+    from repro_torch.core.boxes import boxes_contain
+    lo, hi = (a.cpu().numpy() if hasattr(a, "cpu") else np.asarray(a)
+              for a in (bs.lo, bs.hi))
+    hit_ids = np.nonzero(((ix.zhi[:, None, :] > lo[None])
+                          & (ix.zlo[:, None, :] <= hi[None])).all(-1)
+                         .any(1))[0]
+    rows3 = ix.rows.reshape(ix.n_blocks, ix.block, -1)
+    counts = np.zeros((ix.n_blocks, ix.block), np.int32)
+    for b in hit_ids[:capacity]:
+        counts[b] = boxes_contain(rows3[b], lo, hi)
+    counts = counts.reshape(-1)
+    want = np.zeros(ix.n_rows, np.int32)
+    valid = ix.perm >= 0
+    want[ix.perm[valid]] = counts[valid]
+    return want, len(hit_ids)
+
+
+def phase_fused_oracle(eng, reqs) -> dict:
+    """query_index_fused / query_index_fused_multi (DESIGN.md §6) on
+    full_size's engine, for the batch's fitted boxes on every subset: each
+    request's boxes alone bitwise query_index (counts, blocks touched);
+    the 8 requests' boxes in one multi call bitwise each alone (zeros for
+    a request with no box there); at half the survivors of the call that
+    has the most, "overflowed" and the first-capacity survivors'
+    counts. Each call's launches must be FUSED_CALLS; its host syncs
+    by call site and its wall are recorded."""
+    import torch
+    from repro_torch.core.index import (query_index, query_index_fused,
+                                        query_index_fused_multi)
+    by_subset = subset_boxes(eng, reqs)
+    nq = len(reqs)
+    walls = {"single": [], "multi": []}
+    launch_sets, alone, busiest = [], {}, (None, None, -1)
+
+    def call(kind, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts = counted(fn)
+        walls[kind].append(time.perf_counter() - t0)
+        launch_sets.append(counts)
+        return out
+    for sid, per_q in sorted(by_subset.items()):
+        ix = eng.indexes[sid]
+        for q, bs in sorted(per_q.items()):
+            want, st_h = query_index(ix, bs)
+            got, st = call("single", lambda: query_index_fused(ix, bs))
+            if not np.array_equal(got, want) or st["overflowed"] \
+                    or st["blocks_touched"] != st_h["blocks_touched"]:
+                raise AssertionError(f"query_index_fused != query_index "
+                                     f"(subset {sid}, request {q})")
+            alone[sid, q] = got
+            if st["survivors"] > busiest[2]:
+                busiest = (ix, bs, st["survivors"])
+        qs = sorted(per_q)
+        merged = per_q[qs[0]]
+        for q in qs[1:]:
+            merged = merged.concatenate(per_q[q])
+        owner = np.concatenate([np.full(per_q[q].n_boxes, q, np.int32)
+                                for q in qs])
+        got, st = call("multi", lambda: query_index_fused_multi(
+            ix, merged, owner, nq))
+        for q in range(nq):
+            want = alone[sid, q] if q in per_q else 0
+            if not np.array_equal(got[q], np.broadcast_to(want,
+                                                          got[q].shape)):
+                raise AssertionError(f"query_index_fused_multi request {q} "
+                                     f"!= alone (subset {sid})")
+    bad = [c for c in launch_sets if c != FUSED_CALLS]
+    if bad:
+        raise AssertionError(f"fused calls launched {bad[0]}, not "
+                             f"{FUSED_CALLS}")
+    ix, bs, survivors = busiest
+    if survivors < 2:
+        raise AssertionError("no call with two survivors to overflow")
+    cap = survivors // 2
+    got, st = query_index_fused(ix, bs, capacity=cap)
+    want, n_hit = first_capacity_counts(ix, bs, cap)
+    if not (st["overflowed"] and st["survivors"] == n_hit == survivors
+            and st["blocks_touched"] == cap and np.array_equal(got, want)):
+        raise AssertionError(f"query_index_fused at capacity {cap} of "
+                             f"{survivors}: not the first-capacity rule "
+                             f"({st})")
+    (_, _), syncs = host_syncs(lambda: query_index_fused(ix, bs))
+    med = lambda v: float(np.median(v))
+    out = {"phase": "fused_oracle", "subsets": len(by_subset),
+           "single_calls": len(walls["single"]),
+           "multi_calls": len(walls["multi"]),
+           "launches_per_call": FUSED_CALLS,
+           "host_syncs_per_call": sum(syncs.values()),
+           "host_syncs_by_site": syncs,
+           "wall_s_median": {k: med(v) for k, v in walls.items()},
+           "wall_s_max": {k: max(v) for k, v in walls.items()},
+           "overflow": {"capacity": cap, "survivors": survivors,
+                        "subset": int(bs.subset_id), "first_capacity": True},
+           "bitwise_equal_query_index": True,
+           "multi_bitwise_equal_alone": True}
+    emit(out)
+    return out
+
+
+def phase_fused_oracle_only(device) -> None:
+    """``--only fused_oracle``: full_size's static engine, then the fused
+    oracle."""
+    eng, reqs, _, _ = full_engine(device, FULL_N, FULL_D, 100)
+    phase_fused_oracle(eng, reqs)
+
+
+# ----------------------------------------------------------------------
 # the live catalog (append / delete / compact)
 # ----------------------------------------------------------------------
 
@@ -2001,7 +2201,7 @@ LIVE_DELETE_SEED = 11
 # full_size's live catalog: 768 base blocks + 3 x 86 delta blocks
 LIVE_FULL_ZONES = 1026
 # warm batches each of the live and the static engine, in turns
-LIVE_WALL_ROUNDS = 11
+LIVE_WALL_ROUNDS = 5           # 11 before the 1,000 s cut
 # seconds between the batches issued while a background compaction runs
 LIVE_COMPACT_PACE_S = 0.1
 # the kernel entry points whose calling thread a background compaction
@@ -2531,7 +2731,7 @@ DURABLE_GRACE_S = 0.05
 DURABLE_CHILD_TIMEOUT_S = 300
 # the sync modes at MID_N rows: live_split's tail in this many appends,
 # each mode (and the memory-only catalog, first and last) timed in turn
-SYNC_APPENDS = 8
+SYNC_APPENDS = 4               # 8 before the 1,000 s cut
 SYNC_MODES = ("none", "batch", "always")
 
 
@@ -3144,8 +3344,8 @@ def phase_box_scan(device) -> None:
     scan_in = (eng._device_features(), *(torch.from_numpy(a).to(eng.device)
                                          for a in rforest_boxes(eng.x, pos,
                                                                 neg)))
-    qi_in = largest_query_index(eng, reqs)
-    res = measure_kernels(*probe)
+    qi_in, mask_in = largest_query_index(eng, reqs)
+    res = measure_kernels(*probe, mask_in=mask_in)
     res["box_scan"] = measure_scan(*scan_in)
     res["box_scan"]["query_index"] = measure_scan(*qi_in)
     res["box_scan"]["synthetic_64"] = measure_scan(
@@ -3153,16 +3353,35 @@ def phase_box_scan(device) -> None:
     emit({"phase": "box_scan_only", "build_s": build_s, "runs": [res]})
 
 
+# (NZ, B) of the [NZ, B] mask's rows: the main path's 1,024 zones of
+# d' = 6 at the use_fused=False batch's largest call (2 boxes: its
+# request's boxes on one subset, measured in the whole script's
+# kernels_main_path) and at more boxes, then the paper's 131,072 zones
+MASK_SHAPES = ((1024, 1), (1024, 2), (1024, 16), (1024, 64), (131072, 2),
+               (131072, 16))
+
+
+def mask_rows(device) -> list:
+    """zone_prune's mask entry on zone maps made directly at MASK_SHAPES
+    (measure_mask; device times by CUDA graphs)."""
+    return [measure_mask(*synthetic_zones(nz, nb, 30 + i, device),
+                         profile=False)
+            for i, (nz, nb) in enumerate(MASK_SHAPES)]
+
+
 def phase_zone_prune(device) -> None:
-    """zone_candidates alone: a probe at the main path's shapes (1,024
-    zones of d' = 6, 16 boxes, capacity 1,024; synthetic_zones) beside the
-    earlier launch chain and an empty launch, then zone_rows (the
-    most one CTA takes +- 1, 8,192 and 131,072 zones)."""
+    """zone_prune.cu's entries alone: zone_candidates at the main path's
+    shapes (1,024 zones of d' = 6, 16 boxes, capacity 1,024;
+    synthetic_zones) beside the earlier launch chain and an empty launch,
+    zone_rows (the most one CTA takes +- 1, 8,192 and 131,072 zones), and
+    the [NZ, B] mask at MASK_SHAPES. It uses only the kernels' wrappers,
+    so an older tree runs it too: parent and change in turns on one card
+    compare the two."""
     zlo, zhi, lo, hi = synthetic_zones(1024, 16, 3, device)
-    emit({"phase": "zone_prune_only",
+    emit({"phase": "zone_prune_only", "tree": str(ROOT),
           "probe": measure_candidates(zlo, zhi, lo, hi, 1024),
           "empty_launch": empty_launch_ms(),
-          "zones": zone_rows(device)})
+          "zones": zone_rows(device), "mask": mask_rows(device)})
 
 
 def knn_inputs(device):
@@ -3470,7 +3689,7 @@ def phase_search_vit(device, feats, labels, k: int = 100,
 # batch of 64, and at the paper's 400x400 /16 (626 tokens): one step held
 # against the CPU at batch 2, timed at batch 16
 DINO_BATCH = 64
-DINO_STEPS = 20
+DINO_STEPS = 10                # timed steps (20 before the 1,000 s cut)
 DINO400_CHECK_BATCH = 2
 DINO400_BATCH = 16
 DINO400_STEPS = 5
@@ -4039,9 +4258,9 @@ LM_SEQ = 4096
 LM_DECODE = 32
 LM_FEATURE_BATCH = 4
 LM_SEED = 0
-# card against CPU: the model's first two layers, the same weights; the
+# card against CPU: the model's first layer, the same weights; the
 # final hidden state within FLASH_TOL["bfloat16"] of its max |value|
-LM_CHECK_LAYERS = 2
+LM_CHECK_LAYERS = 1          # 2 before the 1,000 s cut
 LM_HIDDEN_TOL = 2e-2
 # every other architecture at full width, cut to one repeat of its scan
 # pattern (True) or whole (False): prefill(S) + LM_CONSIST_STEPS decode
@@ -4056,7 +4275,7 @@ LM_OTHERS = (("qwen3-moe-235b-a22b", True),
              ("nemotron-4-15b", True), ("llava-next-mistral-7b", True),
              ("internlm2-1.8b", False), ("mamba2-1.3b", False),
              ("musicgen-medium", False), ("recurrentgemma-2b", True))
-LM_CONSIST_STEPS = 8
+LM_CONSIST_STEPS = 4           # 8 before the 1,000 s cut
 LM_CONSIST_TOL = 5e-2
 LM_MOE_CAPACITY = 64.0
 
@@ -4388,7 +4607,7 @@ def phase_lm(device) -> dict:
     """The LM backbones' serving path on the card (ROADMAP A13a): llama3-8b
     whole at full width (lm_serve; the flash kernel held to its plain
     version at layer 0's own inputs and timed there, measure_flash), its
-    first two layers against the CPU (lm_gpu_vs_cpu), then every other
+    first layer against the CPU (lm_gpu_vs_cpu), then every other
     assigned architecture at full width (lm_consistency), each freed
     before the next. Returns the record."""
     import torch
@@ -4447,12 +4666,12 @@ TRAIN_NONE_ROWS = 1
 TRAIN_TOP_KERNELS = 12
 # torch.profiler range around the step's clip and AdamW update
 TRAIN_OPT_RANGE = "clip_and_update"
-# card against CPU: the model's first two layers (with the embedding, the
+# card against CPU: the model's first layer (with the embedding, the
 # final norm and the unembedding) on the same weights, batch 1 x 4,096,
 # both sides in bf16 summing in other orders: the loss within 5e-3
 # relative, grad_norm within 2e-2 relative, each parameter's gradient
 # within 5e-2 of its max |value|
-TRAIN_CHECK_LAYERS = 2
+TRAIN_CHECK_LAYERS = 1       # 2 before the 1,000 s cut
 TRAIN_LOSS_RTOL = 5e-3
 TRAIN_GNORM_RTOL = 2e-2
 TRAIN_GRAD_TOL = 5e-2
@@ -4736,12 +4955,12 @@ def phase_lm_train(device) -> dict:
 # single-rank run and every rank (init_params(..., mesh=) draws each
 # module whole and keeps its shard), served through make_prefill_step /
 # make_decode_step / lm_feature_fn on four meshes of one world of 4 ranks
-# on the one card: a 1 x 4,096-token prefill (the flash branch), 8
+# on the one card: a 1 x 4,096-token prefill (the flash branch), 2
 # teacher-forced decode steps over the sequence-sharded cache and
 # lm_feature_fn on 2 x 4,096 (the data x model mesh: batch 2 throughout)
 MESH_ARCH = "internlm2-1.8b"
 MESH_SEQ = 4096
-MESH_DECODE = 8
+MESH_DECODE = 2                # 8 before the 1,000 s cut
 MESH_FEATURE_BATCH = 2
 MESH_WARM_SEQ = 64             # a short prefill first: cuBLAS, gloo pairs
 MESH_WORLD = 4
@@ -5256,7 +5475,7 @@ def phase_lm_mesh(device) -> dict:
 MESH_TRAIN_ARCH = "internlm2-1.8b"
 MESH_TRAIN_LAYERS = 2
 MESH_TRAIN_SEQ = 4096
-MESH_TRAIN_STEPS = 2
+MESH_TRAIN_STEPS = 1           # timed steps (2 before the 1,000 s cut)
 # (name, arch, mesh shape, sharding mode, global batch of the timed run)
 MESH_TRAIN_RUNS = (("zero3", MESH_TRAIN_ARCH, (2, 2), "zero3", 4),
                    ("fsdp_tp", MESH_TRAIN_ARCH, (2, 2), "fsdp_tp", 2),
@@ -5619,12 +5838,12 @@ SERVE_CLIENTS = 8
 SERVE_REPEATS = 16           # of them re-sent: cache hits
 SERVE_LOAD = ((1, 32), (8, 16), (32, 8))   # (clients, requests a client)
 SERVE_OPEN_FRACS = (0.5, 1.0, 1.5)          # of the closed-loop peak
-SERVE_OPEN_S = 2.0
+SERVE_OPEN_S = 1.0           # each open loop (2.0 before the 1,000 s cut)
 SERVE_QUEUE_DEPTH = 64
 SERVE_DEADLINE_S = 1.0
 SERVE_OBS_REPS = 2
 SERVE_WINDOW_SWEEP = (0.005, 0.010)
-SERVE_OBS_OPEN_S = 4.0
+SERVE_OBS_OPEN_S = 2.0       # 4.0 before the 1,000 s cut
 SERVE_DIR = ROOT / "build" / "serve_durable"
 # wire keys that carry wall times or minted trace ids
 WIRE_VOLATILE = ("e2e_ms", "latency_ms", "train_time_s", "query_time_s",
@@ -7182,7 +7401,18 @@ ONLY = {"flash": lambda dev: emit({"phase": "flash_cases",
         "lm": phase_lm,
         "lm_train": phase_lm_train,
         "lm_mesh": phase_lm_mesh,
-        "lm_mesh_train": phase_lm_mesh_train}
+        "lm_mesh_train": phase_lm_mesh_train,
+        "fused_oracle": phase_fused_oracle_only}
+
+
+def walled(walls: dict, name: str, fn, *args):
+    """fn(*args), its wall seconds kept in ``walls`` under ``name`` and
+    printed on a line of their own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    walls[name] = time.perf_counter() - t0
+    emit({"phase_wall_s": name, "seconds": walls[name]})
+    return out
 
 
 def main(argv) -> int:
@@ -7190,10 +7420,11 @@ def main(argv) -> int:
     ``--only`` and a comma-separated subset of flash, extraction_400,
     box_scan, zone_prune, l2dist, fit, live, durable, main_wall,
     quantized, sharded, serve, dino, lm, lm_train, lm_mesh,
-    lm_mesh_train and dryrun, the kernels are built and only
+    lm_mesh_train, fused_oracle and dryrun, the kernels are built and only
     those phases run: the FLASH_CASES rows, the 400x400 extraction, the
-    box scans at the main path's inputs, zone_candidates on synthetic zone
-    maps, l2dist at the knn path's inputs, the batched device fit at full
+    box scans at the main path's inputs, zone_candidates and the [NZ, B]
+    mask on synthetic zone maps, l2dist at the knn path's inputs, the
+    per-index fused query on full_size's engine, the batched device fit at full
     size, the live catalog at full size (and its GPU-vs-CPU schedule), the
     durable live catalog at full size (about 3.5 GB on disk under build/
     at its peak), the main path's warm wall, the quantized mirror and the
@@ -7238,14 +7469,16 @@ def main(argv) -> int:
     box_sass = bulk_sass(libs)
     emit(box_sass)
     if only is not None:
-        recs = {}
+        recs, walls = {}, {}
         for name in only:
             dev = torch.device("cuda", 0)
             # with lm_mesh_train / lm_train before it in the same --only,
             # the dry run's predictions are held to their measured records
-            recs[name] = (phase_dryrun(dev, recs.get("lm_mesh_train"),
-                                       recs.get("lm_train"))
-                          if name == "dryrun" else ONLY[name](dev))
+            recs[name] = (walled(walls, name, phase_dryrun, dev,
+                                 recs.get("lm_mesh_train"),
+                                 recs.get("lm_train"))
+                          if name == "dryrun"
+                          else walled(walls, name, ONLY[name], dev))
         print(card, flush=True)
         return 0
     if fwd_sass["no_wgmma"] or fwd_sass["no_setmaxnreg"] \
@@ -7263,24 +7496,33 @@ def main(argv) -> int:
                              f"{bwd_sass['no_wgmma']}, spills (or no "
                              f"ptxas record) in {bwd_sass['spills']}")
     dev = torch.device("cuda", 0)
-    phase_kernels(dev)
-    phase_gpu_vs_cpu(dev)
-    launches, probe, ctx, main_fit = phase_full(dev)
-    phase_fit(dev, ctx[0], ctx[1], main_fit)
-    scan_launches, scan_in, knn_in, qi_in = phase_full_scan_knn(*ctx)
-    live_launches, live_probe, memory = phase_live(dev, ctx[0], ctx[1])
-    durable_launches = phase_durable(dev, ctx[0], ctx[1], memory)
-    feats, labels, flash_launches, flash_in, imgs = phase_extraction(dev)
-    phase_search_vit(dev, feats, labels)
-    dino = phase_dino(dev, imgs, labels)
+    walls = {}
+    run = lambda name, fn, *args: walled(walls, name, fn, *args)
+    run("kernels", phase_kernels, dev)
+    run("gpu_vs_cpu", phase_gpu_vs_cpu, dev)
+    launches, probe, ctx, main_fit = run("full_size", phase_full, dev)
+    run("fit", phase_fit, dev, ctx[0], ctx[1], main_fit)
+    scan_launches, scan_in, knn_in, (qi_in, mask_in) = run(
+        "full_size_scan_knn", phase_full_scan_knn, *ctx)
+    run("fused_oracle", phase_fused_oracle, ctx[0], ctx[1])
+    live_launches, live_probe, memory = run("live", phase_live, dev, ctx[0],
+                                            ctx[1])
+    durable_launches = run("durable", phase_durable, dev, ctx[0], ctx[1],
+                           memory)
+    feats, labels, flash_launches, flash_in, imgs = run(
+        "extraction", phase_extraction, dev)
+    run("search_vit", phase_search_vit, dev, feats, labels)
+    dino = run("dino", phase_dino, dev, imgs, labels)
     del imgs
-    ext400 = phase_extraction_400(dev)
-    lm_rec = phase_lm(dev)
-    train_rec = phase_lm_train(dev)
-    mesh_rec = phase_lm_mesh(dev)
-    mesh_train_rec = phase_lm_mesh_train(dev)
-    dry = phase_dryrun(dev, mesh_train_rec, train_rec, ctx[0].x)["search"]
-    res = measure_kernels(*probe)
+    ext400 = run("extraction_400", phase_extraction_400, dev)
+    lm_rec = run("lm", phase_lm, dev)
+    train_rec = run("lm_train", phase_lm_train, dev)
+    mesh_rec = run("lm_mesh", phase_lm_mesh, dev)
+    mesh_train_rec = run("lm_mesh_train", phase_lm_mesh_train, dev)
+    dry = run("dryrun", phase_dryrun, dev, mesh_train_rec, train_rec,
+              ctx[0].x)["search"]
+    t0 = time.perf_counter()
+    res = measure_kernels(*probe, mask_in=mask_in)
     res["box_scan"] = measure_scan(*scan_in)
     # the narrow route, at the use_fused=False batch's largest call
     res["box_scan"]["query_index"] = {
@@ -7290,10 +7532,12 @@ def main(argv) -> int:
     res["flash_attention"] = measure_flash(*flash_in, causal=False,
                                            profile=True)
     emit({"phase": "kernels_main_path", "card": card, "runs": [res]})
-    quant_launches = phase_quantized(dev, ctx[0], ctx[1])
-    shard_launches = phase_sharded(dev, ctx[0], ctx[1])
+    walls["kernels_main_path"] = time.perf_counter() - t0
+    quant_launches = run("quantized", phase_quantized, dev, ctx[0], ctx[1])
+    shard_launches = run("sharded", phase_sharded, dev, ctx[0], ctx[1])
     # last: the serving layer's Observability turns profiling on
-    serve = phase_serve(dev, ctx[0])["full"]["launches_per_window"]
+    serve = run("serve", phase_serve, dev,
+                ctx[0])["full"]["launches_per_window"]
     # each kernel's launches on its own path: the fused batch of 8 for
     # zone_candidates / box_scan_seg, the use_fused=False batch of 8 for
     # zone_prune's mask, the dtree + rforest + knn query set for box_scan /
@@ -7412,6 +7656,13 @@ def main(argv) -> int:
                                "device_ms_graph", "device_ms_cold_graph",
                                "earlier", "device_work", "ctas")})
     by_name["zone_candidates"]["floor"] = empty_launch_ms()
+    # the mask at the use_fused=False batch's largest call, beside the
+    # floor of one launch and the fused probe's zone_candidates
+    mask = res["zone_prune"]
+    by_name["zone_prune"].update(
+        {k: mask[k] for k in ("twice_equal", "hits_exact", "host_us",
+                              "device_ms_graph", "floor")})
+    by_name["zone_prune"]["zone_candidates_device_ms"] = cands["device_ms"]
     # the live batch's largest probe: NZ = the virtual block count
     for name in ("zone_candidates", "box_scan_seg"):
         by_name[name]["live"] = {**live_probe[name],
@@ -7488,6 +7739,8 @@ def main(argv) -> int:
         "dino_step": dino["attention_backward"],
         "dino_step_400": dino["attention_backward_400"],
         "lm_mesh_train": mesh_train_rec["kernel_bwd_at_train_inputs"]})
+    emit({"phase_walls_s": walls, "phases_s": sum(walls.values()),
+          "since_start_s": time.perf_counter() - START})
     emit({"kernels": rows, "library_note": LIBRARY_NOTE})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

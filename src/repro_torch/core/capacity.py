@@ -5,21 +5,22 @@ package, and the same policy keeps capacities and retries equal.
 In the reference every capacity that reaches a kernel is a static jit
 argument, so capacities come from a small set of buckets. The port keeps
 the same buckets: they decide gather sizes, overflow retries and tile
-memory, which the parity tests compare. Only the helpers the static
-sparse and sharded paths use are copied (``fit_bucket`` comes with the
-path that needs it).
+memory, which the parity tests compare. Every helper of the reference's
+is copied.
 
 - ``pow2ceil(v)`` — smallest power of two >= v (4 -> 4). Used for gather
   capacities and row-tile sizing, where v itself is a valid capacity.
 - ``pow2above(v)`` — smallest power of two strictly > v (4 -> 8). Used for
   the sharded ranking's score bound, which must exceed every score.
+- ``fit_bucket(v, floor=)`` — pow2ceil with a floor, the reference's
+  fit-phase batch bucket.
 """
 from __future__ import annotations
 
 import threading
 
 __all__ = ["pow2ceil", "pow2above", "quantum_bucket", "hybrid_bucket",
-           "HintTable"]
+           "fit_bucket", "HintTable"]
 
 
 def pow2ceil(v: int) -> int:
@@ -52,6 +53,12 @@ def hybrid_bucket(v: int, *, quantum: int) -> int:
     v = max(int(v), 1)
     q = int(quantum)
     return pow2ceil(v) if v <= q else quantum_bucket(v, q)
+
+
+def fit_bucket(v: int, *, floor: int) -> int:
+    """Bucket a fit-phase batch size: pow2ceil with a lower floor so tiny
+    batches share one bucket."""
+    return max(pow2ceil(v), int(floor))
 
 
 class HintTable:

@@ -8,8 +8,10 @@ stages, both CUDA kernels on the card:
   prune : zone_prune(zones, boxes) -> surviving-block mask   (tiny)
   refine: box_scan_seg / box_scan(rows of surviving blocks, boxes) -> counts
 
-``sparse_probe`` is the fused device path; ``query_index`` the host
-oracle (use_fused=False), and ``full_scan`` the scan of the tree models.
+``sparse_probe`` is the engine's fused device path and
+``query_index_fused`` / ``query_index_fused_multi`` the per-index fused
+query (DESIGN.md §6); ``query_index`` the host oracle (use_fused=False),
+and ``full_scan`` the scan of the tree models.
 
 The build is the reference's numpy code, so ``perm``, ``rows``, ``zlo``
 and ``zhi`` are byte-equal to it; the device mirrors are torch tensors
@@ -212,6 +214,11 @@ class ZoneMapIndex:
             out["quantized"] = int(sum(a.nbytes for a in self._dev_quant))
         return out
 
+    def stats(self) -> dict:
+        return {"blocks": self.n_blocks, "block_rows": self.block,
+                "rows": self.n_rows, "dims": self.dims.tolist(),
+                "bytes": int(self.rows.nbytes)}
+
 
 def build_index(x: np.ndarray, dims: np.ndarray, block: int = 1024,
                 subset_id: int = -1, device=None) -> ZoneMapIndex:
@@ -368,6 +375,93 @@ def fused_stats(index: ZoneMapIndex, n_hit: int, capacity: int,
         "overflowed": n_hit > capacity,
         "n_boxes": n_boxes,
     }
+
+
+def _scatter_fused(index: ZoneMapIndex, counts: np.ndarray,
+                   cand: np.ndarray, n_hit: int, capacity: int,
+                   n_queries: int) -> np.ndarray:
+    """Host-side de-mux of the fused result: counts [C, block, Q] for the
+    gathered blocks -> [n_queries, n_rows] in ORIGINAL row order. Only the
+    capacity-sized slice crosses device->host; all untouched blocks are
+    zero by construction."""
+    out = np.zeros((n_queries, index.n_rows), np.int32)
+    k = min(n_hit, capacity)
+    if k:
+        perm_blocks = index.perm.reshape(index.n_blocks, index.block)[cand[:k]]
+        flat_perm = perm_blocks.reshape(-1)                  # [k * block]
+        flat_counts = counts[:k].reshape(k * index.block, -1)
+        real = flat_perm >= 0
+        out[:, flat_perm[real]] = flat_counts[real].T
+    return out
+
+
+def _resolve_capacity(index: ZoneMapIndex, capacity: Optional[int]) -> int:
+    if capacity is None:
+        capacity = index.n_blocks            # always-exact default
+    return int(min(max(capacity, 1), index.n_blocks))
+
+
+def _fused_call(index: ZoneMapIndex, boxes: BoxSet, owner: np.ndarray,
+                n_queries: int, capacity: int) -> Tuple[np.ndarray, dict]:
+    """kops.fused_query on the index's device mirror (one zone_candidates
+    and one box_scan_seg launch on the card), n_hit read back, then the
+    capacity-sized counts and block ids, scattered on the host."""
+    rows3, zlo, zhi = index.device_arrays()
+    lo, hi, owner_p = pad_boxes(boxes.lo, boxes.hi, owner)
+    # pad boxes are impossible (contain nothing), so their owner-0 rows in
+    # the one-hot contribute zero counts
+    onehot = (owner_p[:, None] == np.arange(n_queries)[None]).astype(
+        np.float32)
+    # host arrays go up pinned and non-blocking (no host sync), device
+    # boxes stay where they are
+    lo, hi, onehot = (
+        to_device_f32(a, index.device) if isinstance(a, torch.Tensor)
+        else to_device_async(np.asarray(a, np.float32), index.device)
+        for a in (lo, hi, onehot))
+    counts, cand, n_hit = kops.fused_query(rows3, zlo, zhi, lo, hi, onehot,
+                                           capacity=capacity)
+    # three host syncs, as the reference's three reads
+    n_hit = int(n_hit)
+    counts = counts.cpu().numpy()
+    cand = cand.cpu().numpy()
+    out = _scatter_fused(index, counts, cand, n_hit, capacity, n_queries)
+    return out, fused_stats(index, n_hit, capacity, boxes.n_boxes)
+
+
+def query_index_fused(index: ZoneMapIndex, boxes: BoxSet, *,
+                      capacity: Optional[int] = None
+                      ) -> Tuple[np.ndarray, dict]:
+    """Device-resident counterpart of query_index: zone-prune -> bounded
+    block gather -> refine as one fused device call (kops.fused_query)
+    over the cached device mirror of the index, on the index's device.
+    Identical counts to query_index whenever ``capacity`` covers the
+    survivors (default: n_blocks, i.e. always); with a smaller capacity,
+    survivors past the bound are dropped in zone order and
+    stats["overflowed"] is set."""
+    assert np.array_equal(index.dims, boxes.dims), "box subset != index subset"
+    capacity = _resolve_capacity(index, capacity)
+    owner = np.zeros(boxes.n_boxes, np.int32)
+    out, stats = _fused_call(index, boxes, owner, 1, capacity)
+    return out[0], stats
+
+
+def query_index_fused_multi(index: ZoneMapIndex, boxes: BoxSet,
+                            owner: np.ndarray, n_queries: int, *,
+                            capacity: Optional[int] = None
+                            ) -> Tuple[np.ndarray, dict]:
+    """Answer MANY concurrent queries' boxes on one index with ONE fused
+    device call. ``owner[b]`` maps box b to its query; the box->query
+    one-hot rides into the refine kernel, which de-muxes membership into
+    per-query counts on the device (box_scan_seg). Returns
+    (counts [n_queries, n_rows] int32 in ORIGINAL row order, stats).
+
+    Each query's counts are bitwise-identical to running query_index on
+    its own boxes, provided capacity covers the UNION's survivors."""
+    assert np.array_equal(index.dims, boxes.dims), "box subset != index subset"
+    assert owner.shape == (boxes.n_boxes,)
+    capacity = _resolve_capacity(index, capacity)
+    return _fused_call(index, boxes, np.asarray(owner, np.int32), n_queries,
+                       capacity)
 
 
 # ----------------------------------------------------------------------

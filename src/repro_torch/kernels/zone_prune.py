@@ -30,59 +30,64 @@ candidates_launches = 0
 _scratch: Dict[int, torch.Tensor] = {}
 _retired: List[torch.Tensor] = []
 
-def _check(name: str, t: torch.Tensor, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"zone_prune: {name} must be a CUDA tensor, "
-                         f"got device {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"zone_prune: {name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"zone_prune: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"zone_prune: {name} must be contiguous")
-
-
-def _launch(zlo, zhi, blo, bhi, with_mask: bool):
-    global launches
+def _check_inputs(zlo, zhi, blo, bhi):
+    """(NZ, B, D) of zones [NZ, D] and boxes [B, D]: contiguous f32 CUDA
+    tensors on one device, else a ValueError / TypeError."""
     if zlo.dim() != 2 or blo.dim() != 2:
         raise ValueError("zone_prune: zones and boxes must be 2-d [*, D]")
     nz, d = zlo.shape
     nb = blo.shape[0]
-    _check("zlo", zlo, (nz, d))
-    _check("zhi", zhi, (nz, d))
-    _check("blo", blo, (nb, d))
-    _check("bhi", bhi, (nb, d))
-    if len({t.device for t in (zlo, zhi, blo, bhi)}) != 1:
-        raise ValueError("zone_prune: all inputs must be on one device")
-    hit = torch.empty(nz, dtype=torch.bool, device=zlo.device)
-    mask = (torch.empty((nz, nb), dtype=torch.bool, device=zlo.device)
-            if with_mask else None)
+    dev = zlo.device
+    for name, t, shape in (("zlo", zlo, (nz, d)), ("zhi", zhi, (nz, d)),
+                           ("blo", blo, (nb, d)), ("bhi", bhi, (nb, d))):
+        if t.device.type != "cuda":
+            raise ValueError(f"zone_prune: {name} must be a CUDA tensor, "
+                             f"got device {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"zone_prune: {name} must be float32, got "
+                            f"{t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"zone_prune: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"zone_prune: {name} must be contiguous")
+        if t.device != dev:
+            raise ValueError("zone_prune: all inputs must be on one device")
+    return nz, nb, d
+
+
+def _launch(zlo, zhi, blo, bhi, with_mask: bool) -> torch.Tensor:
+    """The [NZ, B] mask (``with_mask``) or the [NZ] hit vector."""
+    global launches
+    nz, nb, d = _check_inputs(zlo, zhi, blo, bhi)
+    dev = zlo.device
+    out = torch.empty((nz, nb) if with_mask else (nz,), dtype=torch.bool,
+                      device=dev)
     fn = launch_fn("zone_prune")
-    with torch.cuda.device(zlo.device):
-        stream = torch.cuda.current_stream(zlo.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(zlo.data_ptr(), zhi.data_ptr(), blo.data_ptr(),
                  bhi.data_ptr(), nz, nb, d,
-                 mask.data_ptr() if mask is not None else None,
-                 hit.data_ptr(), stream)
+                 out.data_ptr() if with_mask else None,
+                 None if with_mask else out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"zone_prune kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
-    return mask, hit
+    return out
 
 
 def zone_prune(zlo: torch.Tensor, zhi: torch.Tensor, blo: torch.Tensor,
                bhi: torch.Tensor) -> torch.Tensor:
     """[NZ, D] zones x [B, D] boxes -> [NZ, B] bool overlap (CUDA)."""
-    return _launch(zlo, zhi, blo, bhi, True)[0]
+    return _launch(zlo, zhi, blo, bhi, True)
 
 
 def zone_hits(zlo: torch.Tensor, zhi: torch.Tensor, blo: torch.Tensor,
               bhi: torch.Tensor) -> torch.Tensor:
     """[NZ] bool: does zone z overlap any box (CUDA; stops at a zone's
     first overlapping box)."""
-    return _launch(zlo, zhi, blo, bhi, False)[1]
+    return _launch(zlo, zhi, blo, bhi, False)
 
 
 def _scratch_for(device: torch.device, nz: int) -> torch.Tensor:
@@ -108,16 +113,7 @@ def zone_candidates(zlo: torch.Tensor, zhi: torch.Tensor, blo: torch.Tensor,
     two streams of one device must not run at once; the first call at a
     larger NZ allocates that buffer and must not be captured in a graph."""
     global launches, candidates_launches
-    if zlo.dim() != 2 or blo.dim() != 2:
-        raise ValueError("zone_prune: zones and boxes must be 2-d [*, D]")
-    nz, d = zlo.shape
-    nb = blo.shape[0]
-    _check("zlo", zlo, (nz, d))
-    _check("zhi", zhi, (nz, d))
-    _check("blo", blo, (nb, d))
-    _check("bhi", bhi, (nb, d))
-    if len({t.device for t in (zlo, zhi, blo, bhi)}) != 1:
-        raise ValueError("zone_prune: all inputs must be on one device")
+    nz, nb, d = _check_inputs(zlo, zhi, blo, bhi)
     capacity = int(capacity)
     if capacity < 0:
         raise ValueError("zone_prune: capacity must be >= 0")

@@ -77,6 +77,19 @@ ZONE_SHAPES = [(512, 128, 8), (1024, 128, 32), (512, 256, 2),
                (37, 6, 3), (513, 5, 9), (1, 6, 1), (1024, 6, 64)]
 SEG_SHAPES = [(300, 6, 7, 3), (1024, 4, 16, 1), (513, 17, 5, 9),
               (2048, 6, 40, 8)]
+# the [NZ, B] mask kernel's routes (csrc/zone_prune.cu, on 132 SMs: one
+# round of 32 pairs a warp up to 270,336 pairs, tiles of 128 pairs; four
+# rounds beyond, tiles of 512): B = 1, B not a multiple of 4, B past the
+# boxes a CTA stages at once (the tile's window, wrapping at B); d 1-8
+# staged (d' = 6 its own route), 17 read from device memory; NZ not a
+# multiple of the tile; the host oracle's 1,024 zones and the paper's
+# 131,072
+ZONE_MASK_CUDA_SHAPES = (
+    [(1025, 6, 1), (1024, 6, 2), (1023, 6, 7), (1024, 6, 16),
+     (200, 6, 300), (999, 6, 513), (300, 6, 1200), (131072, 6, 13),
+     (300000, 6, 1), (70000, 8, 5), (20000, 17, 16)]
+    + [(777, d, 5) for d in (1, 2, 3, 4, 5, 7, 8)]
+    + [(513, 17, 9), (257, 17, 600)])
 
 
 def _zone_case(nz, d, b):
@@ -88,6 +101,22 @@ def _zone_case(nz, d, b):
     if nz > 2:
         zlo[-1], zhi[-1] = np.inf, -np.inf
     blo[0, 0], bhi[0, 0] = -np.inf, np.inf
+    return zlo, zhi, blo, bhi
+
+
+def _zone_mask_case(nz, d, b):
+    """_zone_case with the padding and NaN the mask must keep: a NaN zone
+    bound (overlaps nothing), a zone open on every dim (-inf, +inf:
+    overlaps every box but the impossible one), an impossible (+inf,
+    -inf) box, and a box whose lo equals a zone's hi (half-open: no
+    overlap on that dim)."""
+    zlo, zhi, blo, bhi = _zone_case(nz, d, b)
+    if nz > 3:
+        zlo[1, 0] = np.nan
+        zlo[2], zhi[2] = -np.inf, np.inf
+    if b > 2:
+        blo[-1], bhi[-1] = np.inf, -np.inf
+        blo[1], bhi[1] = zhi[0], zhi[0] + 1
     return zlo, zhi, blo, bhi
 
 
@@ -411,6 +440,59 @@ def test_zone_prune_cuda_matches_plain(cuda, nz, d, b):
     assert tzone_prune.launches == n0 + 2
     assert torch.equal(mask, tref.zone_prune_ref(*arrs))
     assert torch.equal(hit, tref.zone_hits_ref(*arrs))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nz,d,b", ZONE_MASK_CUDA_SHAPES)
+def test_zone_prune_mask_cuda_bitwise(cuda, nz, d, b):
+    """The mask kernel's bytes equal the plain version's, twice; the hit
+    vector beside it."""
+    arrs = _t(*_zone_mask_case(nz, d, b), device=cuda)
+    n0 = tzone_prune.launches
+    first = tzone_prune.zone_prune(*arrs)
+    second = tzone_prune.zone_prune(*arrs)
+    hit = tzone_prune.zone_hits(*arrs)
+    torch.cuda.synchronize()
+    assert tzone_prune.launches == n0 + 3
+    want = tref.zone_prune_ref(*arrs)
+    assert first.shape == (nz, b) and first.dtype == torch.bool
+    assert torch.equal(first.view(torch.uint8), want.view(torch.uint8))
+    assert torch.equal(second.view(torch.uint8), first.view(torch.uint8))
+    assert torch.equal(hit, want.any(1))
+
+
+@pytest.mark.gpu
+def test_query_index_fused_cuda_equals_cpu(cuda):
+    """query_index_fused / query_index_fused_multi on the card: the CPU's
+    counts and stats, with one zone_candidates and one box_scan_seg
+    launch a call and no zone_prune mask."""
+    from repro_torch.core import index as tindex
+    from repro_torch.core.boxes import BoxSet
+    rng = np.random.default_rng(11)
+    x = rng.normal(0, 1, (20000, 6)).astype(np.float32)
+    dims = np.arange(6)
+    gix = tindex.build_index(x, dims, block=128, device=cuda)
+    cix = tindex.build_index(x, dims, block=128, device="cpu")
+    centers = x[rng.integers(0, len(x), 9)]
+    lo, hi = centers - 0.4, centers + 0.4
+    owner = np.repeat(np.arange(3, dtype=np.int32), 3)
+    bs = BoxSet(lo.astype(np.float32), hi.astype(np.float32), dims)
+    for cap in (None, 3):
+        c0 = (tzone_prune.candidates_launches, tbox_scan.seg_launches,
+              tzone_prune.launches)
+        got, st = tindex.query_index_fused(gix, bs, capacity=cap)
+        gm, stm = tindex.query_index_fused_multi(gix, bs, owner, 3,
+                                                 capacity=cap)
+        assert (tzone_prune.candidates_launches - c0[0],
+                tbox_scan.seg_launches - c0[1],
+                tzone_prune.launches - c0[2]) == (2, 2, 2)
+        want, st_c = tindex.query_index_fused(cix, bs, capacity=cap)
+        wm, stm_c = tindex.query_index_fused_multi(cix, bs, owner, 3,
+                                                   capacity=cap)
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(gm, wm)
+        assert st == st_c and stm == stm_c
+        assert st["overflowed"] == (cap is not None)
 
 
 @pytest.mark.gpu

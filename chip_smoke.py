@@ -1179,9 +1179,11 @@ def demangled(by_name: dict) -> dict:
 
 
 # the kernels designed around bulk copies, which must hold cp.async.bulk
-# (UBLKCP): box_scan's full-width route and box_scan_seg; box_scan's
-# narrow (D <= 8) and widest routes keep the earlier kernel without it
-BULK_KERNELS = ("box_scan_kernel_lists", "box_scan_seg_kernel")
+# (UBLKCP): box_scan's full-width route, box_scan_pruned (also box_scan's
+# narrow route, D <= 8) and box_scan_seg; box_scan's widest route keeps
+# the earlier kernel without it
+BULK_KERNELS = ("box_scan_kernel_lists", "box_scan_pruned_kernel",
+                "box_scan_seg_kernel")
 
 
 def bulk_sass(libs: dict) -> dict:
@@ -2060,7 +2062,8 @@ def phase_full_scan_knn(eng, reqs, full, k: int = 100):
 # ----------------------------------------------------------------------
 
 FUSED_CALLS = {"zone_candidates": 1, "box_scan_seg": 1, "zone_prune": 0,
-               "box_scan": 0, "l2dist": 0, "flash_attention": 0}
+               "box_scan": 0, "box_scan_pruned": 0, "l2dist": 0,
+               "flash_attention": 0}
 
 
 def subset_boxes(eng, reqs) -> dict:
@@ -2208,7 +2211,8 @@ LIVE_COMPACT_PACE_S = 0.1
 # is checked on
 KERNEL_ENTRIES = (("zone_prune", "zone_candidates"),
                   ("zone_prune", "zone_prune"), ("zone_prune", "zone_hits"),
-                  ("box_scan", "box_scan"), ("box_scan", "box_scan_seg"),
+                  ("box_scan", "box_scan"), ("box_scan", "box_scan_pruned"),
+                  ("box_scan", "box_scan_seg"),
                   ("box_scan", "box_scan_seg_gather"), ("l2dist", "l2dist"))
 
 
@@ -3334,8 +3338,9 @@ def phase_box_scan(device) -> None:
     engine after one batch, the fused batch's largest probe (box_scan_seg
     and zone_prune, warm and cold), rforest's boxes over the 1,048,576 x
     384 features and the use_fused=False batch's largest query_index
-    call (box_scan), and the synthetic 1,048,576 x 384 x 64 scan. For
-    comparing two trees' kernels on one card."""
+    call (box_scan), and the synthetic 1,048,576 x 384 x 64 and
+    1,048,576 x 6 x 64 scans. For comparing two trees' kernels on one
+    card."""
     import torch
     eng, reqs, _, build_s = full_engine(device, FULL_N, FULL_D, 100)
     eng.query_batch(reqs)         # the capacity hints phase_full's probe has
@@ -3350,6 +3355,9 @@ def phase_box_scan(device) -> None:
     res["box_scan"]["query_index"] = measure_scan(*qi_in)
     res["box_scan"]["synthetic_64"] = measure_scan(
         *synthetic_scan(FULL_N, FULL_D, 64, 4, device), plain_device=False)
+    # the narrow route (d <= 8, box_scan_pruned's one-block case) at d' = 6
+    res["box_scan"]["synthetic_64_d6"] = measure_scan(
+        *synthetic_scan(FULL_N, 6, 64, 4, device), plain_device=False)
     emit({"phase": "box_scan_only", "build_s": build_s, "runs": [res]})
 
 
@@ -6395,6 +6403,7 @@ def zero_counts() -> None:
     from repro_torch.kernels import zone_prune
     zone_prune.launches = zone_prune.candidates_launches = 0
     box_scan.scan_launches = box_scan.seg_launches = 0
+    box_scan.pruned_launches = 0
     l2dist.launches = flash_attention.launches = 0
     flash_attention.backward_calls = flash_attention.backward_launches = 0
 
@@ -6408,7 +6417,9 @@ def read_counts() -> dict:
             "zone_prune": zone_prune.launches
             - zone_prune.candidates_launches,
             "box_scan_seg": box_scan.seg_launches,
-            "box_scan": box_scan.scan_launches, "l2dist": l2dist.launches,
+            "box_scan": box_scan.scan_launches,
+            "box_scan_pruned": box_scan.pruned_launches,
+            "l2dist": l2dist.launches,
             "flash_attention": flash_attention.launches}
 
 
@@ -6624,11 +6635,11 @@ def quantized_recount(eq, reqs) -> dict:
 
 def distributed_check(eng, reqs, mesh, cpu_mesh=None) -> dict:
     """The mesh leg's distributed_query (zone_hits + box_scan a device)
-    and distributed_query_pruned (zone_candidates + box_scan) over the
-    device list ``mesh``, at the subset and boxes of the batch's largest
-    probe: each bitwise query_index's counts, Morton order mapped back;
-    with ``cpu_mesh`` also bitwise the same calls over that CPU list.
-    Returns their launches."""
+    and distributed_query_pruned (zone_candidates + box_scan_pruned) over
+    the device list ``mesh``, at the subset and boxes of the batch's
+    largest probe: each bitwise query_index's counts, Morton order mapped
+    back; with ``cpu_mesh`` also bitwise the same calls over that CPU
+    list. Returns their launches."""
     import torch
     from repro_torch.core.boxes import BoxSet
     from repro_torch.core.index import (distributed_query,
@@ -6661,7 +6672,7 @@ def distributed_check(eng, reqs, mesh, cpu_mesh=None) -> dict:
                     *cargs, cpu_mesh, ix.block, per_dev).numpy(), g)):
             raise AssertionError("distributed_query on the card != CPU")
     needs_launches(l_full, ("zone_prune", "box_scan"), "distributed_query")
-    needs_launches(l_pruned, ("zone_candidates", "box_scan"),
+    needs_launches(l_pruned, ("zone_candidates", "box_scan_pruned"),
                    "distributed_query_pruned")
     return {"mesh": [str(d) for d in mesh], "blocks": ix.n_blocks,
             "boxes": int(lo.shape[0]), "counted_rows": int((g > 0).sum()),
@@ -7153,20 +7164,27 @@ def check_zone_index(device, dims, centers) -> None:
         raise AssertionError("card_zone_index != build_index")
 
 
-def plain_pruned(rows, zlo, zhi, lo, hi, block: int, capacity: int):
+def plain_pruned(rows, zlo, zhi, lo, hi, capacity: int):
     """``core.index.pruned_local_step`` with the kernels' plain versions
     (kernels/ref.py) on the same device."""
-    import torch
     from repro_torch.kernels import ref as kref
-    nb, _, d = rows.shape
     cand, n_hit = kref.zone_candidates_ref(zlo, zhi, lo, hi, capacity)
-    valid = torch.arange(capacity, device=rows.device) < n_hit
-    sel = rows.index_select(0, cand.long()).reshape(-1, d)
-    counts = kref.box_scan_ref(sel, lo, hi).reshape(capacity, block)
-    out = torch.zeros((nb, block), dtype=torch.int32, device=rows.device)
-    out = out.scatter_reduce(0, cand.long()[:, None].expand(-1, block),
-                             counts * valid[:, None], "amax")
-    return out.reshape(-1)
+    return kref.box_scan_pruned_ref(rows, cand, n_hit, lo, hi)
+
+
+def aten_ops(fn) -> list:
+    """The names of the aten operators ``fn`` dispatches, in order (a
+    kernel's ctypes launch is none of them)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            names.append(str(func))
+            return func(*args, **(kwargs or {}))
+    names = []
+    with Record():
+        fn()
+    return names
 
 
 def search_times(fn, bound: tuple, model_bytes: float,
@@ -7191,15 +7209,20 @@ def search_index_query(device, fits: dict, centers) -> dict:
     dims of ``fits``' subset, ordered and zone-mapped as build_index
     does (card_zone_index, held to it first on a sample), probed with
     ``fits``' boxes at the capacity the engine gives a warm probe
-    (pow2ceil of the surviving blocks, at most the blocks). Counted
-    (its kernels' launches), held bitwise to its plain version and to
-    the unpruned counts (zone_hits + box_scan over every row,
-    distributed_query); timed beside its bound: the zone maps, boxes and
-    surviving blocks read, every row's count written, the zone compares
-    and the scan compares the surviving rows need."""
+    (pow2ceil of the surviving blocks, at most the blocks). Counted (one
+    zone_candidates and one box_scan_pruned launch, and no gather, fill
+    or scatter among its aten operators), held bitwise to its plain
+    version and to the unpruned counts (zone_hits + box_scan over every
+    row, distributed_query); timed warm and with the L2 flushed, beside
+    its bound (the zone maps, boxes and surviving blocks read, every
+    row's count written, the zone compares and the scan compares the
+    surviving rows need) and its plain version; its peak above its
+    inputs. ``kernel``: box_scan_pruned alone on the step's (cand,
+    n_hit) against box_scan_pruned_ref, beside its own bound."""
     import torch
     from repro_torch.core.capacity import pow2ceil
     from repro_torch.core.index import distributed_query, pruned_local_step
+    from repro_torch.kernels import box_scan, zone_prune
     from repro_torch.kernels import ref as kref
     from repro_torch.launch.search_dryrun import (PAPER_ROWS, geometry,
                                                   kernel_model)
@@ -7224,15 +7247,22 @@ def search_index_query(device, fits: dict, centers) -> dict:
     if n_hit == 0:
         raise AssertionError("dryrun index_query: no block survives")
     step = pruned_local_step(SEARCH_BLOCK, cap)
+    step(*args)                    # zone_candidates' scratch, at first use
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     counts, launches = counted(lambda: step(*args))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() - base
-    needs_launches(launches, ("zone_candidates", "box_scan"),
+    needs_launches(launches, ("zone_candidates", "box_scan_pruned"),
                    "dryrun index_query")
-    plain = plain_pruned(*args, SEARCH_BLOCK, cap)
+    ops = aten_ops(lambda: step(*args))
+    if any(k in op for op in ops
+           for k in ("index_select", "scatter", "zero", "fill")):
+        raise AssertionError(f"dryrun index_query: the step gathers, fills "
+                             f"or scatters: {ops}")
+    plain_step = lambda: plain_pruned(*args, cap)
+    plain = plain_step()
     unpruned = distributed_query(*args, [device], SEARCH_BLOCK)
     if not (torch.equal(counts, plain) and torch.equal(counts, unpruned)):
         raise AssertionError("dryrun index_query: the pruned counts differ "
@@ -7240,12 +7270,31 @@ def search_index_query(device, fits: dict, centers) -> dict:
     del plain, unpruned
     nbox = lo.shape[0]
     scan_need, _ = scan_compares(rows[hit].reshape(-1, d), lo, hi)
-    byts = (2 * nb * d * 4 + 2 * nbox * d * 4
-            + n_hit * SEARCH_BLOCK * d * 4 + nb * SEARCH_BLOCK * 4
-            + 4 * (cap + 1))
+    boxes_b = 2 * nbox * d * 4
+    scan_b = (n_hit * SEARCH_BLOCK * d * 4 + nb * SEARCH_BLOCK * 4 + boxes_b
+              + 4 * (cap + 1))
+    byts = 2 * nb * d * 4 + boxes_b + scan_b
     compares = nb * nbox * d * 2 + scan_need
     model = kernel_model("index_query", nb_loc=nb, capacity=cap,
                          block=SEARCH_BLOCK, d_sub=d, n_boxes=nbox, bpe=4)
+    timed = search_times(lambda: step(*args), _bound(byts, compares), *model)
+    timed["device_ms_cold"], timed["device_ms_cold_by"] = cold_device_ms(
+        lambda: step(*args), "box_scan_pruned", use_profiler=False)
+    timed["plain_ms"] = time_ms(plain_step, iters=PLAIN_ITERS, warmup=1)
+    timed["plain_device_ms"] = graph_ms(plain_step, iters=PLAIN_ITERS)
+    # the kernel alone, on the step's candidates
+    cand, nh = zone_prune.zone_candidates(zlo, zhi, lo, hi, cap)
+    kern = measure_one(
+        "box_scan_pruned",
+        lambda: box_scan.box_scan_pruned(rows, cand, nh, lo, hi),
+        lambda: kref.box_scan_pruned_ref(rows, cand, nh, lo, hi),
+        _bound(scan_b, scan_need), plain_iters=PLAIN_ITERS, profile=False)
+    kern["device_ms_cold"], kern["device_ms_cold_by"] = cold_device_ms(
+        lambda: box_scan.box_scan_pruned(rows, cand, nh, lo, hi),
+        "box_scan_pruned", use_profiler=False)
+    kern["bound_bytes"], kern["bound_compares"] = scan_b, scan_need
+    kern["shape"] = {"blocks": nb, "block": SEARCH_BLOCK, "d": d,
+                     "capacity": cap, "n_hit": n_hit, "boxes": nbox}
     rec = {"rows": n, "blocks": nb, "capacity": cap,
            "capacity_reference": cap_ref, "n_hit": n_hit,
            "subset": fits["subset"], "dims": [int(v) for v in dims],
@@ -7253,12 +7302,11 @@ def search_index_query(device, fits: dict, centers) -> dict:
            "boxes_by_subset": fits["boxes_by_subset"], "d": d,
            "rows_bytes": rows.numel() * 4,
            "hits": int((counts > 0).sum()), "launches": launches,
+           "aten_ops": sorted(set(ops)),
            "bitwise_plain_and_unpruned": True,
            "peak_bytes_above_inputs": peak, "bound_bytes": byts,
-           "bound_compares": compares,
-           **search_times(lambda: step(*args), _bound(byts, compares),
-                          *model)}
-    del args, rows, counts, hit
+           "bound_compares": compares, **timed, "kernel": kern}
+    del args, rows, counts, hit, cand, nh
     free_cuda()
     return rec
 
@@ -7375,6 +7423,10 @@ KERNELS = {
                      "src/repro/kernels/box_scan.py:74"),
     "box_scan": ("src/repro_torch/kernels/csrc/box_scan.cu",
                  "src/repro/kernels/box_scan.py:35"),
+    # the same Pallas kernel as the pruned step uses it: the gather, the
+    # scan and the scatter-max of pruned_local_step in one kernel
+    "box_scan_pruned": ("src/repro_torch/kernels/csrc/box_scan.cu",
+                        "src/repro/kernels/box_scan.py:35"),
     "l2dist": ("src/repro_torch/kernels/csrc/l2dist.cu",
                "src/repro/kernels/l2dist.py:30"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -7529,6 +7581,8 @@ def main(argv) -> int:
         **measure_scan(*qi_in, plain_device=False),
         "launches": scan_launches["host_oracle"]["box_scan"]}
     res["l2dist"] = measure_l2dist(*knn_in)
+    # box_scan_pruned at the dryrun phase's index_query step
+    res["box_scan_pruned"] = dry["index_query"]["kernel"]
     res["flash_attention"] = measure_flash(*flash_in, causal=False,
                                            profile=True)
     emit({"phase": "kernels_main_path", "card": card, "runs": [res]})
@@ -7546,6 +7600,8 @@ def main(argv) -> int:
     launches = {**launches,
                 "zone_prune": scan_launches["host_oracle"]["zone_prune"],
                 "box_scan": scan_launches["box_scan"],
+                "box_scan_pruned":
+                    dry["index_query"]["launches"]["box_scan_pruned"],
                 "l2dist": scan_launches["l2dist"],
                 "flash_attention": flash_launches}
     by_path = {"zone_candidates": {"fused_batch":
@@ -7570,6 +7626,7 @@ def main(argv) -> int:
                             "live_scan_knn_set": live_launches["box_scan"],
                             "live_host_oracle_batch":
                                 live_launches["box_scan_oracle"]},
+               "box_scan_pruned": {},
                "l2dist": {"knn_query": scan_launches["l2dist"],
                           "live_knn_query": live_launches["l2dist"]},
                "flash_attention": {
@@ -7617,10 +7674,9 @@ def main(argv) -> int:
                        for name, m in mesh_train_rec["runs"].items()}}}
     # the paper catalog's local search steps of the dryrun phase (A13d):
     # pruned_local_step on one card, the full scan of a 16-card shard
-    by_path["zone_candidates"]["dryrun_index_query"] = \
-        dry["index_query"]["launches"]["zone_candidates"]
-    by_path["box_scan"]["dryrun_index_query"] = \
-        dry["index_query"]["launches"]["box_scan"]
+    for name in ("zone_candidates", "box_scan_pruned"):
+        by_path[name]["dryrun_index_query"] = \
+            dry["index_query"]["launches"][name]
     by_path["box_scan"]["dryrun_full_scan"] = \
         dry["full_scan"]["launches"]["box_scan"]
     # the quantized batch (A10) and the sharded paths (A11): S = 4's fused
@@ -7676,7 +7732,7 @@ def main(argv) -> int:
     by_name["box_scan"].update(
         {k: scan[k] for k in ("compares_needed", "compares_upper",
                               "bound_ms_upper", "query_index")})
-    for name in ("box_scan", "box_scan_seg"):
+    for name in ("box_scan", "box_scan_pruned", "box_scan_seg"):
         by_name[name]["sass"] = {f: c for f, c in box_sass["functions"].items()
                                  if f"{name}_kernel" in f}
     rows[-1]["sass"] = fwd_sass["functions"]

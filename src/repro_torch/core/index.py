@@ -1006,24 +1006,16 @@ def distributed_query(index_rows: torch.Tensor, zlo: torch.Tensor,
 
 def pruned_local_step(block: int, capacity: int):
     """The per-shard step of the pruned distributed query: zone-prune the
-    local zones and compact the survivors (zone_candidates), gather <=
-    ``capacity`` surviving blocks, scan only those (box_scan), scatter the
-    counts back to their block positions. Returns ``local(rows [nb_loc,
-    block, d'], zlo, zhi, blo, bhi) -> [nb_loc * block] int32``."""
+    local zones and compact the survivors (zone_candidates), then scan
+    the <= ``capacity`` surviving blocks where they lie and write every
+    block's counts once, 0 where no survivor is (box_scan_pruned: on the
+    CPU the reference's gather, scan and scatter-max, as it is). Returns
+    ``local(rows [nb_loc, block, d'], zlo, zhi, blo, bhi) -> [nb_loc *
+    block] int32``."""
 
     def local(rows, lo_z, hi_z, lo_b, hi_b):
-        nb_loc, _, d = rows.shape
         cand, n_hit = kops.zone_candidates(lo_z, hi_z, lo_b, hi_b, capacity)
-        valid = torch.arange(capacity, device=rows.device) < n_hit
-        sel = rows.index_select(0, cand.long()).reshape(-1, d)
-        counts = kops.box_scan(sel, lo_b, hi_b).reshape(capacity, block)
-        counts = counts * valid[:, None]
-        out = torch.zeros((nb_loc, block), dtype=torch.int32,
-                          device=rows.device)
-        # cand repeats block 0 at fill slots: their zeroed counts lose
-        out = out.scatter_reduce(0, cand.long()[:, None].expand(-1, block),
-                                 counts, "amax")
-        return out.reshape(-1)
+        return kops.box_scan_pruned(rows, cand, n_hit, lo_b, hi_b)
 
     return local
 
@@ -1033,7 +1025,7 @@ def distributed_query_pruned(index_rows: torch.Tensor, zlo: torch.Tensor,
                              bhi: torch.Tensor, mesh, block: int,
                              capacity: int) -> torch.Tensor:
     """The performance formulation of distributed_query: each device
-    gathers and scans only its surviving blocks (pruned_local_step);
+    scans only its surviving blocks (pruned_local_step);
     ``capacity`` bounds the surviving blocks per device, and survivors
     past it are dropped. Returns [NB * block] int32 Morton-order counts
     on the first device."""

@@ -1,19 +1,25 @@
-"""The box scans as CUDA kernels: ``box_scan`` (csrc/box_scan.cu) and
-the segmented refine stage ``box_scan_seg`` (csrc/box_scan_seg.cu).
+"""The box scans as CUDA kernels: ``box_scan`` and ``box_scan_pruned``
+(csrc/box_scan.cu) and the segmented refine stage ``box_scan_seg``
+(csrc/box_scan_seg.cu).
 
 Counterparts of ``repro.kernels.box_scan``. ``box_scan`` counts, per
 row, the boxes that contain it (the full scan of the dtree/rforest models
-and the refine stage of the host ``query_index`` oracle). The segmented
-kernel reads the surviving blocks rows3[cand] in place and zeroes the
-slots >= n_hit (``box_scan_seg_gather``, what ``ops.fused_query`` runs);
+and the refine stage of the host ``query_index`` oracle; at D <= 8 it is
+box_scan_pruned's one-block case). ``box_scan_pruned`` scans the
+surviving blocks rows3[cand] of a pruned index where they lie and writes
+every block's counts once, zeros where no live slot holds the block (the
+per-shard step ``core/index.pruned_local_step``). The segmented kernel
+reads the surviving blocks rows3[cand] in place and zeroes the slots >=
+n_hit (``box_scan_seg_gather``, what ``ops.fused_query`` runs);
 ``box_scan_seg`` scans given rows x [N, D] (the Pallas kernel's
 contract) as the one-block case rows3 = x[None], cand = [0], n_hit = 1.
 All take CUDA tensors only; the CPU dispatch to the plain versions lives
 in ``kernels/ops.py``.
 
-``scan_launches`` counts launches of the box_scan kernel and
-``seg_launches`` those of box_scan_seg (both of its entry points launch
-in ``box_scan_seg_gather``).
+``scan_launches`` counts calls of the box_scan entry that launch,
+``pruned_launches`` those of box_scan_pruned, and ``seg_launches`` those
+of box_scan_seg (both of its entry points launch in
+``box_scan_seg_gather``).
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from repro_torch.kernels.build import launch_fn
 
 scan_launches = 0
+pruned_launches = 0
 seg_launches = 0
 
 
@@ -66,6 +73,46 @@ def box_scan(x: torch.Tensor, lo: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"box_scan kernel launch failed: CUDA error {err}")
     scan_launches += 1
+    return out
+
+
+def box_scan_pruned(rows3: torch.Tensor, cand: torch.Tensor,
+                    n_hit: torch.Tensor, lo: torch.Tensor,
+                    hi: torch.Tensor) -> torch.Tensor:
+    """rows3: [NB, block, D] f32 index rows; cand: [C] int32 block ids;
+    n_hit: [] int32 survivor count -> [NB * block] int32: the box counts
+    of the blocks the first min(n_hit, C) slots hold, 0 in every other
+    block (CUDA). Those slots must hold ascending, unique ids in [0, NB),
+    as zone_candidates' (cand, n_hit) do: the kernel zeroes the gaps
+    between them. One launch, boxes or none."""
+    global pruned_launches
+    kernel = "box_scan_pruned"
+    if rows3.dim() != 3 or cand.dim() != 1 or lo.dim() != 2:
+        raise ValueError("box_scan_pruned: rows3 must be [NB, block, D], "
+                         "cand [C] and boxes [B, D]")
+    nb_rows, block, d = rows3.shape
+    nb = lo.shape[0]
+    dev = rows3.device
+    _check("rows3", rows3, torch.float32, rows3.shape, dev, kernel)
+    _check("cand", cand, torch.int32, cand.shape, dev, kernel)
+    _check("n_hit", n_hit, torch.int32, (), dev, kernel)
+    _check("lo", lo, torch.float32, (nb, d), dev, kernel)
+    _check("hi", hi, torch.float32, (nb, d), dev, kernel)
+    if max(nb_rows, block, cand.shape[0], nb) >= 2 ** 31:
+        raise ValueError("box_scan_pruned: a dimension past 2^31 - 1")
+    out = torch.empty(nb_rows * block, dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    fn = launch_fn("box_scan", "box_scan_pruned_launch")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(rows3.data_ptr(), cand.data_ptr(), n_hit.data_ptr(),
+                 nb_rows, block, cand.shape[0], d, lo.data_ptr(),
+                 hi.data_ptr(), nb, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"box_scan_pruned kernel launch failed: CUDA "
+                           f"error {err}")
+    pruned_launches += 1
     return out
 
 

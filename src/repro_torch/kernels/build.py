@@ -42,7 +42,9 @@ ENTRIES = {
                                    _P, _L, _P]},
     "box_scan_seg": {"box_scan_seg_launch": [_P, _P, _P, _I, _P, _P, _P, _I,
                                              _I, _I, _I, _P, _P]},
-    "box_scan": {"box_scan_launch": [_P, _P, _P, _L, _I, _I, _P, _P]},
+    "box_scan": {"box_scan_launch": [_P, _P, _P, _L, _I, _I, _P, _P],
+                 "box_scan_pruned_launch": [_P, _P, _P, _I, _I, _I, _I, _P,
+                                            _P, _I, _P, _P]},
     "l2dist": {"l2dist_launch": [_P, _P, _L, _I, _I, _P, _P]},
     "flash_attention": {"flash_attention_launch": [_P, _P, _P, _P, _P, _P,
                                                    _I, _I, _I, _I, _I, _I,

@@ -1,22 +1,34 @@
-// box_scan for Hopper (sm_90a): box-membership counts over a full scan.
+// box_scan for Hopper (sm_90a): box-membership counts over a full scan,
+// and over the surviving blocks of a pruned index (box_scan_pruned).
 //
 // Replaces: src/repro/kernels/box_scan.py::box_scan_pallas (body
 // _box_scan_kernel). For rows x [N, D] and boxes lo/hi [B, D] (all f32,
 // row-major):
 //     out[i] = number of boxes b with lo[b, k] < x[i, k] <= hi[b, k]
 //              on EVERY dim k
-// as int32. It serves two callers: full_scan, the dtree/rforest scan over
-// the whole [n, 384] feature matrix with full-width tree boxes, and
-// query_index (the engine's use_fused=False oracle) over the surviving
-// blocks' rows at d' = 6. Comparisons are written exactly as in the Pallas
-// body and never as a subtraction, and no fast-math is used, so the
-// (-inf, +inf) bounds of unconstrained tree dims, +inf row padding and
-// NaN rows (inside no box) give exactly the plain version's answer.
+// as int32. It serves full_scan, the dtree/rforest scan over the whole
+// [n, 384] feature matrix with full-width tree boxes; query_index (the
+// engine's use_fused=False oracle) over the surviving blocks' rows at
+// d' = 6; and, as box_scan_pruned, core/index.pruned_local_step, the
+// per-shard step of the pruned distributed query:
+//     box_scan_pruned(rows3 [NB, block, D], cand [C], n_hit [], lo, hi)
+//       -> out [NB * block], out[b * block + r] = count of rows3[b, r]
+//          where b == cand[s] for some s < min(n_hit, C), else 0,
+// what the reference writes as a gather, a scan, a validity mask and
+// out.at[cand].max(counts) into zeros. cand[0 : min(n_hit, C)] must be
+// ascending, unique and in [0, NB) (zone_candidates' survivors are).
+// Comparisons are written exactly as in the Pallas body and never as a
+// subtraction, and no fast-math is used, so the (-inf, +inf) bounds of
+// unconstrained tree dims, +inf row padding and NaN rows (inside no box)
+// give exactly the plain version's answer.
 //
 // Bound on the H100: the bytes. x is read once (1.61 GB at the full
 // scan's 1,048,576 x 384, 0.48 ms at 3.35 TB/s); the compares the data
 // needs are N * D for the row check below plus two a constrained dim up to
-// each box's first failing one, a small fraction of that.
+// each box's first failing one, a small fraction of that. The pruned
+// step reads only the surviving blocks and writes every count once: at
+// the paper catalog's 90,429,772 rows of d' = 6, 20,021 surviving blocks
+// of 1,024 (492 MB) read and 362 MB of counts written.
 //
 // Full-width path (8 < D <= kMaxListD): constrained-dim lists and a ring
 // of row tiles filled by bulk asynchronous copies.
@@ -53,10 +65,37 @@
 //   kMaxChunkBoxes boxes) runs in passes over the rows, a chunk a pass,
 //   `out` accumulated across passes.
 //
-// Narrow path (D <= 8, the use_fused=False oracle at d' = 6) and D >
-// kMaxListD: the earlier kernel below, a thread per row with the row in
-// registers (D <= 8), or a warp per row reading x from device memory
-// (D > kMaxListD), boxes staged as (lo, hi) pairs in shared memory.
+// Pruned path (box_scan_pruned at any D; box_scan at D <= 8 as its
+// one-block case rows3 = x[None], cand = [0], n_hit = 1): the design of
+// box_scan_seg.cu without the box->query one-hot, one count a row.
+// - Rows are read where they lie, live slots only: a persistent grid
+//   (two CTAs an SM) walks work items, an item being up to 1,024 rows of
+//   one live slot (one contiguous 24 KB span at d' = 6). The last warp's
+//   first thread copies each of the CTA's items by one cp.async.bulk into
+//   a 3-stage ring on full / empty mbarriers. Each CTA reads *n_hit once:
+//   no gather, no host round trip, no read of a dead slot.
+// - Every output word is written exactly once, with no memset pass. The
+//   blocks no live slot holds are the gaps between consecutive live
+//   candidates, and the head and the tail; counted in order they are
+//   (NB - live) * block "dead" words, which the grid splits evenly. A CTA
+//   finds the live slots around the ends of its share (a 32-way search
+//   by one warp each over g(s) = cand[s] - s, the dead blocks before
+//   cand[s], which never falls), and its warps zero the gaps between
+//   them with 16-byte stores. A gap that spans most of the catalog is
+//   then spread over the grid like any other.
+// - The boxes are staged once a CTA (in chunks past 64 KB) as 16-byte
+//   records of interleaved (lo, hi) pairs: two dims a broadcast load.
+//   Each of the 256 consumer threads holds R = 4 rows of the item in
+//   registers (D <= 8; a warp a contiguous run of 128 rows of the
+//   Morton-ordered block) and releases the stage at once. The warp's
+//   lanes test 32 boxes at a time against the run's bounding box (NaN
+//   left out: a box that misses it holds none of the rows; below
+//   kFilterBoxes boxes every box is tested), and the warp walks the
+//   ballot of those that meet it, testing each against its 4 rows, two
+//   dims a record, every compare predicated. D > 8 reads the rows from
+//   the staged item and tests every box.
+// - D > kMaxListD in box_scan keeps the earlier kernel at the end: a
+//   warp per row reading x from device memory, boxes as (lo, hi) pairs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -332,31 +371,388 @@ int launch_lists(const float* x, const float* lo, const float* hi,
 }
 
 // ---------------------------------------------------------------------
-// D <= 8 and D > kMaxListD: a thread or a warp a row, boxes as pairs
+// pruned path: live slots read in place, every output word written once
+// ---------------------------------------------------------------------
+
+constexpr int kPrWarps = 8;                          // consumer warps
+constexpr int kPrConsumers = 32 * kPrWarps;
+constexpr int kPrThreads = kPrConsumers + 32;        // + producer warp
+constexpr int kR = 4;                     // rows a consumer thread holds
+constexpr int kItemRows = kPrConsumers * kR;         // 1024
+constexpr int kPrStages = 3;
+constexpr int kPrStageTarget = 32 * 1024;  // bytes of rows a stage
+constexpr int kPrBoxBudget = 64 * 1024;    // bytes of box records a chunk
+constexpr int kMaxDR = 8;                  // dims a row held in registers
+constexpr long long kZeroShare = 16384;    // dead words a CTA, at least
+// fewer boxes go untested against the warp's bounding box: its shuffles
+// cost more than it spares (0.5 us of 6 at 442,368 rows x 2 boxes)
+constexpr int kFilterBoxes = 5;
+// shared memory: barriers | two slot ids | warps' bounding boxes | box
+// records | ring
+constexpr int kSpanOff = 16 * kPrStages;
+constexpr int kPrBBoxOff = 64;
+constexpr int kPrBoxOff = kPrBBoxOff + kPrWarps * kMaxDR * 2 * 4;
+static_assert(kSpanOff + 8 <= kPrBBoxOff && kPrBoxOff % 16 == 0, "layout");
+
+__device__ __forceinline__ void pruned_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kPrConsumers) : "memory");
+}
+
+// out[a, b) = 0 by one warp: 16-byte stores for the aligned middle (out
+// is 16-byte aligned), plain ones for the few words around it
+__device__ __forceinline__ void warp_zero(int32_t* __restrict__ out,
+                                          long long a, long long b,
+                                          int lane) {
+  if (a >= b) return;
+  const long long a4 = min(b, (a + 3) & ~3LL);
+  const long long b4 = max(a4, b & ~3LL);
+  if (lane < a4 - a) out[a + lane] = 0;
+  if (lane < b - b4) out[b4 + lane] = 0;
+  int4* o4 = reinterpret_cast<int4*>(out + a4);
+  const long long n4 = (b4 - a4) / 4;
+  for (long long i = lane; i < n4; i += 32) o4[i] = make_int4(0, 0, 0, 0);
+}
+
+// Slot s's block: cand[s], or s where there is no cand (the one-block
+// case and the identity)
+__device__ __forceinline__ long long slot_block(
+    const int32_t* __restrict__ cand, long long s) {
+  return cand != nullptr ? (long long)cand[s] : s;
+}
+
+// The first slot s in [0, nh) with slot_block(s) - s > k, or nh: the live
+// blocks that come before dead block k (slot_block(s) - s counts the dead
+// blocks before slot s's and never falls). One warp, 32 probes a round:
+// three rounds at 32,768 slots.
+__device__ int live_before(const int32_t* __restrict__ cand, int nh,
+                           long long k, int lane) {
+  int a = 0, b = nh;                       // the answer lies in [a, b]
+  while (a < b) {
+    const int step = (b - a + 31) / 32;
+    const int p = a + lane * step;
+    const bool t = p < b && slot_block(cand, p) - p > k;
+    const unsigned m = __ballot_sync(0xffffffffu, t);
+    if (m) {                               // in (probe j - 1, probe j]
+      const int j = __ffs(m) - 1;
+      b = a + j * step;
+      a = j == 0 ? a : a + (j - 1) * step + 1;
+    } else {                               // past the last probe < b
+      a += min(31, (b - a - 1) / step) * step + 1;
+    }
+  }
+  return a;
+}
+
+// D: the rows' dims, held in registers (1..kMaxDR), or 0 (any D: rows
+// read from the staged item, every box tested)
+template <int D>
+__global__ void __launch_bounds__(kPrThreads, 2)
+box_scan_pruned_kernel(const float* __restrict__ rows3,
+                       const int32_t* __restrict__ cand,
+                       const int32_t* __restrict__ n_hit, int n_blocks,
+                       int block, int n_cand, const float* __restrict__ lo,
+                       const float* __restrict__ hi, int nb, int d,
+                       int tile_rows, int stage_bytes, int ring_off,
+                       int box_chunk, int stride,
+                       int32_t* __restrict__ out) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t bars = bulk::smem_u32(smem);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kPrStages + st); };
+  int* s_span = reinterpret_cast<int*>(smem + kSpanOff);
+  float* s_bbox = reinterpret_cast<float*>(smem + kPrBBoxOff);
+  float* s_box = reinterpret_cast<float*>(smem + kPrBoxOff);
+  uint8_t* ring = smem + ring_off;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // live slots; without boxes every count is 0 and every block dead
+  int nh = min(n_cand, n_blocks);
+  if (n_hit != nullptr) nh = min(nh, max(0, *n_hit));
+  if (nb == 0) nh = 0;
+  const int tps = (block + tile_rows - 1) / tile_rows;   // items a slot
+  const long long live = (long long)nh * tps;
+  const bool filter = nb >= kFilterBoxes;
+  if (tid == 0) {
+    for (int st = 0; st < kPrStages; ++st) {
+      bulk::mbar_init(full(st), 1);
+      bulk::mbar_init(empty(st), kPrWarps);
+    }
+    bulk::mbar_init_fence();
+  }
+  __syncthreads();
+  auto item_src = [&](long long it) {
+    return rows3 + (slot_block(cand, it / tps) * block +
+                    (it % tps) * (long long)tile_rows) * d;
+  };
+  auto item_rows = [&](long long it) {
+    return min(tile_rows, block - (int)(it % tps) * tile_rows);
+  };
+
+  if (warp == kPrWarps) {
+    // producer: this CTA's items, in order, into the ring
+    long long k = 0;
+    for (long long it = blockIdx.x; it < live; it += gridDim.x, ++k) {
+      const int st = (int)(k % kPrStages);
+      if (k >= kPrStages)
+        bulk::mbar_wait(empty(st), (uint32_t)((k / kPrStages) - 1) & 1);
+      if (lane == 0)
+        bulk::copy_span(ring + (size_t)st * stage_bytes, item_src(it),
+                        (uint32_t)item_rows(it) * d * 4, full(st));
+      __syncwarp();
+    }
+    return;
+  }
+
+  // 1. this CTA's share [w0, w1) of the dead words, while the ring fills.
+  // Gap s (s = 0 .. nh) is dead words [g(s - 1), g(s)) * block, g(-1) = 0,
+  // g(nh) = NB - nh, and lies s blocks further on in out.
+  const long long dead = (long long)(n_blocks - nh) * block;
+  const long long w0 = dead * blockIdx.x / gridDim.x;
+  const long long w1 = dead * (blockIdx.x + 1) / gridDim.x;
+  if (w0 < w1) {
+    if (warp < 2) {
+      const int s = live_before(cand, nh, (warp == 0 ? w0 : w1 - 1) / block,
+                                lane);
+      if (lane == 0) s_span[warp] = s;
+    }
+    pruned_sync();
+    const int s0 = s_span[0], s1 = s_span[1];
+    for (int s = s0 + warp; s <= s1; s += kPrWarps) {
+      const long long g0 =
+          s == 0 ? 0 : (slot_block(cand, s - 1) - (s - 1)) * block;
+      const long long g1 =
+          s == nh ? dead : (slot_block(cand, s) - s) * block;
+      const long long shift = (long long)s * block;
+      warp_zero(out, max(g0, w0) + shift, min(g1, w1) + shift, lane);
+    }
+  }
+
+  // 2. the live items
+  const int n_chunks = (nb + box_chunk - 1) / box_chunk;
+  int staged = -1;                       // the chunk in s_box
+  auto stage = [&](int c) {
+    const int b0 = c * box_chunk, bn = min(box_chunk, nb - b0);
+    pruned_sync();                       // the last chunk's readers
+    for (int i = tid; i < bn * stride; i += kPrConsumers) {
+      const int bb = i / stride, f = i % stride;
+      const size_t b = (size_t)(b0 + bb);
+      s_box[i] = f < 2 * d ? (f & 1 ? hi : lo)[b * d + f / 2] : 0.f;
+    }
+    pruned_sync();
+    staged = c;
+  };
+  if (blockIdx.x < live) stage(0);
+  // warp w holds the item's rows w * 128 + lane + 32 j: a contiguous run
+  // of the Morton-ordered block, whose bounding box is tight
+  auto row_of = [&](int j) { return warp * (32 * kR) + lane + 32 * j; };
+  constexpr int kPairs = (D + 1) / 2;      // 16-byte records a box
+  long long k = 0;
+  for (long long it = blockIdx.x; it < live; it += gridDim.x, ++k) {
+    const int st = (int)(k % kPrStages);
+    const int rows = item_rows(it);
+    const long long out_row = slot_block(cand, it / tps) * block +
+                              (it % tps) * (long long)tile_rows;
+    bulk::mbar_wait(full(st), (uint32_t)(k / kPrStages) & 1);
+    const float* xs = reinterpret_cast<const float*>(
+        ring + (size_t)st * stage_bytes + bulk::span_head(item_src(it)));
+    bool live_r[kR];
+    float xr[kR][D > 0 ? 2 * kPairs : 1];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const int r = row_of(j);
+      live_r[j] = r < rows;
+      if constexpr (D > 0) {
+#pragma unroll
+        for (int kk = 0; kk < 2 * kPairs; ++kk)
+          xr[j][kk] = (live_r[j] && kk < D) ? xs[r * D + kk] : 0.f;
+      }
+    }
+    // the warp's bounding box of its live rows (NaN left out: a NaN row
+    // is inside no box), as (min, max) pairs laid out as the box
+    // records' (lo, hi)
+    float* s_bb = s_bbox + warp * kMaxDR * 2;
+    if constexpr (D > 0) {
+      // the rows are in registers: the stage can refill now
+      __syncwarp();
+      if (lane == 0) bulk::mbar_arrive(empty(st));
+#pragma unroll
+      for (int kk = 0; kk < D && filter; ++kk) {
+        float mn = __int_as_float(0x7f800000), mx = -mn;
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          if (live_r[j]) {
+            mn = fminf(mn, xr[j][kk]);
+            mx = fmaxf(mx, xr[j][kk]);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o /= 2) {
+          mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        }
+        if (lane == 0) {
+          s_bb[2 * kk] = mn;
+          s_bb[2 * kk + 1] = mx;
+        }
+      }
+      __syncwarp();
+    }
+    int cnt[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) cnt[j] = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int bn = min(box_chunk, nb - c * box_chunk);
+      if (staged != c) stage(c);
+      for (int g0 = 0; g0 < bn; g0 += 32) {
+        // which of the next 32 boxes meet the warp's bounding box: lane i
+        // tests box g0 + i (for D = 0, or too few boxes to filter, every
+        // box counts as meeting)
+        bool meets = g0 + lane < bn;
+        if constexpr (D > 0) {
+          if (meets && filter) {
+            const float4* r4 = reinterpret_cast<const float4*>(
+                s_box + (size_t)(g0 + lane) * stride);
+            const float4* w4 = reinterpret_cast<const float4*>(s_bb);
+#pragma unroll
+            for (int p = 0; p < kPairs; ++p) {
+              const float4 b = r4[p], w = w4[p];
+              meets = meets && (b.x < w.y) && (w.x <= b.y);
+              if (2 * p + 1 < D) meets = meets && (b.z < w.w) && (w.z <= b.w);
+            }
+          }
+        }
+        // the meeting boxes in ascending order (warp-uniform)
+        for (unsigned mask = __ballot_sync(0xffffffffu, meets); mask;
+             mask &= mask - 1) {
+          const float* rec = s_box + (size_t)(g0 + __ffs(mask) - 1) * stride;
+          bool in[kR];
+#pragma unroll
+          for (int j = 0; j < kR; ++j) in[j] = live_r[j];
+          if constexpr (D > 0) {
+            // every compare, predicated: an early exit once none of the 4
+            // rows is inside cost more in branches than it saved (1.3x at
+            // 64 boxes on rows in no order)
+            const float4* r4 = reinterpret_cast<const float4*>(rec);
+#pragma unroll
+            for (int p = 0; p < kPairs; ++p) {
+              const float4 b = r4[p];          // lo, hi of dims 2p, 2p + 1
+#pragma unroll
+              for (int j = 0; j < kR; ++j) {
+                const float v0 = xr[j][2 * p], v1 = xr[j][2 * p + 1];
+                in[j] = in[j] && (v0 > b.x) && (v0 <= b.y);
+                if (2 * p + 1 < D) in[j] = in[j] && (v1 > b.z) && (v1 <= b.w);
+              }
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < kR; ++j) {
+              const float* row = xs + (size_t)row_of(j) * d;
+              for (int kk = 0; kk < d && in[j]; ++kk) {
+                const float v = row[kk];
+                in[j] = (v > rec[2 * kk]) && (v <= rec[2 * kk + 1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kR; ++j) cnt[j] += in[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kR; ++j)
+      if (live_r[j]) out[out_row + row_of(j)] = cnt[j];
+    if constexpr (D == 0) {
+      __syncwarp();
+      if (lane == 0) bulk::mbar_arrive(empty(st));
+    }
+  }
+}
+
+template <int D>
+int launch_pruned(const float* rows3, const int32_t* cand,
+                  const int32_t* n_hit, int n_blocks, int block, int n_cand,
+                  int d, const float* lo, const float* hi, int nb,
+                  int32_t* out, cudaStream_t s) {
+  auto kernel = box_scan_pruned_kernel<D>;
+  // (lo, hi) pairs, padded to 16 bytes (a record even at d = 0)
+  const int stride = d > 0 ? (2 * d + 3) / 4 * 4 : 4;
+  const int rec_bytes = stride * (int)sizeof(float);
+  int tile_rows = d > 0 ? kPrStageTarget / (4 * d) : kItemRows;
+  if (tile_rows > kItemRows) tile_rows = kItemRows;
+  if (tile_rows > block) tile_rows = block;
+  if (tile_rows < 1) tile_rows = 1;
+  // + 16: a span not 16-byte aligned starts up to 12 bytes into its stage
+  const int stage_bytes = (tile_rows * 4 * d + 16 + 127) / 128 * 128;
+  int box_chunk = kPrBoxBudget / rec_bytes;
+  if (box_chunk > nb) box_chunk = nb;
+  if (box_chunk < 1) box_chunk = 1;
+  const int ring_off = (kPrBoxOff + box_chunk * rec_bytes + 127) / 128 * 128;
+  const size_t smem = (size_t)ring_off + (size_t)kPrStages * stage_bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kPrThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) per_sm = 1;
+  // enough CTAs for every item were all slots live, or for the zeros
+  // were none
+  const long long items =
+      (long long)n_cand * ((block + tile_rows - 1) / tile_rows);
+  const long long words = (long long)n_blocks * block;
+  long long blocks = (words + kZeroShare - 1) / kZeroShare;
+  if (blocks < items) blocks = items;
+  const long long resident = (long long)bulk_sm_count() * per_sm;
+  if (blocks > resident) blocks = resident;
+  if (blocks < 1) blocks = 1;
+  kernel<<<(unsigned)blocks, kPrThreads, smem, s>>>(
+      rows3, cand, n_hit, n_blocks, block, n_cand, lo, hi, nb, d, tile_rows,
+      stage_bytes, ring_off, box_chunk, stride, out);
+  return (int)cudaGetLastError();
+}
+
+// cand or n_hit null: slot s holds block s, every slot live
+int pruned(const float* rows3, const int32_t* cand, const int32_t* n_hit,
+           int n_blocks, int block, int n_cand, int d, const float* lo,
+           const float* hi, int nb, int32_t* out, cudaStream_t s) {
+  switch (d) {
+#define PRUNED_D(D)                                                       \
+  case D:                                                                 \
+    return launch_pruned<D>(rows3, cand, n_hit, n_blocks, block, n_cand,  \
+                            d, lo, hi, nb, out, s);
+    PRUNED_D(1) PRUNED_D(2) PRUNED_D(3) PRUNED_D(4)
+    PRUNED_D(5) PRUNED_D(6) PRUNED_D(7) PRUNED_D(8)
+#undef PRUNED_D
+    default:
+      return launch_pruned<0>(rows3, cand, n_hit, n_blocks, block, n_cand,
+                              d, lo, hi, nb, out, s);
+  }
+}
+
+// ---------------------------------------------------------------------
+// D > kMaxListD: a warp a row, boxes as pairs
 // ---------------------------------------------------------------------
 
 constexpr int kThreads = 512;
 constexpr int kSmemBudget = 192 * 1024;   // boxes staged per chunk
 
-// G lanes per row (1 or 32). G = 1 (D <= V = 8): a thread a row, the row
-// in registers. G = 32 (V = 0): a warp a row, its lanes on dims lane,
-// lane + 32, ... read from device memory, voting after each group of 32
-// dims and leaving the box at the first group with a failing dim. Boxes
-// are staged as (lo, hi) float2 pairs in chunks of up to 192 KB; the
-// grid is persistent and walks the rows once per chunk. Four CTAs an SM
-// for G = 1 (32 registers); G = 32, held to those 32, spilled a word, so
-// it takes one CTA's bound (43 registers, two CTAs an SM).
-template <int G, int V>
-__global__ void __launch_bounds__(kThreads, G == 1 ? 4 : 1)
-box_scan_kernel(const float* __restrict__ x, const float* __restrict__ lo,
-                const float* __restrict__ hi, long long n, int d, int nb,
-                int box_chunk, int32_t* __restrict__ out) {
-  static_assert((G == 1) == (V > 0), "rows in registers only for G = 1");
+// A warp a row, its lanes on dims lane, lane + 32, ... read from device
+// memory, voting after each group of 32 dims and leaving the box at the
+// first group with a failing dim. Boxes are staged as (lo, hi) float2
+// pairs in chunks of up to 192 KB; the grid is persistent and walks the
+// rows once per chunk. Held to 32 registers it spilled a word, so it
+// takes one CTA's bound (43 registers, two CTAs an SM).
+__global__ void __launch_bounds__(kThreads, 1)
+box_scan_kernel_warp(const float* __restrict__ x,
+                     const float* __restrict__ lo,
+                     const float* __restrict__ hi, long long n, int d,
+                     int nb, int box_chunk, int32_t* __restrict__ out) {
   extern __shared__ float2 s_box[];                    // [box_chunk, d]
-  const int lane = threadIdx.x % G;
+  const int lane = threadIdx.x % 32;
   const long long first =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
-  const long long stride = (long long)gridDim.x * blockDim.x / G;
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const long long stride = (long long)gridDim.x * blockDim.x / 32;
   for (int b0 = 0; b0 < nb; b0 += box_chunk) {
     const int bn = min(box_chunk, nb - b0);
     __syncthreads();
@@ -366,31 +762,18 @@ box_scan_kernel(const float* __restrict__ x, const float* __restrict__ lo,
     __syncthreads();
     for (long long i = first; i < n; i += stride) {
       const float* row = x + i * d;
-      float xr[V > 0 ? V : 1];
-      if constexpr (V > 0) {
-#pragma unroll
-        for (int k = 0; k < V; ++k) xr[k] = k < d ? row[k] : 0.f;
-      }
       int cnt = 0;
       for (int bb = 0; bb < bn; ++bb) {
         const float2* bx = s_box + (size_t)bb * d;
         bool in = true;
-        if constexpr (V > 0) {
-#pragma unroll
-          for (int k = 0; k < V; ++k) {
-            if (k >= d || !in) break;
-            in = (xr[k] > bx[k].x) && (xr[k] <= bx[k].y);
+        for (int c0 = 0; c0 < d && in; c0 += 32) {
+          const int c = c0 + lane;
+          bool ok = true;
+          if (c < d) {
+            const float v = row[c];
+            ok = (v > bx[c].x) && (v <= bx[c].y);
           }
-        } else {
-          for (int c0 = 0; c0 < d && in; c0 += G) {
-            const int c = c0 + lane;
-            bool ok = true;
-            if (c < d) {
-              const float v = row[c];
-              ok = (v > bx[c].x) && (v <= bx[c].y);
-            }
-            in = __all_sync(0xffffffffu, ok);
-          }
+          in = __all_sync(0xffffffffu, ok);
         }
         cnt += in;
       }
@@ -399,30 +782,29 @@ box_scan_kernel(const float* __restrict__ x, const float* __restrict__ lo,
   }
 }
 
-template <int G, int V>
-int launch(const float* x, const float* lo, const float* hi, long long n,
-           int d, int nb, int32_t* out, cudaStream_t s) {
-  auto kernel = box_scan_kernel<G, V>;
-  const int per_box = (d > 0 ? d : 1) * (int)sizeof(float2);
+int launch_warp(const float* x, const float* lo, const float* hi,
+                long long n, int d, int nb, int32_t* out, cudaStream_t s) {
+  const int per_box = d * (int)sizeof(float2);
   int box_chunk = kSmemBudget / per_box;
   if (box_chunk > nb) box_chunk = nb;
   if (box_chunk < 1) box_chunk = 1;
   const size_t smem = (size_t)box_chunk * per_box;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        box_scan_kernel_warp, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   int per_sm = 0;
   cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, kThreads, smem);
+      &per_sm, box_scan_kernel_warp, kThreads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) per_sm = 1;
-  long long blocks = (n * G + kThreads - 1) / kThreads;
+  long long blocks = (n * 32 + kThreads - 1) / kThreads;
   const long long resident = (long long)bulk_sm_count() * per_sm;
   if (blocks > resident) blocks = resident;
-  kernel<<<(unsigned)blocks, kThreads, smem, s>>>(x, lo, hi, n, d, nb,
-                                                  box_chunk, out);
+  box_scan_kernel_warp<<<(unsigned)blocks, kThreads, smem, s>>>(
+      x, lo, hi, n, d, nb, box_chunk, out);
   return (int)cudaGetLastError();
 }
 
@@ -430,13 +812,38 @@ int launch(const float* x, const float* lo, const float* hi, long long n,
 
 // Returns the first CUDA error of the launch (0 on success). Launches on
 // `stream` and never synchronises. The caller handles nb == 0 (all
-// counts 0) without a launch.
+// counts 0) without a launch. D <= 8 is box_scan_pruned's one-block case,
+// in launches of at most 2^30 rows.
 extern "C" int box_scan_launch(const float* x, const float* lo,
                                const float* hi, long long n, int d, int nb,
                                int32_t* out, void* stream) {
   if (n <= 0 || nb <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 8) return launch<1, 8>(x, lo, hi, n, d, nb, out, s);
+  if (d <= 8) {
+    constexpr long long kMaxRows = 1LL << 30;
+    for (long long r0 = 0; r0 < n; r0 += kMaxRows) {
+      const int rows = (int)(n - r0 < kMaxRows ? n - r0 : kMaxRows);
+      const int e = pruned(x + r0 * d, nullptr, nullptr, 1, rows, 1, d, lo,
+                           hi, nb, out + r0, s);
+      if (e != 0) return e;
+    }
+    return 0;
+  }
   if (d <= kMaxListD) return launch_lists(x, lo, hi, n, d, nb, out, s);
-  return launch<32, 0>(x, lo, hi, n, d, nb, out, s);
+  return launch_warp(x, lo, hi, n, d, nb, out, s);
+}
+
+// box_scan_pruned: rows3 [n_blocks, block, d], cand [n_cand] block ids,
+// n_hit a device scalar (its survivor count) -> out [n_blocks * block].
+// Returns cudaGetLastError() after the launch (0 on success); launches on
+// `stream` and never synchronises. nb == 0 launches too: out all 0.
+extern "C" int box_scan_pruned_launch(const float* rows3,
+                                      const int32_t* cand,
+                                      const int32_t* n_hit, int n_blocks,
+                                      int block, int n_cand, int d,
+                                      const float* lo, const float* hi,
+                                      int nb, int32_t* out, void* stream) {
+  if (n_blocks <= 0 || block <= 0) return (int)cudaGetLastError();
+  return pruned(rows3, cand, n_hit, n_blocks, block, n_cand, d, lo, hi, nb,
+                out, (cudaStream_t)stream);
 }

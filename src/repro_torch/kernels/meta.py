@@ -32,6 +32,8 @@ SCHEMAS = {
     "zone_candidates": "(Tensor zlo, Tensor zhi, Tensor blo, Tensor bhi, "
                        "int capacity) -> (Tensor, Tensor)",
     "box_scan": "(Tensor x, Tensor lo, Tensor hi) -> Tensor",
+    "box_scan_pruned": "(Tensor rows3, Tensor cand, Tensor n_hit, "
+                       "Tensor lo, Tensor hi) -> Tensor",
     "box_scan_seg": "(Tensor x, Tensor lo, Tensor hi, Tensor onehot) "
                     "-> Tensor",
     "box_scan_seg_gather": "(Tensor rows3, Tensor cand, Tensor n_hit, "
@@ -66,6 +68,10 @@ def _zone_candidates(zlo, zhi, blo, bhi, capacity):
 
 def _box_scan(x, lo, hi):
     return _empty((x.shape[0],), torch.int32)
+
+
+def _box_scan_pruned(rows3, cand, n_hit, lo, hi):
+    return _empty((rows3.shape[0] * rows3.shape[1],), torch.int32)
 
 
 def _box_scan_seg(x, lo, hi, onehot):
@@ -141,6 +147,7 @@ def _flash_attention_bwd(q, k, v, out, lse, dout, causal):
 
 _IMPLS = {"zone_prune": _zone_prune, "zone_hits": _zone_hits,
           "zone_candidates": _zone_candidates, "box_scan": _box_scan,
+          "box_scan_pruned": _box_scan_pruned,
           "box_scan_seg": _box_scan_seg,
           "box_scan_seg_gather": _box_scan_seg_gather, "l2dist": _l2dist,
           "flash_attention": _flash_attention,

@@ -80,6 +80,16 @@ def box_scan(x, lo, hi) -> torch.Tensor:
     return _box_scan.box_scan(x, lo, hi)
 
 
+def box_scan_pruned(rows3, cand, n_hit, lo, hi) -> torch.Tensor:
+    """[NB * block] int32: the box counts of the blocks rows3[cand[s]],
+    s < min(n_hit, C), read where they lie; 0 in every other block."""
+    if _on_cpu(rows3):
+        return kref.box_scan_pruned_ref(rows3, cand, n_hit, lo, hi)
+    if _on_meta(rows3):
+        return _meta.call("box_scan_pruned", rows3, cand, n_hit, lo, hi)
+    return _box_scan.box_scan_pruned(rows3, cand, n_hit, lo, hi)
+
+
 def l2dist(x, q) -> torch.Tensor:
     """Squared L2 distance matrix [N, Q] f32."""
     if _on_cpu(x):

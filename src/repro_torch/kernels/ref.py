@@ -70,6 +70,25 @@ def box_scan_ref(x: torch.Tensor, lo: torch.Tensor,
     return out
 
 
+def box_scan_pruned_ref(rows3: torch.Tensor, cand: torch.Tensor,
+                        n_hit: torch.Tensor, lo: torch.Tensor,
+                        hi: torch.Tensor) -> torch.Tensor:
+    """rows3 [NB, block, D], cand [C], n_hit [] -> [NB * block] int32: the
+    box counts of the blocks rows3[cand[s]], s < min(n_hit, C), zero in
+    every other block. The reference's glue as it is: gather the C slots,
+    box_scan_ref them, zero the slots >= n_hit, and scatter-max into
+    zeros (fill slots repeat a block with zeroed counts, which lose)."""
+    nb, block, d = rows3.shape
+    c = cand.shape[0]
+    valid = torch.arange(c, device=rows3.device) < n_hit
+    sel = rows3.index_select(0, cand.long()).reshape(-1, d)
+    counts = box_scan_ref(sel, lo, hi).reshape(c, block) * valid[:, None]
+    out = torch.zeros((nb, block), dtype=torch.int32, device=rows3.device)
+    out = out.scatter_reduce(0, cand.long()[:, None].expand(-1, block),
+                             counts, "amax")
+    return out.reshape(-1)
+
+
 def box_scan_seg_ref(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                      onehot: torch.Tensor) -> torch.Tensor:
     """x: [N, D]; lo/hi: [B, D]; onehot: [B, Q] box->segment map ->

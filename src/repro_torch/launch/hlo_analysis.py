@@ -253,7 +253,9 @@ def _numel(spec) -> int:
 def _kernel_cost(kernel: str, ins, outs, args):
     """(dot flops, compare flops, bytes, the causal kernel's flops) of
     one kernel call: each input read once and each output written once,
-    but box_scan_seg_gather's rows, read at the gathered blocks only."""
+    but box_scan_seg_gather's and box_scan_pruned's rows, read at the
+    candidate blocks only (capacity x block x d: a trace cannot see
+    n_hit)."""
     byts = sum(_nbytes(s) for s in ins) + sum(_nbytes(s) for s in outs)
     if kernel in ("flash_attention", "flash_attention_bwd"):
         flops = flash_flops if kernel == "flash_attention" else flash_bwd_flops
@@ -263,7 +265,7 @@ def _kernel_cost(kernel: str, ins, outs, args):
     if kernel == "l2dist":
         (n, d), q = ins[0][1], ins[1][1][0]
         return 0, _KERNEL_COMPARES * n * q * d, byts, 0
-    if kernel == "box_scan_seg_gather":
+    if kernel in ("box_scan_seg_gather", "box_scan_pruned"):
         rows3, cand, boxes = ins[0], ins[1], ins[3]
         c, (_, block, d) = cand[1][0], rows3[1]
         byts += c * block * d * _DTYPE_BYTES[rows3[0]] - _nbytes(rows3)

@@ -11,8 +11,8 @@ reference ``shard_map``s:
 
   index_query   ``core/index.pruned_local_step``: zone-prune the shard's
                 zones and compact the survivors (``zone_candidates``),
-                gather at most ``capacity`` surviving blocks and scan
-                them (``box_scan``), scatter the counts back
+                scan at most ``capacity`` surviving blocks where they lie
+                and write every block's counts (``box_scan_pruned``)
   full_scan     ``box_scan`` over the whole flattened shard (the DT / RF
                 inference), at d' = 384 with 128 full-width boxes
 

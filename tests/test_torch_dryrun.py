@@ -296,6 +296,9 @@ def _kernel_inputs(seed: int = 0) -> dict:
             "zone_candidates": ("zone_candidates",
                                 (zlo, zlo + 0.2, blo, blo + 0.5, 6)),
             "box_scan": ("box_scan", (r(50, 6), blo, blo + 0.5)),
+            "box_scan_pruned": ("box_scan_pruned",
+                                (rows3, cand, torch.tensor(2), blo,
+                                 blo + 0.5)),
             "box_scan_seg": ("box_scan_seg",
                              (r(50, 6), blo, blo + 0.5, onehot)),
             "box_scan_seg_gather": ("box_scan_seg_gather",

@@ -534,6 +534,111 @@ def test_box_scan_cuda_matches_plain(cuda, n, d, b):
     assert not none.any() and none.dtype == torch.int32
 
 
+def _pruned_case(nb, block, d, b, c, m, seed):
+    """rows3 [nb, block, d] with +-inf and NaN rows, b boxes around random
+    rows (every fifth with a -inf lo or +inf hi dim, the last an
+    impossible (+inf, -inf) pad), and cand [c]: m ascending, unique block
+    ids, 0-filled as zone_candidates fills it."""
+    rng = np.random.default_rng(seed)
+    rows3 = rng.normal(0, 1, (nb, block, d)).astype(np.float32)
+    flat = rows3.reshape(-1, d)
+    n = flat.shape[0]
+    centers = flat[rng.integers(0, n, max(b, 1))][:b]
+    w = np.float32(0.3 + 0.25 * np.sqrt(d))       # wider with d
+    lo, hi = centers - w, centers + w
+    flat[rng.integers(0, n, 3), 0] = np.nan
+    flat[rng.integers(0, n, 3), d - 1] = np.inf
+    flat[rng.integers(0, n, 3), 0] = -np.inf
+    lo[::5, 0], hi[1::5, d - 1] = -np.inf, np.inf
+    if b:
+        lo[-1], hi[-1] = np.inf, -np.inf
+    cand = np.zeros(c, np.int32)
+    cand[:m] = np.sort(rng.choice(nb, m, replace=False))
+    return rows3, cand, lo, hi
+
+
+# (nb, block, d, boxes, C, live): blocks of 1,024 at d' = 6 and at every
+# d <= 8; block lengths not a multiple of 4 or 32, of one row, and one
+# item past 1,024; C > NB; more boxes than one 64 KB chunk of records
+# (1,365 at d' = 6, 455 at d = 17); no box; d = 17 (rows from the stage).
+# Where live == C, n_hit also runs past C (zone_candidates fills no slot
+# then).
+PRUNED_CUDA_CASES = [(8, 1024, 6, 16, 8, 5), (40, 1024, 6, 16, 32, 20),
+                     (8, 1024, 6, 16, 4, 4)] + [
+    (6, 1024, d, 9, 4, 4) for d in (1, 2, 3, 4, 5, 7, 8)] + [
+    (50, 37, 6, 7, 16, 11), (300, 1, 6, 5, 64, 40), (5, 3000, 6, 12, 3, 3),
+    (6, 64, 6, 9, 10, 4), (9, 101, 6, 1500, 6, 5), (12, 50, 17, 600, 8, 6),
+    (7, 1024, 17, 9, 4, 4), (10, 64, 6, 0, 4, 3)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,block,d,b,c,m", PRUNED_CUDA_CASES)
+def test_box_scan_pruned_cuda_matches_plain(cuda, nb, block, d, b, c, m):
+    """box_scan_pruned bitwise box_scan_pruned_ref at n_hit 0, within the
+    live slots, all of them, and past C where every slot is live; one
+    launch a call, two calls bitwise equal."""
+    rows3, cand, lo, hi = _t(*_pruned_case(nb, block, d, b, c, m,
+                                           seed=nb + block + d + b),
+                             device=cuda)
+    for nh in (0, m // 2, m) + ((c + 3,) if m == c else ()):
+        n_hit = torch.tensor(nh, dtype=torch.int32, device=cuda)
+        n0 = tbox_scan.pruned_launches
+        got = tbox_scan.box_scan_pruned(rows3, cand, n_hit, lo, hi)
+        again = tbox_scan.box_scan_pruned(rows3, cand, n_hit, lo, hi)
+        torch.cuda.synchronize()
+        assert tbox_scan.pruned_launches == n0 + 2
+        want = tref.box_scan_pruned_ref(rows3, cand, n_hit, lo, hi)
+        assert torch.equal(got, want), (got != want).nonzero()[:5]
+        assert torch.equal(got, again)
+        assert torch.equal(tops.box_scan_pruned(rows3, cand, n_hit, lo, hi),
+                           want)
+
+
+@pytest.mark.gpu
+def test_box_scan_pruned_cuda_one_gap_spans_the_catalog(cuda):
+    """One live block at each end of 4,096: the gap between them spans
+    most of the output and is spread over the grid."""
+    rows3, _, lo, hi = _pruned_case(4096, 64, 6, 16, 0, 0, seed=1)
+    cand = np.array([0, 4095, 0, 0], np.int32)
+    rows3, cand, lo, hi = _t(rows3, cand, lo, hi, device=cuda)
+    n_hit = torch.tensor(2, dtype=torch.int32, device=cuda)
+    got = tbox_scan.box_scan_pruned(rows3, cand, n_hit, lo, hi)
+    assert torch.equal(got, tref.box_scan_pruned_ref(rows3, cand, n_hit, lo,
+                                                     hi))
+    assert not got[64:-64].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 3, 1023, 1025, 5 * 1024 + 7,
+                               264 * 1024 * 3 + 513])
+@pytest.mark.parametrize("d", [1, 6, 8])
+def test_box_scan_narrow_cuda_matches_plain(cuda, n, d):
+    """box_scan at d <= 8, box_scan_pruned's one-block case, at N not a
+    multiple of the 1,024-row item, more items than the grid's CTAs
+    included; one launch counted on box_scan's counter only."""
+    x, lo, hi = _t(*_scan_case(n, d, 40, seed=n + d), device=cuda)
+    n0 = (tbox_scan.scan_launches, tbox_scan.pruned_launches)
+    got = tbox_scan.box_scan(x, lo, hi)
+    torch.cuda.synchronize()
+    assert (tbox_scan.scan_launches,
+            tbox_scan.pruned_launches) == (n0[0] + 1, n0[1])
+    assert torch.equal(got, tref.box_scan_ref(x, lo, hi))
+
+
+@pytest.mark.gpu
+def test_box_scan_pruned_cuda_refuses_what_it_cannot_take(cuda):
+    rows3, cand, lo, hi = _t(*_pruned_case(4, 16, 6, 3, 4, 2, seed=0),
+                             device=cuda)
+    n_hit = torch.tensor(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="cand"):
+        tbox_scan.box_scan_pruned(rows3, cand.long(), n_hit, lo, hi)
+    with pytest.raises(ValueError, match="lo"):
+        tbox_scan.box_scan_pruned(rows3, cand, n_hit, lo[:, :5], hi)
+    with pytest.raises(ValueError, match="CUDA"):
+        tbox_scan.box_scan_pruned(rows3.cpu(), cand.cpu(), n_hit.cpu(),
+                                  lo.cpu(), hi.cpu())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,q", L2_CUDA_SHAPES)
 def test_l2dist_cuda_matches_plain(cuda, n, d, q):

@@ -10,12 +10,13 @@ geometry and kernel model are equal: ``capacity_blocks``,
 and ``kernel_model_flops_per_device``.
 
 Also: the traced step is one shard's ``pruned_local_step`` (one
-zone_candidates call, one box_scan call, no collective), its kernels'
-bytes the kernel model's plus the boxes each reads and the candidate
-list; run for real on the CPU, the pruned step's counts are the unpruned
-local counts (zone_hits + box_scan) where no shard overflows, and the
-full scan's are box_scan_ref's; the CLI's ``--all`` and ``reanalyze``
-exit 0 under ``tmp_path``.
+zone_candidates call, one box_scan_pruned call, no collective), its
+kernels' bytes the kernel model's with every block's counts written in
+place of the capacity's, plus the boxes each reads and the candidate
+list written and read; run for real on the CPU, the pruned step's counts
+are the unpruned local counts (zone_hits + box_scan) where no shard
+overflows, and the full scan's are box_scan_ref's; the CLI's ``--all``
+and ``reanalyze`` exit 0 under ``tmp_path``.
 """
 from __future__ import annotations
 
@@ -101,11 +102,15 @@ def test_index_query_traces_one_shards_pruned_step(tmp_path):
     cap, block, d, n_boxes = r["capacity_blocks"], 1024, 6, 32
     nb_loc = r["shard_bytes"] // (block * d * 4)
     assert {k: v["calls"] for k, v in r["kernels"].items()} == {
-        "zone_candidates": 1, "box_scan": 1}
+        "zone_candidates": 1, "box_scan_pruned": 1}
     assert r["collectives"] == {} and r["collective_bytes_per_device"] == 0
     boxes = 2 * n_boxes * d * 4
+    # the kernel model writes the capacity's counts; box_scan_pruned
+    # writes every block's once, and reads cand and n_hit beside the
+    # boxes, as zone_candidates writes them
     assert sum(v["bytes"] for v in r["kernels"].values()) \
-        == r["kernel_model_bytes_per_device"] + 2 * boxes + 4 * cap + 4
+        == (r["kernel_model_bytes_per_device"] - cap * block * 4
+            + nb_loc * block * 4 + 2 * boxes + 2 * (4 * cap + 4))
     assert r["memory"]["argument_bytes"] \
         == r["shard_bytes"] + 2 * nb_loc * d * 4 + boxes
     assert r["memory"]["output_bytes"] == nb_loc * block * 4
